@@ -39,6 +39,11 @@ jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
