@@ -21,8 +21,11 @@ weights give a noise field whose level set folds through the whole box
 within that difference of the level. So the decoder's feature
 conditioning (fc_c) is scaled by FEATURE_GAIN: the field is then
 dominated by its smooth response to the coordinates, as a trained
-decoder's is, and the batch's seed is one whose grids keep every value
-clear of the level. The test asserts that precondition first.
+decoder's is, and each batch seed is one whose grids keep every value
+clear of the level. The test asserts that precondition first. Of the
+batch seeds 0, 1, 2 and 11 screened, 0 and 1 meet it in all four
+settings; 2 and 11 each put one grid value (of 299,008) within 4 dv of
+the level in one setting, where one cell of the two meshes may differ.
 """
 
 import copy
@@ -43,7 +46,8 @@ from test_torch_setup import CONTACTS_PER_FINGER, build_pair, make_batch
 
 
 FEATURE_GAIN = 0.05
-BATCH_SEED = 1
+BATCH_SEEDS = (0, 1)
+MAX_TRI_BOUND = 1e-2   # voxel: the most _vertex_bound may let a triangle drift
 
 
 @pytest.fixture(scope="module")
@@ -80,13 +84,15 @@ def _gates_np(gates):
     return [None if a is None else np.array(a) for a in gates[1:]]
 
 
+@pytest.mark.parametrize("batch_seed", BATCH_SEEDS)
 @pytest.mark.parametrize("mode", ["none", "contact"])
 @pytest.mark.parametrize("nx", [32, 64])
-def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode):
+def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode, batch_seed):
     """Same vertex and face counts, and the same triangles: each port
     triangle matches one JAX triangle to 1e-4 voxel, or, where an edge
     crosses the level nearly flat, to the displacement that the two
-    packages' value difference can cause there (_vertex_bound). The value
+    packages' value difference can cause there (_vertex_bound), never
+    more than MAX_TRI_BOUND; the median triangle to 1e-4. The value
     difference comes from the encoder grid, which agrees to the 1e-4 of
     test_torch_models (JAX's f32 grid is itself ~4e-5 from a float64
     evaluation, three times the port's distance); the decode alone, on
@@ -95,7 +101,7 @@ def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode):
     cfg = copy.deepcopy(cfg)
     cfg["generation"]["resolution_0"] = nx // 4
     cfg["model"]["with_img"] = mode == "contact"
-    data = make_batch(np.random.default_rng(BATCH_SEED))
+    data = make_batch(np.random.default_rng(batch_seed))
 
     class State:
         params = v["params"]
@@ -104,7 +110,7 @@ def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode):
     jgen = JGen.from_config(jmodel, cfg, band_transfer=False,
                             transfer_dtype="float32",
                             contact_per_finger=CONTACTS_PER_FINGER)
-    tgen = get_generator(tmodel, cfg, device="cpu",
+    tgen = get_generator(tmodel, cfg,
                          contact_per_finger=CONTACTS_PER_FINGER)
     np.random.seed(0)
     (jv, jf), jemd, jcd = jgen.generate_obj_mesh_wnf(State(), data)
@@ -160,7 +166,10 @@ def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode):
     assert len(np.unique(idx)) == len(idx)   # one-to-one
     dv = float(np.abs(tvals - jvals).max())
     bound = _vertex_bound(jv * nx / box + nx / 2, jvals.reshape(nx, nx, nx), dv)
-    tri_bound = bound[jf].max(axis=1)[idx]
+    tri_bound = np.minimum(bound[jf].max(axis=1)[idx], MAX_TRI_BOUND)
+    print(f"nx={nx} {mode} seed {batch_seed}: {len(idx)} triangles, largest "
+          f"distance {dist.max():.3g} voxel, {int((dist > 1e-4).sum())} beyond "
+          f"1e-4, largest allowed {tri_bound.max():.3g}")
     assert (dist <= tri_bound).all(), (dist / tri_bound).max()
     assert np.median(dist) <= 1e-4
 

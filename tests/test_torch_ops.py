@@ -157,7 +157,7 @@ def test_prep_contact_gates_with_jax_indices(rng):
         jnp.asarray((np.abs(depths[f] - d_origin) > 1e-4) & touch[f]), K,
         jax.random.fold_in(key, f))[0]) for f in range(5)])
 
-    tgen = TGen(None, contact_per_finger=K, device="cpu")
+    tgen = TGen(None, contact_per_finger=K)
     tpts, tvalid = tgen._prep_contact_gates(
         T(depths), None, T(d_origin), T(touch), T(cam_rot), T(cam_pos),
         T(pc_ply), H, W, contact_idx=idx)

@@ -164,7 +164,7 @@ def test_get_generator_rejects_unported_modes(change):
         cfg["generation"]["band_transfer"] = True
     model = get_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_generator(model, cfg, device="cpu")
+        get_generator(model, cfg)
 
 
 def test_full_width_model_loads_jax_tree():

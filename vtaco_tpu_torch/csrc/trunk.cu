@@ -12,7 +12,9 @@
 //   out[n] = w_out . relu(net) + b_out
 // With gating, c_img is the feature of the last finger that has a valid
 // contact q with |q|^2 + |p|^2 - 2 q.p < r^2 (invalid contacts carry
-// |q|^2 = 1e30), or zero when none has.
+// |q|^2 = 1e30), or zero when none has. The wrapper puts each finger's
+// valid contacts first and passes their count, so the kernel tests only
+// those: an invalid row never passes the test, so skipping it is exact.
 //
 // What bounds it on this card: about 31 kFLOP of f32 FMA work per point at
 // hidden = C = 32 and 5 blocks, against 144 B of streamed inputs (coords
@@ -30,7 +32,8 @@
 // SMs hold at once, so each block fills shared memory once. For K1 the
 // five per-finger input projections W_img g_f are precomputed by the
 // wrapper (they do not depend on the point), so gating costs only the
-// distance tests, which stop at a finger's first hit. There are no padded
+// distance tests against each finger's valid contacts, which stop at the
+// finger's first hit. There are no padded
 // tiles (each thread checks n < N), so the TPU kernel's far-away padding
 // sentinel has no counterpart here.
 //
@@ -52,8 +55,9 @@ constexpr int kThreads = 128;
 //   | bc [NB][H] | b0 [NB][H] | b1 [NB][H] | w_out [H] | b_out [4]
 // then a mode-dependent tail:
 //   MODE_CIMG:  w_img [H][C]
-//   MODE_GATED: gproj [F][H] (W_img g_f per finger) | contacts [F*K][4]
-//               (qx, qy, qz, |q|^2 or 1e30)
+//   MODE_GATED: gproj [F][H] (W_img g_f per finger) | count [F, padded to 4]
+//               (valid contacts per finger, as floats) | contacts [F*K][4]
+//               (qx, qy, qz, |q|^2 or 1e30; each finger's valid rows first)
 struct Layout {
   int wc, w0, w1, wp, bc, b0, b1, wout, bout, tail;
 };
@@ -99,16 +103,19 @@ __device__ __forceinline__ void matvec(const float* __restrict__ W,
 }
 
 // Index of the last finger with a valid contact within the radius, or -1.
-// The expanded distance is rounded step by step (no FMA contraction), as
-// the plain version computes it.
+// Finger f's count[f] valid contacts are its first rows. The expanded
+// distance is rounded step by step (no FMA contraction), as the plain
+// version computes it.
 __device__ __forceinline__ int contact_finger(const float4* __restrict__ q,
+                                              const float* __restrict__ count,
                                               int F, int K, float r2,
                                               float px, float py, float pz) {
   const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
                              __fmul_rn(pz, pz));
   int sel = -1;
   for (int f = 0; f < F; ++f) {
-    for (int k = 0; k < K; ++k) {
+    const int n_valid = (int)count[f];
+    for (int k = 0; k < n_valid; ++k) {
       const float4 c = q[f * K + k];
       const float dot = __fadd_rn(
           __fadd_rn(__fmul_rn(c.x, px), __fmul_rn(c.y, py)), __fmul_rn(c.z, pz));
@@ -156,8 +163,9 @@ trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int F, int K,
       for (int o = 0; o < H; ++o) net[o] += y[o];
     }
     if (MODE == MODE_GATED) {
-      const float4* q = reinterpret_cast<const float4*>(sm + L.tail + F * H);
-      const int sel = contact_finger(q, F, K, r2, px, py, pz);
+      const float* count = sm + L.tail + F * H;
+      const float4* q = reinterpret_cast<const float4*>(count + (F + 3) / 4 * 4);
+      const int sel = contact_finger(q, count, F, K, r2, px, py, pz);
       if (sel >= 0) {
         const float* g = sm + L.tail + sel * H;
 #pragma unroll

@@ -44,7 +44,7 @@ class Generator3D:
     def __init__(self, model, resolution0=16, padding=0.1,
                  with_img=False, encode_t2d=False, contact_per_finger=128,
                  depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
-                 transfer_dtype="auto", band_transfer="auto", device="cuda"):
+                 transfer_dtype="auto", band_transfer="auto"):
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
@@ -80,7 +80,6 @@ class Generator3D:
         self.legacy_gt_depth = legacy_gt_depth
         self.mc_level = mc_level
         self.transfer_dtype = _TRANSFER[transfer_dtype]
-        self.device = torch.device(device)
 
     @classmethod
     def from_config(cls, model, cfg, **kw):
@@ -218,9 +217,10 @@ class Generator3D:
 
         ``data`` holds the JAX loader's keys and layouts (``inputs``,
         ``inputs.img`` (B, 5, H, W, 3), ``inputs.depth``,
-        ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``).
+        ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``). It runs
+        on the device that holds ``model``'s parameters.
         Returns ((verts, faces), emd, chamfer)."""
-        dev = self.device
+        dev = next(model.parameters()).device
 
         def get(key, dtype=torch.float32):
             return torch.as_tensor(np.asarray(data[key]), dtype=dtype, device=dev)

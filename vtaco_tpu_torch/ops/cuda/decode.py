@@ -148,11 +148,18 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
         return FT.trunk_cn(tp, p, _stored(feats_cn, store_dtype), c_img)
     blob, w_img = pack_trunk_params(tp, with_img=True)
     n_fingers, K, _ = gate_pts.shape
-    q = gate_pts.reshape(n_fingers * K, 3).float()
-    q2 = torch.where(gate_valid.reshape(-1), torch.sum(q * q, dim=1),
-                     torch.full_like(q[:, 0], 1e30))
+    # each finger's valid contacts first, in their order, and their count:
+    # the kernel tests only those (an invalid row never gates a point)
+    valid = gate_valid.bool()
+    order = torch.argsort((~valid).long() * K
+                          + torch.arange(K, device=valid.device), dim=1)
+    valid = torch.gather(valid, 1, order).reshape(-1)
+    q = torch.gather(gate_pts.float(), 1, order[..., None].expand(-1, -1, 3))
+    q = q.reshape(n_fingers * K, 3)
+    q2 = torch.where(valid, torch.sum(q * q, dim=1), torch.full_like(q[:, 0], 1e30))
     gproj = gate_feat.float() @ w_img.T                  # (5, h): W_img g_f
-    blob = _pad4(torch.cat([blob, gproj.reshape(-1),
+    count = _pad4(gate_valid.sum(dim=1).float())
+    blob = _pad4(torch.cat([blob, gproj.reshape(-1), count,
                             torch.cat([q, q2[:, None]], dim=1).reshape(-1)]))
     N = _check(tp, p_cn, feats_cn, blob)
     x = _streamed(p_cn, store_dtype)
