@@ -13,13 +13,28 @@ ends:
      K = 128 contacts per finger), max abs error <= 1e-4, then its time
      (CUDA events, after warm-up, cycling three distinct input sets) beside
      its bound and the plain version's time.
-  4. main path: VTacO_YCB at full width with random weights from a seed,
+  4. window kernels: K3 (coords only, c_img rows) and K4 (contact-gated)
+     against their plain versions at N = 2^21 points sorted by super-cell
+     on the 64^3 x 32 grid, with an odd N, an L = 2 plan and an undersized
+     window whose overflow count must equal the plain count; the kernel's
+     super-cell keys against the torch keys on the card and on the CPU;
+     then timed as in phase 3.
+  5. main path: VTacO_YCB at full width with random weights from a seed,
      Generator3D.generate_obj_mesh_wnf at nx = 128 on a synthetic batch,
      contact-gated (kernel K1) and ungated (kernel K2), three warm meshes
      each (median time); launch counters are zeroed just before these
      runs and must be positive after them. Then a breakdown of a mesh by
      stage (median of three), and the dense logits of each mode held
      against the plain PyTorch trunk on the same inputs.
+  6. eval_points: the same model and batch, Generator3D.eval_points at
+     float32 transfer on (a) 2^21, (b) 100,000 and (d) 2^19 uniform points
+     in [-0.54, 0.54]^3 and (c) the shuffled 128^3 lattice, ungated and
+     contact-gated. Counters are zeroed just before; each set must take
+     the JAX package's route (ROUTES): (a) and (d) the window route (K3,
+     K4 launch; L = 1 and L = 2 plans), (b) and (c) the gather route (K1,
+     K2 launch, the window kernels do not). Median of three warm calls per
+     set and mode, a stage breakdown of the window route, and the logits
+     against the plain route on the same points.
 Then one JSON line describing the kernels, and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no such line. It needs CUDA and the rest of the
@@ -41,7 +56,14 @@ from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.cuda import build
 from vtaco_tpu_torch.ops.cuda import decode as K
-from vtaco_tpu_torch.ops.dense_decode import dense_feature_volume_cn, dense_query_grid_cn
+from vtaco_tpu_torch.ops.dense_decode import (
+    dense_feature_volume_cn,
+    dense_query_grid_cn,
+    scattered_grid_features_cn,
+    supercell_keys,
+    window_blocks,
+    window_overflow,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-4
@@ -50,6 +72,18 @@ NEAR = 1e-6              # |d2 - r^2| below which a gate decision may round eith
 N_FLAGSHIP = 128 ** 3    # resolution_0 32 -> nx 128
 WIDTH, N_BLOCKS, K_CONTACTS = 32, 5, 128
 MESH_REPS = 3            # warm meshes per mode; times are their median
+R_GRID, PADDING = 64, 0.1   # VTacO_YCB's feature grid and box padding
+# eval_points query sets: (a) the flagship's 2^21 points, (b) the config's
+# generation.batch_size, (d) 2^19 points, (c) the shuffled LATTICE_NX^3
+# lattice
+N_EVAL = {"a": N_FLAGSHIP, "b": 100_000, "d": 1 << 19}
+LATTICE_NX = 128
+# the route the JAX package takes for each set with its kernels on: (a)
+# plans at L = 1, tile 256; no window plan holds (b)'s tiles (272 points
+# overflow even at L = 2, tile 256), so it takes the gather route; (d)
+# plans at L = 2, tile 256; (c) is a lattice. tests/test_torch_window.py
+# holds the port's plans for (a), (b) and (d) against the JAX package's.
+ROUTES = {"a": "window", "b": "gather", "d": "window", "c": "gather"}
 DEVICE_STAGES = ("encode_s", "gates_s", "dense_features_s", "trunk_s", "transfer_s")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
@@ -131,6 +165,24 @@ def trunk_work(N, with_gate, tests=0, gated=0, store_bytes=4, c_img=False):
     return flops, N * rows * store_bytes + 4 * N
 
 
+def kernel_row(err, ms, plain_ms, flops, nbytes, peak):
+    """A kernel's JSON numbers: its bound is the larger of its operations
+    at the f32 rate and its bytes at the memory rate."""
+    f32_rate, bw = peak
+    by_ops = flops / f32_rate > nbytes / bw
+    return dict(err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(flops / f32_rate, nbytes / bw) * 1e3,
+                bound_by="operations" if by_ops else "bytes")
+
+
+def interp_work(N):
+    """Operations of the window kernels beyond the trunk, per point: the
+    coordinates (per axis: divide, add, compare-select, max, multiply, two
+    clamps, floor, subtract) and seven lerps per channel (two multiplies
+    and an add each, with 1 - w once per axis)."""
+    return N * (3 * 9 + 3 + 7 * 3 * WIDTH)
+
+
 def gate_stats(p, q, valid, radius, chunk=1 << 18):
     """Distance tests the kernel's loop needs (each finger tests its valid
     contacts only, and stops at its first hit), points gated, and the mask
@@ -187,7 +239,6 @@ def contact_sets(dev, seed):
 
 def kernel_phase(dev, peak):
     """K2 and K1 against their plain versions, then timed."""
-    f32_rate, bw = peak
     dec = random_decoder(dev, seed=0)
     tp = FT.extract_trunk_params(dec, with_img=False)
     tpi = FT.extract_trunk_params(dec, with_img=True)
@@ -213,13 +264,10 @@ def kernel_phase(dev, peak):
         ms = cuda_ms(lambda a, b: K.fused_trunk_cn(tp, a, b), sets, 30)
         plain_ms = cuda_ms(lambda a, b: FT.trunk_cn(tp, a, b), sets, 6)
         flops, nbytes = trunk_work(N, False)
-        bound = max(flops / f32_rate, nbytes / bw) * 1e3
-        rows["fused_trunk_cn"] = dict(
-            err=max(err, e_img, e_bf, e_odd), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="operations" if flops / f32_rate > nbytes / bw
-            else "bytes", flops=flops, bytes=nbytes)
+        rows["fused_trunk_cn"] = r = kernel_row(
+            max(err, e_img, e_bf, e_odd), ms, plain_ms, flops, nbytes, peak)
         log("kernels", kernel="fused_trunk_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, gflop=flops / 1e9, mb=nbytes / 1e6)
+            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6)
 
         # K1: spread contacts with invalid rows, clustered, all invalid,
         # bf16 storage, odd N
@@ -258,13 +306,112 @@ def kernel_phase(dev, peak):
             tpi, a, b, q, feat, valid, RADIUS), sets, 3)
         tests, gated, _ = gate_stats(p, q, valid, RADIUS)
         flops, nbytes = trunk_work(N, True, tests=tests, gated=gated)
-        bound = max(flops / f32_rate, nbytes / bw) * 1e3
-        rows["fused_trunk_gated_cn"] = dict(
-            err=max(v[0] for v in errs.values()), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by="operations" if flops / f32_rate > nbytes / bw
-            else "bytes", flops=flops, bytes=nbytes)
+        rows["fused_trunk_gated_cn"] = r = kernel_row(
+            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
         log("kernels", kernel="fused_trunk_gated_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, gflop=flops / 1e9, mb=nbytes / 1e6,
+            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6,
+            distance_tests=tests, gated_points=gated)
+    return rows
+
+
+def sorted_points(dev, g, n, L, lo=-0.54, hi=0.54):
+    """n points uniform in [lo, hi]^3, sorted by super-cell key at L."""
+    p = torch.rand((3, n), generator=g, device=dev) * (hi - lo) + lo
+    order = torch.sort(supercell_keys(p, R_GRID, PADDING, L), stable=True)[1]
+    return p[:, order].contiguous()
+
+
+def window_kernel_phase(dev, peak):
+    """K3 and K4 against their plain versions, then timed."""
+    dec = random_decoder(dev, seed=0)
+    tp = FT.extract_trunk_params(dec, with_img=False)
+    tpi = FT.extract_trunk_params(dec, with_img=True)
+    N = N_FLAGSHIP
+    g = torch.Generator(device=dev).manual_seed(5)
+    sets = [(torch.randn((R_GRID,) * 3 + (WIDTH,), generator=g, device=dev),
+             sorted_points(dev, g, N, 1)) for _ in range(3)]
+    grid, p = sets[0]
+    kw = dict(reso=R_GRID, padding=PADDING, L=1, S=128, tile=1024)
+
+    def check(tp_, p_, kw_, gate=None, c_img=None):
+        """Kernel against plain: (max error outside the near shell, near
+        count, gated points, overflow count)."""
+        n = p_.shape[1]
+        keys = torch.empty(n, dtype=torch.int32, device=dev)
+        extra = {} if c_img is None else {"c_img_cn": c_img}
+        if gate is not None:
+            extra = dict(gate_pts=gate[0], gate_feat=gate[1], gate_valid=gate[2])
+        got, n_over = K.fused_trunk_window_cn(tp_, grid, p_, keys_out=keys,
+                                              **kw_, **extra)
+        want_keys = supercell_keys(p_, R_GRID, PADDING, kw_["L"])
+        if not (torch.equal(keys, want_keys) and torch.equal(
+                want_keys.cpu(), supercell_keys(p_.cpu(), R_GRID, PADDING, kw_["L"]))):
+            raise AssertionError("kernel, torch-on-card and torch-on-CPU keys differ")
+        want_over = int(window_overflow(want_keys, kw_["tile"], kw_["S"],
+                                        window_blocks(R_GRID, kw_["L"], kw_["S"])))
+        if int(n_over) != want_over:
+            raise AssertionError(f"overflow {int(n_over)} != plain {want_over}")
+        feats = scattered_grid_features_cn(grid, p_, PADDING)
+        if gate is None:
+            want, keep, gated = FT.trunk_cn(tp_, p_, feats, c_img), None, 0
+        else:
+            want = plain_gated(tp_, p_, feats, *gate, RADIUS)
+            _, gated, keep = gate_stats(p_, gate[0], gate[2], RADIUS)
+            if int((~keep).sum()) * 20 > max(gated, 1):
+                raise AssertionError("the near-radius shell holds too many points")
+        return max_err(got, want, keep), (0 if keep is None else int((~keep).sum())), \
+            gated, want_over
+
+    rows = {}
+    with torch.no_grad():
+        errs = {"coords": check(tp, p, kw)}
+        ci = torch.randn((WIDTH, N), generator=g, device=dev)
+        errs["c_img"] = check(tpi, p, kw, c_img=ci)
+        n_odd = 1_000_003
+        errs["odd_N"] = check(tp, p[:, :n_odd], kw)
+        p2 = sorted_points(dev, g, N, 2)
+        errs["L2"] = check(tp, p2, dict(kw, L=2, tile=256))
+        errs["undersized_S"] = check(tp, p, dict(kw, S=8))
+        if errs["undersized_S"][3] == 0:
+            raise AssertionError("the undersized window counts no overflow")
+        log("kernels", kernel="fused_trunk_window_cn", N=N, n_odd=n_odd,
+            **{f"err_{k}": v[0] for k, v in errs.items()},
+            **{f"overflow_{k}": v[3] for k, v in errs.items()})
+        ms = cuda_ms(lambda a, b: K.fused_trunk_window_cn(tp, a, b, **kw), sets, 30)
+        plain_ms = cuda_ms(lambda a, b: FT.trunk_cn(
+            tp, b, scattered_grid_features_cn(a, b, PADDING)), sets, 6)
+        flops, nbytes = trunk_work(N, False)
+        flops += interp_work(N)
+        nbytes += grid.numel() * 4 - N * WIDTH * 4   # the grid, not features
+        rows["fused_trunk_window_cn"] = r = kernel_row(
+            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
+        log("kernels", kernel="fused_trunk_window_cn", ms=ms, plain_ms=plain_ms,
+            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6)
+
+        cs = contact_sets(dev, seed=6)
+        errs = {name: check(tpi, p, kw, gate=c) for name, c in cs.items()}
+        errs["odd_N"] = check(tpi, p[:, :n_odd], kw, gate=cs["invalid_rows"])
+        log("kernels", kernel="fused_trunk_window_cn:gated", N=N,
+            **{f"err_{k}": v[0] for k, v in errs.items()},
+            **{f"near_{k}": v[1] for k, v in errs.items()},
+            **{f"gated_{k}": v[2] for k, v in errs.items()})
+        if min(errs["clustered"][2], errs["invalid_rows"][2]) * 1000 < N:
+            raise AssertionError("the contact sets gate too few points")
+        q, feat, valid = cs["invalid_rows"]
+        gk = dict(kw, gate_pts=q, gate_feat=feat, gate_valid=valid)
+        ms = cuda_ms(lambda a, b: K.fused_trunk_window_cn(tpi, a, b, **gk), sets, 30)
+        plain_ms = cuda_ms(lambda a, b: plain_gated(
+            tpi, b, scattered_grid_features_cn(a, b, PADDING), q, feat, valid,
+            RADIUS), sets, 3)
+        tests, gated, _ = gate_stats(p, q, valid, RADIUS)
+        flops, nbytes = trunk_work(N, True, tests=tests, gated=gated)
+        flops += interp_work(N)
+        nbytes += grid.numel() * 4 - N * WIDTH * 4
+        rows["fused_trunk_window_cn:gated"] = r = kernel_row(
+            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
+        log("kernels", kernel="fused_trunk_window_cn:gated", ms=ms,
+            plain_ms=plain_ms, bound_ms=r["bound_ms"], gflop=flops / 1e9,
+            mb=nbytes / 1e6,
             distance_tests=tests, gated_points=gated)
     return rows
 
@@ -313,7 +460,9 @@ def check_mesh(mode, verts, faces, emd, cd, nx):
         raise AssertionError(f"{mode}: bad mesh or metrics at nx={nx}")
 
 
-def main_path_phase(dev):
+def build_model():
+    """VTacO_YCB at full width with random weights from seed 0, the
+    synthetic batch from seed 0, and a generator per mode."""
     cfg = load_config(os.path.join(REPO, "configs/VTacO/VTacO_YCB.yaml"),
                       os.path.join(REPO, "configs/default.yaml"))
     model = get_model(cfg)
@@ -323,6 +472,29 @@ def main_path_phase(dev):
     cfg_none = json.loads(json.dumps(cfg))
     cfg_none["model"]["with_img"] = False
     gens["none"] = get_generator(model, cfg_none)
+    return cfg, model, batch, gens
+
+
+def batch_tensors(batch, dev):
+    def get(key, dtype=torch.float32):
+        return torch.as_tensor(batch[key], dtype=dtype, device=dev)
+    return get
+
+
+def timer():
+    """mark(name) records the synchronized time since the last mark."""
+    t = {}
+    last = [time.perf_counter()]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        t[name] = now - last[0]
+        last[0] = time.perf_counter()
+    return t, mark
+
+
+def main_path_phase(dev, cfg, model, batch, gens):
     nx = gens["contact"].resolution0 * 4
     n_params = sum(p.numel() for p in model.parameters())
     log("main", config="configs/VTacO/VTacO_YCB.yaml", nx=nx, params=n_params,
@@ -363,46 +535,38 @@ def main_path_phase(dev):
     # a time breakdown of a mesh by stage (host clock around synchronized
     # work, median of MESH_REPS), then the dense logits of each mode against
     # the plain trunk
-    def get(key, dtype=torch.float32):
-        return torch.as_tensor(batch[key], dtype=dtype, device=dev)
+    get = batch_tensors(batch, dev)
 
     def stages(gen):
-        t = {}
-
-        def mark(name, t0):
-            torch.cuda.synchronize()
-            t[name] = time.perf_counter() - t0
-            return time.perf_counter()
-
-        t0 = time.perf_counter()
+        t, mark = timer()
         c = model.encode_inputs(get("inputs"))
-        t0 = mark("encode_s", t0)
+        mark("encode_s")
         gates = gen._build_gates(
             model, get("inputs.img"), get("inputs.depth"),
             get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
             get("points.cam_pos"), get("points.cam_rot"))
-        t0 = mark("gates_s", t0)
+        mark("gates_s")
         box = 1 + gen.padding
         feats = dense_feature_volume_cn(c, nx, box, gen.padding)
         p_cn = dense_query_grid_cn(nx, box, device=dev)
-        t0 = mark("dense_features_s", t0)
+        mark("dense_features_s")
         tp = FT.extract_trunk_params(model.decoder, with_img=gates[0] != "none")
         logits = gen._trunk_fast(tp, p_cn, feats, *gates[1:], gates[0],
                                  torch.float32, False)
-        t0 = mark("trunk_s", t0)
+        mark("trunk_s")
         host = logits.reshape(nx, nx, nx).permute(2, 1, 0).cpu().numpy()
-        t0 = mark("transfer_s", t0)
+        mark("transfer_s")
         verts, _ = marching_cubes(host)
-        t0 = mark("marching_cubes_s", t0)
+        mark("marching_cubes_s")
         verts = (verts - nx / 2) * box / nx   # as the generator scales them
         np.random.seed(0)                       # and subsamples them
         np.random.shuffle(verts)
         sample = np.ascontiguousarray(verts[:2048])
         metrics.chamfer_distance(get("points.points_obj"),
                                  torch.as_tensor(sample, device=dev)[None])
-        t0 = mark("chamfer_s", t0)
+        mark("chamfer_s")
         metrics.earth_mover_distance(batch["points.points_obj"][0], sample)
-        mark("emd_s", t0)
+        mark("emd_s")
         return t, (tp, p_cn, feats, gates, logits)
 
     with torch.no_grad():
@@ -429,6 +593,141 @@ def main_path_phase(dev):
             log("main", mode=mode, breakdown="median", **t, device_stages_s=device_s,
                 device_share=device_s / sum(t.values()),
                 emd_s_each=[r[0]["emd_s"] for r in rs])
+    return launches
+
+
+def eval_points_phase(dev, model, batch, gens):
+    """Generator3D.eval_points on sets (a), (b), (c) in both modes: routes,
+    plans, warm times, a stage breakdown of the window route, and the
+    logits against the plain route."""
+    get = batch_tensors(batch, dev)
+    with torch.no_grad():
+        c = model.encode_inputs(get("inputs"))
+        gates = {mode: gen._build_gates(
+            model, get("inputs.img"), get("inputs.depth"),
+            get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
+            get("points.cam_pos"), get("points.cam_rot"))
+            for mode, gen in gens.items()}
+    grid = c["grid"][0]
+    reso = grid.shape[0]
+    rng = np.random.default_rng(7)
+    box = 1 + PADDING
+    nx = LATTICE_NX
+    lat = box * (-0.5 + np.arange(nx, dtype=np.float32) / (nx - 1))
+    gx, gy, gz = np.meshgrid(lat, lat, lat, indexing="ij")
+    cube = np.stack([gx.ravel(), gy.ravel(), gz.ravel()], 1).astype(np.float32)
+    sets = {k: rng.uniform(-0.54, 0.54, (n, 3)).astype(np.float32)
+            for k, n in N_EVAL.items()}
+    sets["c"] = cube[rng.permutation(len(cube))]
+    counters = ((K.fused_trunk_window_cn, "launches"),
+                (K.fused_trunk_window_cn, "launches_gated"),
+                (K.fused_trunk_cn, "launches"), (K.fused_trunk_gated_cn, "launches"))
+    names = ("fused_trunk_window_cn", "fused_trunk_window_cn:gated",
+             "fused_trunk_cn", "fused_trunk_gated_cn")
+
+    def read():
+        return {n: getattr(f, a) for n, (f, a) in zip(names, counters)}
+
+    for f, a in counters:
+        setattr(f, a, 0)
+    launches = {name: 0 for name in names}
+    results = {}
+    for name, pts in sets.items():
+        for mode, gen in gens.items():
+            gating, gp, gf, gv = gates[mode]
+            before = read()
+            times, outs = [], []
+            for _ in range(1 + 3):                 # one cold call, three warm
+                t0 = time.perf_counter()
+                outs.append(gen.eval_points(model, pts, c, gating, gp, gf, gv,
+                                            transfer_dtype=torch.float32))
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            delta = {k: v - before[k] for k, v in read().items()}
+            for k in launches:
+                launches[k] += delta[k]
+            window = delta["fused_trunk_window_cn"] + delta["fused_trunk_window_cn:gated"]
+            gather = delta["fused_trunk_cn"] + delta["fused_trunk_gated_cn"]
+            route = "window" if window and not gather else (
+                "gather" if gather and not window else "mixed")
+            want_route = ROUTES[name]
+            kernel = {("window", "none"): "fused_trunk_window_cn",
+                      ("window", "contact"): "fused_trunk_window_cn:gated",
+                      ("gather", "none"): "fused_trunk_cn",
+                      ("gather", "contact"): "fused_trunk_gated_cn"}[(want_route, mode)]
+            if route != want_route or delta[kernel] != 4:
+                raise AssertionError(f"set {name} {mode}: route {route}, "
+                                     f"launches {delta}")
+            plan = None
+            if name != "c":
+                with torch.no_grad():
+                    plan = gen._window_plan(
+                        torch.as_tensor(np.ascontiguousarray(pts.T), device=dev),
+                        reso)
+                plan = plan and plan[:2]
+            results[(name, mode)] = outs[-1]
+            log("eval_points", set=name, mode=mode, n=len(pts), route=route,
+                plan=plan, call_s=float(np.median(times[1:])), call_s_each=times[1:],
+                first_call_s=times[0], **{f"launches_{k}": v for k, v in delta.items()})
+            if any(not np.array_equal(o, outs[-1]) for o in outs):
+                raise AssertionError(f"set {name} {mode}: calls differ")
+
+    with torch.no_grad():
+        # the window route stage by stage, median of three
+        for name in [k for k, v in ROUTES.items() if v == "window"]:
+            for mode, gen in gens.items():
+                gating, gp, gf, gv = gates[mode]
+                tp = FT.extract_trunk_params(model.decoder, with_img=gating != "none")
+                runs = []
+                for _ in range(3):
+                    t, mark = timer()
+                    # the host's query-set detection: complete cube, lattice
+                    if gen._try_full_grid(model, sets[name], c, gating, gp, gf, gv,
+                                          torch.float32, torch.float32) is not None:
+                        raise AssertionError(f"set {name} detected as a cube")
+                    if gen._estimate_lattice_reso(sets[name], box) is not None:
+                        raise AssertionError(f"set {name} detected as a lattice")
+                    mark("detect_s")
+                    p = torch.as_tensor(np.ascontiguousarray(sets[name].T), device=dev)
+                    mark("upload_s")
+                    L, tile, order = gen._window_plan(p, reso)
+                    mark("keys_sort_plan_s")
+                    ps = p[:, order]
+                    mark("permute_s")
+                    logits, n_over = gen._decode_scatter_window_impl(
+                        tp, ps, grid, gp, gf, gv, gating, gen.window_S, tile, L)
+                    mark("kernel_s")
+                    n_over = int(n_over)
+                    mark("overflow_read_s")
+                    out = torch.empty_like(logits)
+                    out[order] = logits
+                    mark("unsort_s")
+                    host = out.cpu().numpy()
+                    mark("transfer_s")
+                    runs.append(t)
+                med = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+                log("eval_points", set=name, mode=mode, breakdown="median", **med,
+                    staged_s=sum(med.values()))
+                if n_over != 0 or not np.array_equal(host, results[(name, mode)]):
+                    raise AssertionError(f"set {name} {mode}: staged run differs")
+
+        # every set's logits against the plain route on the same points
+        for (name, mode), got in results.items():
+            gating, gp, gf, gv = gates[mode]
+            tp = FT.extract_trunk_params(model.decoder, with_img=gating != "none")
+            p = torch.as_tensor(np.ascontiguousarray(sets[name].T), device=dev)
+            feats = scattered_grid_features_cn(grid, p, PADDING)
+            if gating == "contact":
+                want = plain_gated(tp, p, feats, gp, gf, gv, RADIUS)
+                _, gated, keep = gate_stats(p, gp, gv, RADIUS)
+            else:
+                want, keep, gated = FT.trunk_cn(tp, p, feats), None, 0
+            err = max_err(torch.as_tensor(got, device=dev), want, keep)
+            log("eval_points", set=name, mode=mode, logits_vs_plain=err,
+                gated_points=gated,
+                near_radius=0 if keep is None else int((~keep).sum()))
+    if min(launches[k] for k in names[:2]) < 1:
+        raise AssertionError(f"a window kernel never launched: {launches}")
     return launches
 
 
@@ -461,17 +760,26 @@ def main():
                 print(f"[ptxas {src}] {line.strip()}")
 
     rows = kernel_phase(dev, peak)
-    launches = main_path_phase(dev)
-    replaced = {   # the pallas_call each kernel replaces
-        "fused_trunk_cn": "vtaco_tpu/ops/pallas/decode.py:522",
-        "fused_trunk_gated_cn": "vtaco_tpu/ops/pallas/decode.py:641",
+    rows.update(window_kernel_phase(dev, peak))
+    cfg, model, batch, gens = build_model()
+    launches = main_path_phase(dev, cfg, model, batch, gens)
+    eval_launches = eval_points_phase(dev, model, batch, gens)
+    replaced = {   # the source of each kernel and the pallas_call it replaces
+        "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
+        "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),
+        "fused_trunk_window_cn": ("window.cu", "vtaco_tpu/ops/pallas/decode.py:442"),
+        "fused_trunk_window_cn:gated": ("window.cu",
+                                        "vtaco_tpu/ops/pallas/decode.py:406"),
     }
+    # K1/K2 launches from the mesh path, K3/K4 from the eval_points path
+    launches.update({k: eval_launches[k] for k in
+                     ("fused_trunk_window_cn", "fused_trunk_window_cn:gated")})
     kernels = []
-    for kname, replaces in replaced.items():
+    for kname, (source, replaces) in replaced.items():
         r = rows[kname]
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "vtaco_tpu_torch/csrc/trunk.cu", "replaces": replaces,
+            "source": f"vtaco_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -1,4 +1,5 @@
-"""The CUDA trunk kernels against their plain PyTorch versions on the card.
+"""The CUDA trunk kernels (K1, K2 in csrc/trunk.cu; K3, K4 in
+csrc/window.cu) against their plain PyTorch versions on the card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -19,6 +20,7 @@ import torch
 from vtaco_tpu_torch.models.decoder import LocalDecoder
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import decode as K
+from vtaco_tpu_torch.ops.dense_decode import supercell_keys
 
 ATOL = 1e-4
 
@@ -120,3 +122,53 @@ def test_wrapper_rejects_other_widths(cuda):
     p, f = _inputs(cuda, 1000, width=16)
     with pytest.raises(NotImplementedError):
         K.fused_trunk_cn(FT.extract_trunk_params(dec, with_img=False), p, f)
+
+
+def _window_inputs(device, N, L, R=64, seed=3):
+    """A random (R, R, R, 32) grid and N points in [-0.62, 0.62]³ (border
+    outliers included), sorted by their super-cell keys at L."""
+    g = torch.Generator().manual_seed(seed)
+    grid = torch.randn((R, R, R, 32), generator=g).to(device)
+    p = (torch.rand((3, N), generator=g) * 1.24 - 0.62).to(device)
+    order = torch.sort(supercell_keys(p, R, 0.1, L), stable=True)[1]
+    return grid, p[:, order].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["coords", "c_img", "invalid_rows",
+                                     "clustered", "all_invalid"])
+@pytest.mark.parametrize("L,S", [(1, 128), (2, 128), (1, 8)])
+def test_fused_trunk_window_cn(cuda, variant, L, S):
+    """K3 (coords, c_img rows) and K4 (gated) against window_trunk_plain:
+    logits, the overflow count (positive for the undersized S = 8; these
+    100,003 points are sparse enough to overflow S = 128 too), and the
+    kernel's keys against the torch keys on the card."""
+    N, R, radius = 100_003, 64, 0.05
+    dec = random_decoder(cuda)
+    grid, p = _window_inputs(cuda, N, L)
+    gated = variant not in ("coords", "c_img")
+    tp = FT.extract_trunk_params(dec, with_img=variant != "coords")
+    kw = dict(reso=R, padding=0.1, L=L, S=S, tile=256)
+    if variant == "c_img":
+        kw["c_img_cn"] = torch.randn((32, N), device=cuda)
+    if gated:
+        q, feat, valid = _contacts(cuda, variant)
+        kw.update(gate_pts=q, gate_feat=feat, gate_valid=valid, radius=radius)
+    keys = torch.empty(N, dtype=torch.int32, device=cuda)
+    counter = "launches_gated" if gated else "launches"
+    with torch.no_grad():
+        before = getattr(K.fused_trunk_window_cn, counter)
+        got, n_over = K.fused_trunk_window_cn(tp, grid, p, keys_out=keys, **kw)
+        assert getattr(K.fused_trunk_window_cn, counter) == before + 1
+        want, want_over = K.window_trunk_plain(tp, grid, p, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(keys, supercell_keys(p, R, 0.1, L))
+    assert int(n_over) == int(want_over)
+    assert int(n_over) > 0 or S != 8
+    assert got.shape == (N,) and got.dtype == torch.float32
+    keep = torch.ones(N, dtype=torch.bool, device=cuda)
+    if gated:
+        d2 = FT.contact_sq_dist(p, q, valid)
+        keep = ~torch.any(torch.abs(d2 - radius * radius) < 1e-6, dim=0)
+    assert int((~keep).sum()) * 100 <= N
+    assert float(torch.max(torch.abs(got - want)[keep])) < ATOL

@@ -4,17 +4,12 @@
 //   MODE_CIMG    fused_trunk_cn (K2) with precomputed per-point c_img rows
 //   MODE_GATED   fused_trunk_gated_cn (K1), contact gating fused in
 //
-// What it computes, per query point n (columns of channels-first inputs):
-//   net = W_in [p; c_img] + b_in
-//   for each block i: net += Wc_i f + bc_i
-//                     h    = W0_i relu(net) + b0_i
-//                     net += W1_i relu(h) + b1_i
-//   out[n] = w_out . relu(net) + b_out
-// With gating, c_img is the feature of the last finger that has a valid
-// contact q with |q|^2 + |p|^2 - 2 q.p < r^2 (invalid contacts carry
-// |q|^2 = 1e30), or zero when none has. The wrapper puts each finger's
-// valid contacts first and passes their count, so the kernel tests only
-// those: an invalid row never passes the test, so skipping it is exact.
+// What it computes, per query point n (columns of channels-first inputs),
+// is the chain of trunk_chain.cuh on the point's coords and its
+// precomputed (C, N) features. With gating, invalid contacts carry
+// |q|^2 = 1e30; the wrapper puts each finger's valid contacts first and
+// passes their count, so the kernel tests only those: an invalid row never
+// passes the test, so skipping it is exact.
 //
 // What bounds it on this card: about 31 kFLOP of f32 FMA work per point at
 // hidden = C = 32 and 5 blocks, against 144 B of streamed inputs (coords
@@ -40,94 +35,11 @@
 // Streamed inputs may be stored as bf16 (T = __nv_bfloat16); the math is
 // f32 either way, as in the TPU kernel's store_dtype mode.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "trunk_chain.cuh"
 
 namespace {
 
-enum Mode { MODE_COORDS = 0, MODE_CIMG = 1, MODE_GATED = 2 };
-
-constexpr int kThreads = 128;
-
-// Packed weight blob, in floats (the wrapper's pack order, ops/cuda/decode.py):
-//   wc [NB][H][C] | w0 [NB][H][H] | w1 [NB][H][H] | wp [H][4] (x, y, z, b_in)
-//   | bc [NB][H] | b0 [NB][H] | b1 [NB][H] | w_out [H] | b_out [4]
-// then a mode-dependent tail:
-//   MODE_CIMG:  w_img [H][C]
-//   MODE_GATED: gproj [F][H] (W_img g_f per finger) | count [F, padded to 4]
-//               (valid contacts per finger, as floats) | contacts [F*K][4]
-//               (qx, qy, qz, |q|^2 or 1e30; each finger's valid rows first)
-struct Layout {
-  int wc, w0, w1, wp, bc, b0, b1, wout, bout, tail;
-};
-
-__host__ __device__ inline Layout make_layout(int H, int C, int NB) {
-  Layout L;
-  L.wc = 0;
-  L.w0 = L.wc + NB * H * C;
-  L.w1 = L.w0 + NB * H * H;
-  L.wp = L.w1 + NB * H * H;
-  L.bc = L.wp + 4 * H;
-  L.b0 = L.bc + NB * H;
-  L.b1 = L.b0 + NB * H;
-  L.wout = L.b1 + NB * H;
-  L.bout = L.wout + H;
-  L.tail = L.bout + 4;
-  return L;
-}
-
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-// y[o] = sum_k W[o][k] x[k], W row-major (NO x NK) in shared memory.
-template <int NO, int NK>
-__device__ __forceinline__ void matvec(const float* __restrict__ W,
-                                       const float (&x)[NK], float (&y)[NO]) {
-#pragma unroll
-  for (int o = 0; o < NO; ++o) {
-    const float4* row = reinterpret_cast<const float4*>(W + o * NK);
-    float s = 0.f;
-#pragma unroll
-    for (int k4 = 0; k4 < NK / 4; ++k4) {
-      const float4 w = row[k4];
-      s = fmaf(w.x, x[4 * k4 + 0], s);
-      s = fmaf(w.y, x[4 * k4 + 1], s);
-      s = fmaf(w.z, x[4 * k4 + 2], s);
-      s = fmaf(w.w, x[4 * k4 + 3], s);
-    }
-    y[o] = s;
-  }
-}
-
-// Index of the last finger with a valid contact within the radius, or -1.
-// Finger f's count[f] valid contacts are its first rows. The expanded
-// distance is rounded step by step (no FMA contraction), as the plain
-// version computes it.
-__device__ __forceinline__ int contact_finger(const float4* __restrict__ q,
-                                              const float* __restrict__ count,
-                                              int F, int K, float r2,
-                                              float px, float py, float pz) {
-  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
-                             __fmul_rn(pz, pz));
-  int sel = -1;
-  for (int f = 0; f < F; ++f) {
-    const int n_valid = (int)count[f];
-    for (int k = 0; k < n_valid; ++k) {
-      const float4 c = q[f * K + k];
-      const float dot = __fadd_rn(
-          __fadd_rn(__fmul_rn(c.x, px), __fmul_rn(c.y, py)), __fmul_rn(c.z, pz));
-      const float d2 = __fsub_rn(__fadd_rn(c.w, p2), __fmul_rn(2.f, dot));
-      if (d2 < r2) {
-        sel = f;
-        break;
-      }
-    }
-  }
-  return sel;
-}
+using namespace trunk;
 
 template <typename T, int H, int C, int MODE>
 __global__ void __launch_bounds__(kThreads)
@@ -135,10 +47,8 @@ trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int F, int K,
              float r2, const T* __restrict__ p, const T* __restrict__ feats,
              const T* __restrict__ c_img, float* __restrict__ out, long long N) {
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const float4* blob4 = reinterpret_cast<const float4*>(blob);
-  for (int i = threadIdx.x; i < n_floats / 4; i += blockDim.x) smem4[i] = blob4[i];
-  __syncthreads();
+  stage_weights(smem4, blob, n_floats);
+  const float* sm = reinterpret_cast<const float*>(smem4);
 
   const Layout L = make_layout(H, C, NB);
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -149,55 +59,12 @@ trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int F, int K,
     const float pz = load_f32(p + 2 * N + n);
 
     float net[H];
-#pragma unroll
-    for (int o = 0; o < H; ++o) {
-      const float4 w = reinterpret_cast<const float4*>(sm + L.wp)[o];
-      net[o] = fmaf(w.z, pz, fmaf(w.y, py, w.x * px));
-    }
-    if (MODE == MODE_CIMG) {
-      float ci[C], y[H];
-#pragma unroll
-      for (int k = 0; k < C; ++k) ci[k] = load_f32(c_img + (long long)k * N + n);
-      matvec<H, C>(sm + L.tail, ci, y);
-#pragma unroll
-      for (int o = 0; o < H; ++o) net[o] += y[o];
-    }
-    if (MODE == MODE_GATED) {
-      const float* count = sm + L.tail + F * H;
-      const float4* q = reinterpret_cast<const float4*>(count + (F + 3) / 4 * 4);
-      const int sel = contact_finger(q, count, F, K, r2, px, py, pz);
-      if (sel >= 0) {
-        const float* g = sm + L.tail + sel * H;
-#pragma unroll
-        for (int o = 0; o < H; ++o) net[o] += g[o];
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < H; ++o) net[o] += sm[L.wp + 4 * o + 3];
+    input_projection<T, H, C, MODE>(sm, L, F, K, r2, px, py, pz, c_img, n, N, net);
 
     float f[C];
 #pragma unroll
     for (int k = 0; k < C; ++k) f[k] = load_f32(feats + (long long)k * N + n);
-
-    for (int b = 0; b < NB; ++b) {
-      float a[H], h[H];
-      matvec<H, C>(sm + L.wc + b * H * C, f, h);
-#pragma unroll
-      for (int o = 0; o < H; ++o) {
-        net[o] += h[o] + sm[L.bc + b * H + o];
-        a[o] = fmaxf(net[o], 0.f);
-      }
-      matvec<H, H>(sm + L.w0 + b * H * H, a, h);
-#pragma unroll
-      for (int o = 0; o < H; ++o) a[o] = fmaxf(h[o] + sm[L.b0 + b * H + o], 0.f);
-      matvec<H, H>(sm + L.w1 + b * H * H, a, h);
-#pragma unroll
-      for (int o = 0; o < H; ++o) net[o] += h[o] + sm[L.b1 + b * H + o];
-    }
-    float s = sm[L.bout];
-#pragma unroll
-    for (int k = 0; k < H; ++k) s = fmaf(sm[L.wout + k], fmaxf(net[k], 0.f), s);
-    out[n] = s;
+    out[n] = chain<H, C>(sm, L, NB, net, f);
   }
 }
 
@@ -209,20 +76,9 @@ int launch(const float* blob, int n_floats, int H, int C, int NB, int F, int K,
   if (N <= 0) return (int)cudaSuccess;
   auto kernel = trunk_kernel<T, 32, 32, MODE>;
   const int smem = n_floats * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  cudaError_t err = grid_blocks(kernel, smem, N, &blocks);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long want = (N + kThreads - 1) / kThreads;
-  const long long cap = (long long)sms * per_sm;
-  const int blocks = (int)(want < cap ? want : cap);
   kernel<<<blocks, kThreads, smem, stream>>>(
       blob, n_floats, NB, F, K, r2, static_cast<const T*>(p),
       static_cast<const T*>(feats), static_cast<const T*>(c_img), out, N);

@@ -1,15 +1,21 @@
-"""Mesh generation: dense occupancy decode + marching cubes + metrics
-(port of the per-object path of vtaco_tpu/generate/generator.py:
-``from_config`` :249-314, ``_finalize_logits`` :476-490,
-``_decode_dense_fast_impl`` :492-517, ``_trunk_fast`` :701-749,
-``eval_points_dense`` :751, ``_prep_contact_gates`` :1597-1629,
-``_build_gates`` :2175-2210 and ``generate_obj_mesh_wnf`` :2212-2293
-through its full-volume branch).
+"""Mesh generation and occupancy decode (port of
+vtaco_tpu/generate/generator.py: ``from_config`` :249-314,
+``_finalize_logits`` :476-490, ``_decode_dense_fast_impl`` :492-517,
+``_decode_scatter_fast_impl`` :601-635, ``_decode_scatter_window_impl``
+:637-699, ``_trunk_fast`` :701-749, ``eval_points_dense`` :751, query-set
+detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
+:1288-1478, ``eval_points`` :1480-1533, ``_prep_contact_gates``
+:1597-1629, ``_build_gates`` :2175-2210 and ``generate_obj_mesh_wnf``
+:2212-2293 through its full-volume branch).
 
 The dense decode runs the decoder trunk as one CUDA kernel over all nx³
 query points: K1 (``fused_trunk_gated_cn``) with contact gating, K2
-(``fused_trunk_cn``) without. On CPU tensors the same wrappers run their
-plain PyTorch versions.
+(``fused_trunk_cn``) without. ``eval_points`` routes an arbitrary query
+set as the JAX package does with its Pallas kernels on: a complete cube
+to the dense decode, a lattice to the corner gather + K1/K2, any other
+set to the sorted window route, whose kernel (``fused_trunk_window_cn``:
+K3, or K4 with contact gating) interpolates and decodes in one pass. On
+CPU tensors the same wrappers run their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -23,10 +29,19 @@ import torch
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
-from vtaco_tpu_torch.ops.cuda.decode import fused_trunk_cn, fused_trunk_gated_cn
+from vtaco_tpu_torch.ops.cuda.decode import (
+    fused_trunk_cn,
+    fused_trunk_gated_cn,
+    fused_trunk_window_cn,
+)
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
     dense_query_grid_cn,
+    device_scalar,
+    scattered_grid_features_cn,
+    supercell_keys,
+    window_blocks,
+    window_overflow,
 )
 from vtaco_tpu_torch.ops.geometry import norm_pc_1, pc_cam_to_world
 from vtaco_tpu_torch.train.contact import (
@@ -38,18 +53,36 @@ from vtaco_tpu_torch.train.contact import (
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
+_FIELDS = ("grid", "xz", "xy", "yz")
+
+
+def _transfer(td):
+    """A transfer dtype given as a torch dtype, 'int8', or a config name."""
+    return _TRANSFER[td] if isinstance(td, str) else td
+
+
+def _host(out):
+    """Finalized logits → host (N,) float32 numpy."""
+    if isinstance(out, tuple):           # int8: (quantized, scale)
+        q, scale = out
+        return q.cpu().numpy().astype(np.float32) * float(scale)
+    return out.float().cpu().numpy()
 
 
 class Generator3D:
     def __init__(self, model, resolution0=16, padding=0.1,
                  with_img=False, encode_t2d=False, contact_per_finger=128,
                  depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
-                 transfer_dtype="auto", band_transfer="auto"):
+                 transfer_dtype="auto", band_transfer="auto", coord_quant="auto"):
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
         ``band_transfer``: the iso-band transfer (generate/band.py) is not
-        ported; 'auto' resolves to off and true raises."""
+        ported; 'auto' resolves to off and true raises.
+        ``coord_quant``: round non-lattice query coords of ``eval_points``
+        to uint16 steps of the box (error ≤ box/2¹⁶/2) before decoding, as
+        the JAX package does for its host link. 'auto' resolves to off,
+        true turns it on."""
         if isinstance(mc_level, bool) or not (
                 mc_level in ("midpoint", "mean")
                 or isinstance(mc_level, (int, float))):
@@ -61,6 +94,9 @@ class Generator3D:
         if band_transfer not in ("auto", True, False):
             raise ValueError("generation.band_transfer must be 'auto', true, "
                              f"or false; got {band_transfer!r}")
+        if coord_quant not in ("auto", True, False):
+            raise ValueError("generation.coord_quant must be 'auto', true, or "
+                             f"false; got {coord_quant!r}")
         if band_transfer is True:
             raise NotImplementedError("band_transfer (generate/band.py) is not "
                                       "ported yet (ROADMAP.md)")
@@ -80,12 +116,20 @@ class Generator3D:
         self.legacy_gt_depth = legacy_gt_depth
         self.mc_level = mc_level
         self.transfer_dtype = _TRANSFER[transfer_dtype]
+        self.coord_quant = coord_quant is True
+        # eval_points slices its input above this many points, as the JAX
+        # package does; the window route's tile and window sizes are the
+        # JAX plan's, so that the port picks the same route and plan
+        self.scatter_slice_points = 1 << 22
+        self.window_tile = 1024
+        self.window_S = 128
 
     @classmethod
     def from_config(cls, model, cfg, **kw):
         gen = cfg["generation"]
         if cfg["data"].get("input_type") == "pointcloud_crop":
-            raise NotImplementedError("crop volumes are not ported yet")
+            raise NotImplementedError("crop volumes are not ported yet "
+                                      "(ROADMAP.md)")
         depth_origin = None
         dpath = cfg["data"].get("depth_origin")
         if dpath and os.path.exists(dpath):
@@ -100,6 +144,7 @@ class Generator3D:
             **{"mc_level": gen.get("mc_level", "midpoint"),
                "transfer_dtype": gen.get("transfer_dtype", "auto"),
                "band_transfer": gen.get("band_transfer", "auto"),
+               "coord_quant": gen.get("coord_quant", "auto"),
                "legacy_gt_depth": cfg["training"].get("legacy_gt_depth", True),
                **kw},
         )
@@ -122,7 +167,8 @@ class Generator3D:
         gating, K2 without; the plain trunk only for leaky decoders (the
         kernels hardcode ReLU), as the JAX package routes them."""
         if gating == "tips":
-            raise NotImplementedError("fingertip gating is not ported yet")
+            raise NotImplementedError("fingertip gating needs the hand encoder, "
+                                      "which is not ported yet (ROADMAP.md)")
         store = dtype if dtype != torch.float32 else None
         if not leaky:
             if gating == "contact":
@@ -136,15 +182,18 @@ class Generator3D:
         return FT.trunk_cn(tp, p_cn, feats, c_img, dtype=dtype, leaky=True)
 
     def _decode_dense_fast_impl(self, tp, c, gate_pts, gate_feat, gate_valid,
-                                nx, gating, dtype, leaky, out_dtype=None):
-        """Whole-grid decode; logits flattened x-slowest (the marching-cubes
-        order), rounded through ``out_dtype``."""
+                                nx, gating, dtype, leaky, out_dtype=None,
+                                out_xmajor=True):
+        """Whole-grid decode, rounded through ``out_dtype``; logits
+        flattened x-slowest (the marching-cubes order), or z-slowest, the
+        decode's own order, with ``out_xmajor=False``."""
         box_size = 1 + self.padding
         feats = dense_feature_volume_cn(c, nx, box_size, self.padding, dtype)
         p_cn = dense_query_grid_cn(nx, box_size, device=feats.device)
         logits = self._trunk_fast(tp, p_cn, feats, gate_pts, gate_feat,
                                   gate_valid, gating, dtype, leaky)
-        logits = logits.reshape(nx, nx, nx).permute(2, 1, 0).reshape(-1)
+        if out_xmajor:
+            logits = logits.reshape(nx, nx, nx).permute(2, 1, 0).reshape(-1)
         return self._finalize_logits(logits, out_dtype)
 
     def eval_points_dense(self, model, nx, c, gating="none", gate_pts=None,
@@ -152,15 +201,309 @@ class Generator3D:
                           transfer_dtype=torch.bfloat16):
         """Dense nx³ decode. Returns host (nx³,) float32 logits flattened
         x-slowest, rounded through ``transfer_dtype``."""
+        return self._eval_points_dense_ordered(
+            model, nx, True, c, gating, gate_pts, gate_feat, gate_valid,
+            transfer_dtype, dtype)
+
+    def _eval_points_dense_ordered(self, model, nx, xmajor, c, gating,
+                                   gate_pts, gate_feat, gate_valid,
+                                   transfer_dtype, dtype=torch.float32):
+        """Dense nx³ decode to host f32 logits in the flattening that
+        ``xmajor`` names (see _full_grid_order)."""
         decoder = model.decoder
         tp = FT.extract_trunk_params(decoder, with_img=gating != "none")
-        out = self._decode_dense_fast_impl(
+        return _host(self._decode_dense_fast_impl(
             tp, c, gate_pts, gate_feat, gate_valid, nx, gating, dtype,
-            decoder.leaky, out_dtype=transfer_dtype)
-        if transfer_dtype == "int8":
-            q, scale = out
-            return q.cpu().numpy().astype(np.float32) * float(scale)
-        return out.float().cpu().numpy()
+            decoder.leaky, out_dtype=_transfer(transfer_dtype),
+            out_xmajor=xmajor))
+
+    # ------------------------------------------------------------------
+    # arbitrary query points: eval_points and its routes
+    @staticmethod
+    def _estimate_lattice_reso(p, box, max_reso=4096):
+        """Sampled denominator estimate for grid-structured query sets: if
+        every sampled coordinate looks like ``box·(i/R − 0.5)`` for one
+        R ≤ max_reso, return R, else None. A sample can only
+        under-estimate R; the encode's verify pass then rejects it."""
+        from fractions import Fraction
+        from math import gcd
+
+        s = np.asarray(p, np.float64).reshape(-1, 3)
+        if s.size == 0:
+            return None
+        # whole rows, so that every axis is sampled
+        vals = (s[:: max(1, len(s) // 64)][:64] / box + 0.5).reshape(-1)
+        # negated in-range form: NaN and inf fail it
+        if not (vals.min() >= -1e-6 and vals.max() <= 1 + 1e-6):
+            return None
+        reso = 1
+        for v in vals:
+            f = Fraction(float(v)).limit_denominator(max_reso)
+            if abs(float(f) - v) > 1e-5:
+                return None
+            reso = reso * f.denominator // gcd(reso, f.denominator)
+            if reso > max_reso:
+                return None
+        return reso
+
+    @staticmethod
+    def _lattice_encode_host(p, box, reso, npad):
+        """(N, 3) f32 world coords → ((3, npad) uint8/int16 lattice nodes,
+        max residual in lattice units). A caller that accepts the residual
+        snaps each point to its nearest node; NaN, inf or out-of-range
+        coords force a rejection."""
+        n = len(p)
+        w = np.asarray(p, np.float32).T * (reso / box) + 0.5 * reso
+        r = np.rint(w)
+        ok = n == 0 or bool(np.isfinite(w).all())
+        resid = float(np.abs(w - r).max()) if (n and ok) else 0.0
+        if n and not (ok and r.min() >= 0 and r.max() <= reso):
+            resid = 1e9
+        out = np.zeros((3, npad), np.uint8 if reso <= 255 else np.int16)
+        out[:, :n] = np.where(np.isfinite(r), r, 0)
+        return out, resid
+
+    @staticmethod
+    def _full_grid_order(pts_cn, n, R1):
+        """Is the (3, ≥n) integer lattice array exactly the complete R1³
+        cube in a canonical flattening? ``True`` for x-slowest / z-fastest
+        (the reference's make_3d_grid order), ``False`` for the dense
+        decode's x-fastest order, ``None`` for anything else."""
+        if n != R1 ** 3:
+            return None
+        x = pts_cn[0, :n]
+        y = pts_cn[1, :n]
+        z = pts_cn[2, :n]
+        m = min(R1, n)
+        head = np.arange(m, dtype=pts_cn.dtype)
+        for fast_axis, xmajor in ((z, True), (x, False)):
+            if not np.array_equal(fast_axis[:m], head):
+                continue
+            a, b = (x, z) if xmajor else (z, x)
+            f = (a.astype(np.int64) * R1 + y) * R1 + b
+            if np.array_equal(f, np.arange(n, dtype=np.int64)):
+                return xmajor
+        return None
+
+    def _try_full_grid(self, model, pf, c, gating, gate_pts, gate_feat,
+                       gate_valid, transfer_dtype, dtype):
+        """A complete-cube f32 query set in a canonical order goes through
+        the dense decode, whose coords are made on the device. Returns host
+        (N,) f32 logits in the caller's order, or None."""
+        n = len(pf)
+        if n < 8 or not np.issubdtype(pf.dtype, np.floating):
+            return None
+        R1 = int(round(n ** (1 / 3)))
+        if R1 ** 3 != n or not 2 <= R1 <= 4097:
+            return None
+        cand, resid = self._lattice_encode_host(pf, 1 + self.padding, R1 - 1, n)
+        if resid > 1e-3:
+            return None
+        xmajor = self._full_grid_order(cand, n, R1)
+        if xmajor is None:
+            return None
+        return self._eval_points_dense_ordered(
+            model, R1, xmajor, c, gating, gate_pts, gate_feat, gate_valid,
+            transfer_dtype, dtype)
+
+    def _world_coords(self, pts, lattice_reso=None, coord_quant=False):
+        """(3, N) device coords as encoded → f32 world coords: lattice
+        nodes ``box·(i/R − 0.5)``, uint16 steps ``box·(q/65535 − 0.5)``, or
+        the f32 coords themselves."""
+        box = 1 + self.padding
+        if lattice_reso is not None:
+            return box * (pts.float() / device_scalar(lattice_reso, pts.device) - 0.5)
+        if coord_quant:
+            return box * (pts.float() / device_scalar(65535.0, pts.device) - 0.5)
+        return pts
+
+    def _decode_scatter_fast_impl(self, tp, p_cn, c, gate_pts, gate_feat,
+                                  gate_valid, gating, dtype, leaky,
+                                  out_dtype=None):
+        """The gather route: corner-gather features at the (3, N) world
+        coords, then the trunk of the dense path (K1/K2)."""
+        if set(c) & set(_FIELDS) != {"grid"}:
+            raise NotImplementedError(
+                "plane feature fields are not ported yet (ROADMAP.md)")
+        g = c["grid"]
+        g = g[0] if g.ndim == 5 else g
+        feats = scattered_grid_features_cn(g, p_cn, self.padding, dtype)
+        logits = self._trunk_fast(tp, p_cn, feats, gate_pts, gate_feat,
+                                  gate_valid, gating, dtype, leaky)
+        return self._finalize_logits(logits, out_dtype)
+
+    def _window_plan(self, p_cn, reso):
+        """The cheapest (L, tile) whose windows hold every tile of the
+        points sorted by super-cell: L = 1 (plain cells) before L = 2,
+        larger tiles first, as the JAX package plans. Returns
+        ``(L, tile, order)`` with the points' stable sort order, or None
+        when nothing fits."""
+        S = self.window_S
+        for L in (1, 2):
+            keys, order = torch.sort(
+                supercell_keys(p_cn, reso, self.padding, L), stable=True)
+            n_blk = window_blocks(reso, L, S)
+            for tile in (self.window_tile, self.window_tile // 2,
+                         self.window_tile // 4):
+                if int(window_overflow(keys, tile, S, n_blk)) == 0:
+                    return L, tile, order
+        return None
+
+    def _decode_scatter_window_impl(self, tp, p_sorted, grid, gate_pts,
+                                    gate_feat, gate_valid, gating, S, tile, L):
+        """The window kernel over points in super-cell order: K4 with
+        contact gating, K3 without. Returns (logits, n_overflow)."""
+        kw = dict(reso=grid.shape[0], padding=self.padding, L=L, S=S,
+                  tile=tile)
+        if gating == "contact":
+            return fused_trunk_window_cn(tp, grid, p_sorted, gate_pts=gate_pts,
+                                         gate_feat=gate_feat,
+                                         gate_valid=gate_valid, **kw)
+        return fused_trunk_window_cn(tp, grid, p_sorted, **kw)
+
+    def _try_window_scatter(self, tp, p_cn, c, gating, gate_pts, gate_feat,
+                            gate_valid, out_dtype, leaky):
+        """The sorted window route for (3, n) world coords on the device:
+        sort by super-cell, decode, un-sort. Returns the finalized logits in
+        the caller's order, or None where the JAX package takes the gather
+        route: a leaky decoder (the kernels hardcode ReLU), plane features,
+        a non-cubic or tiny grid, NaN coords, no plan that fits, or a
+        nonzero overflow count from the kernel's keys."""
+        if leaky or gating not in ("none", "contact"):
+            return None
+        if set(c) & set(_FIELDS) != {"grid"}:
+            return None
+        g = c["grid"]
+        g = g[0] if g.ndim == 5 else g
+        reso = g.shape[0]
+        if not (g.shape[0] == g.shape[1] == g.shape[2]) or reso < 4:
+            return None
+        if bool(torch.isnan(p_cn).any()):
+            return None
+        plan = self._window_plan(p_cn, reso)
+        if plan is None:
+            return None
+        L, tile, order = plan
+        logits, n_overflow = self._decode_scatter_window_impl(
+            tp, p_cn[:, order], g.float(), gate_pts, gate_feat, gate_valid,
+            gating, self.window_S, tile, L)
+        if int(n_overflow) != 0:
+            return None
+        out = torch.empty_like(logits)
+        out[order] = logits
+        return self._finalize_logits(out, out_dtype)
+
+    @torch.inference_mode()
+    def eval_points_fast(self, model, pointsf, c, gating="none", gate_pts=None,
+                         gate_feat=None, gate_valid=None,
+                         transfer_dtype=torch.bfloat16, dtype=torch.float32,
+                         lattice_reso=None, coord_quant=None,
+                         detect_lattice=True, detect_dense=True):
+        """Decode (N, 3) host query points → host (N,) float32 logits,
+        rounded through ``transfer_dtype``, routed as the JAX package
+        routes them with its kernels on:
+
+        - a complete cube in a canonical order (``detect_dense``): the
+          dense decode;
+        - a lattice (``lattice_reso=R`` for an integer (N, 3) input, or a
+          detected one with ``detect_lattice``: points within 1e-3 lattice
+          units of a node snap to it): the corner gather + K1/K2;
+        - any other set: the sorted window route (K3/K4), or the gather
+          route where the window route declines.
+
+        ``coord_quant`` True rounds non-lattice coords to uint16 steps of
+        the box first; None defers to the generator's setting, after the
+        lattice encodings have been tried."""
+        n = pointsf.shape[0]
+        if n == 0:
+            return np.zeros(0, np.float32)
+        decoder = model.decoder
+        tp = FT.extract_trunk_params(decoder, with_img=gating != "none")
+        dev = next(model.parameters()).device
+        td = _transfer(transfer_dtype)
+        gates = (gate_pts, gate_feat, gate_valid)
+        box = 1 + self.padding
+        pf = np.asarray(pointsf)
+        pts = None
+        if coord_quant is None:
+            coord_quant, quant_fallback = False, self.coord_quant
+        else:
+            quant_fallback = False
+        if (lattice_reso is None and not coord_quant and detect_lattice
+                and np.issubdtype(pf.dtype, np.floating)):
+            if detect_dense:
+                out = self._try_full_grid(model, pf, c, gating, *gates, td,
+                                          dtype)
+                if out is not None:
+                    return out
+            reso = self._estimate_lattice_reso(pf, box)
+            if reso is not None:
+                cand, resid = self._lattice_encode_host(pf, box, reso, n)
+                if resid <= 1e-3:
+                    pts, lattice_reso = cand, reso
+        if pts is None and lattice_reso is None:
+            if coord_quant or quant_fallback:
+                u = pf.astype(np.float32).T / box + 0.5
+                q = np.round(np.clip(u, 0.0, 1.0) * 65535.0).astype(np.int32)
+                p = self._world_coords(torch.as_tensor(q, device=dev),
+                                       coord_quant=True)
+            else:
+                p = torch.as_tensor(
+                    np.ascontiguousarray(pf.astype(np.float32, copy=False).T),
+                    device=dev)
+            out = self._try_window_scatter(tp, p, c, gating, *gates, td,
+                                           decoder.leaky)
+            if out is None:
+                out = self._decode_scatter_fast_impl(
+                    tp, p, c, *gates, gating, dtype, decoder.leaky, td)
+            return _host(out)
+        if pts is None:                       # an integer lattice input
+            if (detect_dense and np.issubdtype(pf.dtype, np.integer)
+                    and n == (lattice_reso + 1) ** 3):
+                xm = self._full_grid_order(np.ascontiguousarray(pf.T), n,
+                                           lattice_reso + 1)
+                if xm is not None:
+                    return self._eval_points_dense_ordered(
+                        model, lattice_reso + 1, xm, c, gating, *gates, td,
+                        dtype)
+            u8 = (lattice_reso <= 255 and pf.size
+                  and pf.min() >= 0 and pf.max() <= 255)
+            pts = pf.astype(np.uint8 if u8 else np.int16).T
+        p = self._world_coords(
+            torch.as_tensor(np.ascontiguousarray(pts), device=dev), lattice_reso)
+        return _host(self._decode_scatter_fast_impl(
+            tp, p, c, *gates, gating, dtype, decoder.leaky, td))
+
+    @torch.inference_mode()
+    def eval_points(self, model, pointsf, c, gating="none", gate_pts=None,
+                    gate_feat=None, gate_valid=None,
+                    transfer_dtype=torch.bfloat16, fast=None):
+        """Occupancy logits at (N, 3) host points → host (N,) float32 (the
+        reference's public decode API, generation.py:338-383), through
+        :meth:`eval_points_fast`: whole up to ``scatter_slice_points``
+        points; above that a complete cube goes to the dense decode whole
+        and any other set in slices. ``fast=False``, the chunked legacy
+        decode, is not ported."""
+        if fast is False:
+            raise NotImplementedError("eval_points(fast=False), the chunked "
+                                      "legacy decode, is not ported yet "
+                                      "(ROADMAP.md)")
+        kw = dict(gating=gating, gate_pts=gate_pts, gate_feat=gate_feat,
+                  gate_valid=gate_valid, transfer_dtype=transfer_dtype)
+        n = pointsf.shape[0]
+        lim = self.scatter_slice_points
+        if n <= lim:
+            return self.eval_points_fast(model, pointsf, c, **kw)
+        pf = np.asarray(pointsf)
+        if np.issubdtype(pf.dtype, np.floating):
+            out = self._try_full_grid(model, pf, c, gating, gate_pts, gate_feat,
+                                      gate_valid, _transfer(transfer_dtype),
+                                      torch.float32)
+            if out is not None:
+                return out
+        return np.concatenate([
+            self.eval_points_fast(model, pointsf[i:i + lim], c, **kw)
+            for i in range(0, n, lim)])
 
     # ------------------------------------------------------------------
     def _prep_contact_gates(self, gt_depths, pred_depths, d_origin, touch,

@@ -3,8 +3,9 @@ them with ctypes.
 
 Each source under ``vtaco_tpu_torch/csrc/`` becomes one library, compiled
 for ``sm_90a`` by ``nvcc`` at first use into ``vtaco_tpu_torch/_build/``
-(listed in .gitignore). The library name carries a hash of its source, so
-an edited source is rebuilt and a stale library is never loaded.
+(listed in .gitignore). The library name carries a hash of its source and
+of every header under ``csrc/`` (the kernels share ``trunk_chain.cuh``), so
+an edited source or header is rebuilt and a stale library is never loaded.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 
@@ -20,7 +21,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("trunk",)
+SOURCES = ("trunk", "window")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,9 +40,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all(names=SOURCES) -> dict:

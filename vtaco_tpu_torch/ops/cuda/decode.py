@@ -1,15 +1,19 @@
 """Fused decoder-trunk kernels for Hopper, with their plain versions
 (port of vtaco_tpu/ops/pallas/decode.py: ``pack_trunk_params`` :35-61,
-``fused_trunk_cn`` :457 and ``fused_trunk_gated_cn`` :538).
+``fused_trunk_window_cn`` :294, ``fused_trunk_cn`` :457 and
+``fused_trunk_gated_cn`` :538).
 
-Both kernels live in ``csrc/trunk.cu`` (see its header for what bounds
-them on the card and how the design answers it); this module packs the
-weights, checks the inputs and launches them through ctypes.
+K1 and K2 live in ``csrc/trunk.cu``, K3 and K4 (the two branches of
+``fused_trunk_window_cn``) in ``csrc/window.cu``; see each source's header
+for what bounds it on the card and how the design answers it. This module
+packs the weights, checks the inputs and launches them through ctypes.
 
 Wrapper contract: CPU tensors take the plain PyTorch version in
 ops/fast_trunk.py (the function the kernel computes); CUDA tensors launch
 the kernel or raise — nothing falls back. Each wrapper counts its launches
-in ``<wrapper>.launches``, incremented only where the kernel is launched.
+in ``<wrapper>.launches``, incremented only where the kernel is launched
+(``fused_trunk_window_cn`` counts its gated branch, K4, in
+``.launches_gated``).
 ``store_dtype=torch.bfloat16`` stores the streamed per-point operands as
 bf16 (coords, features, c_img) while all math stays f32; the plain path
 rounds the same operands the same way.
@@ -20,10 +24,17 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import build
+from vtaco_tpu_torch.ops.dense_decode import (
+    scattered_grid_features_cn,
+    supercell_keys,
+    window_blocks,
+    window_overflow,
+)
 
 WIDTHS = (32, 32)  # (hidden, C) the kernel is instantiated for
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
@@ -74,19 +85,33 @@ def _lib():
     return lib
 
 
-def _check(tp, p_cn, feats_cn, blob):
+@functools.cache
+def _window_lib():
+    lib = build.library("window")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.window_cn_launch.argtypes = [P, I, I, I, I, I, I, F, I, P, P, I, F, F,
+                                     I, I, P, P, P, ctypes.c_longlong, P]
+    lib.window_cn_launch.restype = I
+    return lib
+
+
+def _check(tp, p_cn, C, blob, *others):
+    """N, after checking the widths, that the coords are (3, N) and each
+    (C, N) operand in ``others`` matches, and that all share one CUDA
+    device with the weights."""
     dev = p_cn.device
     if dev.type != "cuda":
         raise ValueError(f"the trunk kernels take CUDA or CPU tensors, got {dev}")
-    C, N = feats_cn.shape
+    N = p_cn.shape[-1]
     h = tp["fc_out"][0].shape[1]
     if (h, C) != WIDTHS:
         raise NotImplementedError(
             f"the CUDA trunk is instantiated for hidden = C = 32 (every "
             f"LocalDecoder config in configs/); got hidden={h}, C={C}")
-    if p_cn.shape != (3, N):
-        raise ValueError(f"coords must be (3, {N}), got {tuple(p_cn.shape)}")
-    if feats_cn.device != dev or blob.device != dev:
+    if p_cn.shape != (3, N) or any(t.shape != (C, N) for t in others):
+        raise ValueError(f"coords must be (3, N) and features ({C}, N), got "
+                         f"{[tuple(t.shape) for t in (p_cn, *others)]}")
+    if any(t.device != dev for t in (blob, *others)):
         raise ValueError("coords, features and weights must share one device")
     if blob.numel() * 4 > SMEM_LIMIT:
         raise ValueError(f"{blob.numel() * 4} B of weights exceed shared memory")
@@ -106,6 +131,27 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} failed with CUDA error {rc}")
 
 
+def _gated_blob(tp, gate_pts, gate_feat, gate_valid):
+    """The fc_p_img weight blob with the contact tail of the gated mode:
+    W_img g_f per finger, the per-finger valid counts, and the contacts
+    with |q|² (1e30 on invalid rows), each finger's valid rows first in
+    their order, so the kernel tests only those (an invalid row never
+    gates a point)."""
+    blob, w_img = pack_trunk_params(tp, with_img=True)
+    n_fingers, K, _ = gate_pts.shape
+    valid = gate_valid.bool()
+    order = torch.argsort((~valid).long() * K
+                          + torch.arange(K, device=valid.device), dim=1)
+    valid = torch.gather(valid, 1, order).reshape(-1)
+    q = torch.gather(gate_pts.float(), 1, order[..., None].expand(-1, -1, 3))
+    q = q.reshape(n_fingers * K, 3)
+    q2 = torch.where(valid, torch.sum(q * q, dim=1), torch.full_like(q[:, 0], 1e30))
+    gproj = gate_feat.float() @ w_img.T                  # (5, h): W_img g_f
+    count = _pad4(gate_valid.sum(dim=1).float())
+    return _pad4(torch.cat([blob, gproj.reshape(-1), count,
+                            torch.cat([q, q2[:, None]], dim=1).reshape(-1)]))
+
+
 def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
     """K2: the ungated fused trunk. p_cn (3, N), feats_cn (C, N), optional
     c_img_cn (C, N) → (N,) float32 logits, for any N."""
@@ -117,7 +163,7 @@ def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
     if w_img is not None:
         blob = torch.cat([blob, w_img.reshape(-1)])
     blob = _pad4(blob)
-    N = _check(tp, p_cn, feats_cn, blob)
+    N = _check(tp, p_cn, feats_cn.shape[0], blob, feats_cn)
     x = _streamed(p_cn, store_dtype)
     f = _streamed(feats_cn, store_dtype)
     ci = None if c_img_cn is None else _streamed(c_img_cn, store_dtype)
@@ -146,22 +192,9 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
         p = _stored(p_cn, store_dtype)
         c_img = FT.gate_contact_cn(p, gate_pts, gate_feat, gate_valid, radius)
         return FT.trunk_cn(tp, p, _stored(feats_cn, store_dtype), c_img)
-    blob, w_img = pack_trunk_params(tp, with_img=True)
+    blob = _gated_blob(tp, gate_pts, gate_feat, gate_valid)
     n_fingers, K, _ = gate_pts.shape
-    # each finger's valid contacts first, in their order, and their count:
-    # the kernel tests only those (an invalid row never gates a point)
-    valid = gate_valid.bool()
-    order = torch.argsort((~valid).long() * K
-                          + torch.arange(K, device=valid.device), dim=1)
-    valid = torch.gather(valid, 1, order).reshape(-1)
-    q = torch.gather(gate_pts.float(), 1, order[..., None].expand(-1, -1, 3))
-    q = q.reshape(n_fingers * K, 3)
-    q2 = torch.where(valid, torch.sum(q * q, dim=1), torch.full_like(q[:, 0], 1e30))
-    gproj = gate_feat.float() @ w_img.T                  # (5, h): W_img g_f
-    count = _pad4(gate_valid.sum(dim=1).float())
-    blob = _pad4(torch.cat([blob, gproj.reshape(-1), count,
-                            torch.cat([q, q2[:, None]], dim=1).reshape(-1)]))
-    N = _check(tp, p_cn, feats_cn, blob)
+    N = _check(tp, p_cn, feats_cn.shape[0], blob, feats_cn)
     x = _streamed(p_cn, store_dtype)
     f = _streamed(feats_cn, store_dtype)
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
@@ -176,3 +209,97 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
 
 
 fused_trunk_gated_cn.launches = 0
+
+
+def window_trunk_plain(tp, grid, p_cn, *, reso, padding, L, S, tile,
+                       c_img_cn=None, gate_pts=None, gate_feat=None,
+                       gate_valid=None, radius=0.015, keys_out=None):
+    """The function K3/K4 compute, in plain PyTorch: the corner-gather
+    features (``scattered_grid_features_cn``) into ``trunk_cn``, with
+    ``gate_contact_cn`` for K4, and the window overflow count."""
+    keys = supercell_keys(p_cn, reso, padding, L)
+    if keys_out is not None:
+        keys_out.copy_(keys)
+    n_overflow = window_overflow(keys, tile, S, window_blocks(reso, L, S))
+    feats = scattered_grid_features_cn(grid, p_cn, padding)
+    if gate_pts is not None:
+        c_img_cn = FT.gate_contact_cn(p_cn, gate_pts, gate_feat, gate_valid,
+                                      radius)
+    return FT.trunk_cn(tp, p_cn, feats, c_img_cn), n_overflow
+
+
+def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
+                          c_img_cn=None, gate_pts=None, gate_feat=None,
+                          gate_valid=None, radius=0.015, keys_out=None):
+    """K3 (ungated, optionally with c_img rows) and K4 (contact-gated): the
+    trunk at arbitrary points with the trilinear interpolation of ``grid``
+    fused in. The contract of the JAX package's ``fused_trunk_window_cn``.
+
+    grid (R, R, R, C) f32 channels-last (``reso`` = R); p_cn (3, N) f32
+    world coords in super-cell order (``supercell_keys`` at L), any N;
+    c_img_cn (C, N) extra input-projection rows (fc_p_img weights), or the
+    gate_* contact gating (fc_p_img, as ``fused_trunk_gated_cn``), not both.
+    Returns ``(logits (N,) f32, n_overflow)``: n_overflow, a 0-dim int64
+    tensor, counts the points whose super-cell lies outside their tile's
+    2S window (tiles of ``tile`` consecutive points, windows as the JAX
+    kernel places them). The kernel's logits are right for every point
+    whatever the count; the count tells the caller that its plan and the
+    keys disagree, as it tells the JAX caller that the TPU kernel's were
+    clamped. ``keys_out`` (N,) int32, if given, receives the keys the count
+    was taken from: the kernel's own on CUDA. On CUDA a NaN coordinate
+    reads as 0 where the plain version gives NaN."""
+    if gate_pts is not None and c_img_cn is not None:
+        raise ValueError("c_img rows and contact gating are exclusive")
+    gated = gate_pts is not None
+    if p_cn.device.type == "cpu":
+        return window_trunk_plain(
+            tp, grid, p_cn, reso=reso, padding=padding, L=L, S=S, tile=tile,
+            c_img_cn=c_img_cn, gate_pts=gate_pts, gate_feat=gate_feat,
+            gate_valid=gate_valid, radius=radius, keys_out=keys_out)
+    if gated:
+        blob = _gated_blob(tp, gate_pts, gate_feat, gate_valid)
+        n_fingers, K, _ = gate_pts.shape
+        mode = 2
+    else:
+        blob, w_img = pack_trunk_params(tp, with_img=c_img_cn is not None)
+        if w_img is not None:
+            blob = torch.cat([blob, w_img.reshape(-1)])
+        blob = _pad4(blob)
+        n_fingers = K = 0
+        mode = 0 if c_img_cn is None else 1
+    if grid.shape != (reso,) * 3 + (grid.shape[-1],) or grid.dtype != torch.float32:
+        raise ValueError(f"grid must be ({reso},)*3 + (C,) float32, got "
+                         f"{tuple(grid.shape)} {grid.dtype}")
+    if p_cn.dtype != torch.float32:
+        raise ValueError(f"coords must be float32, got {p_cn.dtype}")
+    C = grid.shape[-1]
+    N = _check(tp, p_cn, C, blob, *([] if c_img_cn is None else [c_img_cn]))
+    if grid.device != p_cn.device:
+        raise ValueError("coords and grid must share one device")
+    x = p_cn.contiguous()
+    g = grid.contiguous()
+    ci = None if c_img_cn is None else _streamed(c_img_cn, None)
+    keys = keys_out if keys_out is not None else torch.empty(
+        N, dtype=torch.int32, device=p_cn.device)
+    if (keys.shape != (N,) or keys.dtype != torch.int32
+            or keys.device != p_cn.device or not keys.is_contiguous()):
+        raise ValueError("keys_out must be a contiguous (N,) int32 tensor on "
+                         "the coords' device")
+    out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
+    n1 = -(-(reso - 1) // L)
+    rc = _window_lib().window_cn_launch(
+        blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
+        float(radius) * float(radius), mode, x.data_ptr(), g.data_ptr(), reso,
+        float(np.float32(1 + padding + 10e-4)), float(np.float32(1 - 10e-4)),
+        L, n1, None if ci is None else ci.data_ptr(), out.data_ptr(),
+        keys.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
+    _raise_on(rc, "window_cn_launch")
+    if gated:
+        fused_trunk_window_cn.launches_gated += 1
+    else:
+        fused_trunk_window_cn.launches += 1
+    return out, window_overflow(keys, tile, S, window_blocks(reso, L, S))
+
+
+fused_trunk_window_cn.launches = 0
+fused_trunk_window_cn.launches_gated = 0

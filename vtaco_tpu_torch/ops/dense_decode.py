@@ -1,5 +1,5 @@
-"""Dense-grid decode inputs: gather-free separable interpolation
-(port of vtaco_tpu/ops/dense_decode.py:25-143).
+"""Decode inputs: grid features at the query points, channels-first
+(port of vtaco_tpu/ops/dense_decode.py:25-143 and 146-241).
 
 The mesh-extraction queries form a regular nx³ grid, so trilinear
 sampling of the (R, R, R, C) feature grid factorizes into three 1D
@@ -7,6 +7,12 @@ align-corners interpolations, each a matmul with a fixed (nx, R) matrix.
 These are plain large products, left to ``torch.einsum`` as the JAX
 package leaves them to XLA. Outputs are channels-first (C, N) with N
 flattened z-slowest, the layout the decoder trunk streams.
+
+Arbitrary query points take the corner gather instead
+(``scattered_grid_features_cn``), and the sorted window route keys them
+by super-cell (``supercell_keys``). Keys must equal the JAX package's bit
+for bit, since the window plan and its overflow count depend on them, so
+the coordinate math divides by a ``device_scalar``.
 """
 
 from __future__ import annotations
@@ -69,3 +75,94 @@ def dense_query_grid_cn(nx: int, box_size: float, device="cuda"):
     gy = coords[None, :, None].expand(nx, nx, nx)
     gx = coords[None, None, :].expand(nx, nx, nx)
     return torch.stack([gx.reshape(-1), gy.reshape(-1), gz.reshape(-1)])
+
+
+def device_scalar(x, device):
+    """A float32 scalar tensor on ``device``. Divide by this, not by a
+    Python number: CUDA divides by a host scalar as a multiply by its
+    reciprocal, which rounds differently from an IEEE division."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def _base_coords(p_cn, dims, padding: float):
+    """(3, N) world coords → per-axis base corners (int32, clamped to
+    dim-2) and pixel coordinates (f32), for axis sizes ``dims`` = (W, H, D)
+    of x, y, z: normalization with the 3-D epsilon (outlier-only remap),
+    align-corners, border clamp. Every step is one IEEE f32 operation."""
+    p_cn = p_cn.to(torch.float32)
+    u = p_cn / device_scalar(1 + padding + 10e-4, p_cn.device) + 0.5
+    u = torch.where(u >= 1.0, device_scalar(1 - 10e-4, u.device),
+                    torch.clamp(u, min=0.0))
+    pix, base = [], []
+    for a, n in enumerate(dims):
+        x = torch.clamp(u[a] * (n - 1), 0.0, n - 1)
+        pix.append(x)
+        base.append(torch.clamp(torch.floor(x), max=n - 2).to(torch.int32))
+    return base, pix
+
+
+def supercell_base_coords(p_cn, reso: int, padding: float):
+    """(3, N) world coords → ``(x0, y0, z0, x, y, z)``: int32 base corners
+    and f32 pixel coordinates on a cubic ``reso`` grid, exactly the
+    coordinate math of :func:`scattered_grid_features_cn`."""
+    base, pix = _base_coords(p_cn, (reso,) * 3, padding)
+    return (*base, *pix)
+
+
+def supercell_keys(p_cn, reso: int, padding: float, L: int = 1):
+    """(3, N) world coords → (N,) int32 flat super-cell ids
+    ``sx + n1·(sy + n1·sz)``, super-cells of L×L×L cells,
+    ``n1 = ceil((reso-1)/L)``, x fastest."""
+    n1 = -(-(reso - 1) // L)
+    x0, y0, z0, _, _, _ = supercell_base_coords(p_cn, reso, padding)
+    return (x0 // L) + n1 * ((y0 // L) + n1 * (z0 // L))
+
+
+def window_blocks(reso: int, L: int, S: int) -> int:
+    """Number of S-wide column blocks of the JAX package's super-cell
+    packed volume (``supercell_packed_volume``: n1³ columns padded to a
+    multiple of S, at least 2S)."""
+    n1 = -(-(reso - 1) // L)
+    return max(2 * S, -(-n1 ** 3 // S) * S) // S
+
+
+def window_overflow(keys, tile: int, S: int, n_blk: int):
+    """Points whose super-cell falls outside their tile's 2S window, for
+    ``keys`` of points in sorted order cut into tiles of ``tile``: a tile's
+    window starts at block ``clip(first key // S, 0, n_blk - 2)``. A
+    ragged last tile is padded with copies of the last key, as the JAX
+    package pads its points. Returns a 0-dim int64 tensor."""
+    n = keys.numel()
+    if n == 0:
+        return torch.zeros((), dtype=torch.int64, device=keys.device)
+    keys = torch.cat([keys, keys[-1:].expand((-n) % tile)]).view(-1, tile)
+    kblk = torch.clamp(keys[:, 0] // S, 0, n_blk - 2)
+    local = keys - (kblk * S)[:, None]
+    return torch.sum((local < 0) | (local >= 2 * S))
+
+
+def scattered_grid_features_cn(g, p_cn, padding: float, dtype=torch.float32):
+    """(Z, Y, X, C) grid + (3, N) world coords → (C, N) trilinear features:
+    ``interp_grid(grid, normalize_3d_coordinate(p))`` semantics
+    (align-corners, border clamp, outlier-only remap with the 3-D epsilon).
+    The base corner is clamped to dim-2, so its +1 neighbour always
+    exists; the 2×2×2 corners are combined x first, then y, then z, as the
+    JAX package combines them."""
+    D, H, W, C = g.shape
+    (x0, y0, z0), (x, y, z) = _base_coords(p_cn, (W, H, D), padding)
+    wx = (x - x0).to(dtype)[None]
+    wy = (y - y0).to(dtype)[None]
+    wz = (z - z0).to(dtype)[None]
+    gf = g.to(dtype).reshape(-1, C)
+    row = (z0.long() * H + y0) * W + x0
+
+    def corner(dz, dy, dx):
+        return gf[row + (dz * H + dy) * W + dx].T
+
+    c00 = corner(0, 0, 0) * (1 - wx) + corner(0, 0, 1) * wx
+    c01 = corner(0, 1, 0) * (1 - wx) + corner(0, 1, 1) * wx
+    c10 = corner(1, 0, 0) * (1 - wx) + corner(1, 0, 1) * wx
+    c11 = corner(1, 1, 0) * (1 - wx) + corner(1, 1, 1) * wx
+    c0 = c00 * (1 - wy) + c01 * wy
+    c1 = c10 * (1 - wy) + c11 * wy
+    return c0 * (1 - wz) + c1 * wz
