@@ -12,13 +12,22 @@ ends:
      flagship shapes (N = 128^3 query points, C = hidden = 32, 5 blocks,
      K = 128 contacts per finger), max abs error <= 1e-4, then its time
      (CUDA events, after warm-up, cycling three distinct input sets) beside
-     its bound and the plain version's time.
+     its bound and the plain version's time. The bound is the largest of
+     the 32 x 32 chain products at the 3xTF32 tensor-core rate (a third of
+     the TF32 rate, the card's fastest f32-accurate unit), the other
+     operations at the f32 CUDA-core rate and the bytes at the memory
+     rate; bound_f32_ms puts every operation on the CUDA cores.
   4. window kernels: K3 (coords only, c_img rows) and K4 (contact-gated)
      against their plain versions at N = 2^21 points sorted by super-cell
-     on the 64^3 x 32 grid, with an odd N, an L = 2 plan and an undersized
-     window whose overflow count must equal the plain count; the kernel's
-     super-cell keys against the torch keys on the card and on the CPU;
-     then timed as in phase 3.
+     on the 64^3 x 32 grid, with an odd N, N below one tile, unsorted
+     points, an L = 2 plan and an undersized window whose overflow count
+     must equal the plain count, and for K4 a contact set placed at
+     r (1 +- 1e-6) from the kernel's tile boxes, 32 times the contacts per
+     finger, and weights and contacts made under torch.inference_mode; the
+     kernel's super-cell keys against the torch keys on the card and on the
+     CPU; then timed as in phase 3, K4's bound counting the distance tests
+     of its culled per-tile contact lists (K.window_gate_candidates), and
+     the wrappers' host time per call at 2^19 points.
   5. main path: VTacO_YCB at full width with random weights from a seed,
      Generator3D.generate_obj_mesh_wnf at nx = 128 on a synthetic batch,
      contact-gated (kernel K1) and ungated (kernel K2), three warm meshes
@@ -87,8 +96,10 @@ ROUTES = {"a": "window", "b": "gather", "d": "window", "c": "gather"}
 DEVICE_STAGES = ("encode_s", "gates_s", "dense_features_s", "trunk_s", "transfer_s")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
-# two operations) and HBM bandwidth, by the product name the driver reports.
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12), "SXM": (67e12, 3.35e12)}
+# two operations), TF32 on the tensor cores, and HBM bandwidth, by the
+# product name the card reports.
+PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417e12, 3.9e12),
+         "SXM": (67e12, 495e12, 3.35e12)}
 
 
 def log(phase, **kw):
@@ -152,27 +163,48 @@ def randomize(model, seed):
 
 
 def trunk_work(N, with_gate, tests=0, gated=0, store_bytes=4, c_img=False):
-    """(operations, bytes) the trunk needs on these inputs: two per
-    multiply-add of every layer; with gating, 8 per distance test the data
-    needs (up to a finger's first hit) and one add of h per gated point.
-    Bytes: coords, features (and c_img rows) read once, logits written."""
+    """[chain products' operations, other operations, bytes] the trunk
+    needs on these inputs: two operations per multiply-add of every layer,
+    the 32 x 32 products (c_img rows, wc, w0, w1) apart from the input
+    projection of the coords and the head; with gating, 8 per distance
+    test the data needs and one add of h per gated point. Bytes: coords,
+    features (and c_img rows) read once, logits written."""
     h = c = WIDTH
-    in_dim = 3 + (c if c_img else 0)
-    flops = 2 * N * (in_dim * h + N_BLOCKS * (c * h + 2 * h * h) + h)
+    chain = 2 * N * (N_BLOCKS * (c * h + 2 * h * h) + (c * h if c_img else 0))
+    other = 2 * N * (3 * h + h)
     if with_gate:
-        flops += 8 * tests + h * gated
+        other += 8 * tests + h * gated
     rows = 3 + c + (c if c_img else 0)
-    return flops, N * rows * store_bytes + 4 * N
+    return [chain, other, N * rows * store_bytes + 4 * N]
 
 
-def kernel_row(err, ms, plain_ms, flops, nbytes, peak):
-    """A kernel's JSON numbers: its bound is the larger of its operations
-    at the f32 rate and its bytes at the memory rate."""
-    f32_rate, bw = peak
-    by_ops = flops / f32_rate > nbytes / bw
+def kernel_row(err, ms, plain_ms, work, peak):
+    """A kernel's JSON numbers. bound_ms is the largest of the chain
+    products at the 3xTF32 tensor-core rate, the other operations at the
+    f32 CUDA-core rate and the bytes at the memory rate; bound_f32_ms puts
+    all operations on the CUDA cores."""
+    chain, other, nbytes = work
+    f32_rate, tf32_rate, bw = peak
+    t_ops = max(chain / (tf32_rate / 3), other / f32_rate)
     return dict(err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(flops / f32_rate, nbytes / bw) * 1e3,
-                bound_by="operations" if by_ops else "bytes")
+                bound_ms=max(t_ops, nbytes / bw) * 1e3,
+                bound_by="operations" if t_ops > nbytes / bw else "bytes",
+                bound_f32_ms=max((chain + other) / f32_rate, nbytes / bw) * 1e3)
+
+
+def host_ms(fn, arg_sets, reps):
+    """Host time per call of fn, the time it takes to enqueue its work:
+    the mean over reps calls cycling through arg_sets, after one warm-up
+    call per set."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(*arg_sets[i % len(arg_sets)])
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
 
 def interp_work(N):
@@ -183,20 +215,34 @@ def interp_work(N):
     return N * (3 * 9 + 3 + 7 * 3 * WIDTH)
 
 
-def gate_stats(p, q, valid, radius, chunk=1 << 18):
-    """Distance tests the kernel's loop needs (each finger tests its valid
-    contacts only, and stops at its first hit), points gated, and the mask
-    of points farther than NEAR from the radius for every valid contact."""
+def gate_stats(p, q, valid, radius, chunk=1 << 16, tile=None):
+    """Distance tests the kernel's loop needs, points gated, and the mask
+    of points farther than NEAR from the radius for every valid contact.
+    Without ``tile``, K1's loop: each finger tests its valid contacts and
+    stops at its first hit. With ``tile``, K4's: each point tests its
+    tile's candidate contacts (K.window_gate_candidates) from the last,
+    stopping at its first hit."""
     n_f, k, _ = q.shape
     upto = valid.long().cumsum(1)        # valid rows up to each row, per finger
+    if tile is not None:
+        cand = K.window_gate_candidates(p, q, valid, radius, tile)
+        cand = cand.reshape(cand.shape[0], n_f * k)
+        chunk -= chunk % tile
     tests = gated = 0
     keep = []
     for s in range(0, p.shape[1], chunk):
         d2 = FT.contact_sq_dist(p[:, s:s + chunk], q, valid)
-        hit = (d2 < radius * radius).reshape(n_f, k, -1)
-        any_f = hit.any(1)
-        first = torch.gather(upto, 1, hit.to(torch.uint8).argmax(1))
-        tests += int(torch.where(any_f, first, upto[:, -1:]).sum())
+        hit = d2 < radius * radius
+        any_f = hit.reshape(n_f, k, -1).any(1)
+        if tile is None:
+            first = torch.gather(upto, 1, hit.reshape(n_f, k, -1).to(torch.uint8).argmax(1))
+            tests += int(torch.where(any_f, first, upto[:, -1:]).sum())
+        else:
+            rows = torch.arange(s, s + d2.shape[1], device=p.device) // tile
+            c = cand[rows].T                                   # (F K, n)
+            rank = c.to(torch.int32).cumsum(0, dtype=torch.int32)
+            last = (rank * (hit & c)).amax(0)                  # 0: no hit
+            tests += int(torch.where(last > 0, rank[-1] - last + 1, rank[-1]).sum())
         gated += int(any_f.any(0).sum())
         keep.append(~torch.any(torch.abs(d2 - radius * radius) < NEAR, 0))
     return tests, gated, torch.cat(keep)
@@ -263,11 +309,12 @@ def kernel_phase(dev, peak):
             err_bf16=e_bf, err_odd_N=e_odd, n_odd=n_odd)
         ms = cuda_ms(lambda a, b: K.fused_trunk_cn(tp, a, b), sets, 30)
         plain_ms = cuda_ms(lambda a, b: FT.trunk_cn(tp, a, b), sets, 6)
-        flops, nbytes = trunk_work(N, False)
+        work = trunk_work(N, False)
         rows["fused_trunk_cn"] = r = kernel_row(
-            max(err, e_img, e_bf, e_odd), ms, plain_ms, flops, nbytes, peak)
+            max(err, e_img, e_bf, e_odd), ms, plain_ms, work, peak)
         log("kernels", kernel="fused_trunk_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6)
+            bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+            chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6)
 
         # K1: spread contacts with invalid rows, clustered, all invalid,
         # bf16 storage, odd N
@@ -305,11 +352,12 @@ def kernel_phase(dev, peak):
         plain_ms = cuda_ms(lambda a, b: plain_gated(
             tpi, a, b, q, feat, valid, RADIUS), sets, 3)
         tests, gated, _ = gate_stats(p, q, valid, RADIUS)
-        flops, nbytes = trunk_work(N, True, tests=tests, gated=gated)
+        work = trunk_work(N, True, tests=tests, gated=gated)
         rows["fused_trunk_gated_cn"] = r = kernel_row(
-            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
+            max(v[0] for v in errs.values()), ms, plain_ms, work, peak)
         log("kernels", kernel="fused_trunk_gated_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6,
+            bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+            chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6,
             distance_tests=tests, gated_points=gated)
     return rows
 
@@ -335,7 +383,7 @@ def window_kernel_phase(dev, peak):
 
     def check(tp_, p_, kw_, gate=None, c_img=None):
         """Kernel against plain: (max error outside the near shell, near
-        count, gated points, overflow count)."""
+        count, gated points, overflow count, flipped count)."""
         n = p_.shape[1]
         keys = torch.empty(n, dtype=torch.int32, device=dev)
         extra = {} if c_img is None else {"c_img_cn": c_img}
@@ -360,59 +408,98 @@ def window_kernel_phase(dev, peak):
             if int((~keep).sum()) * 20 > max(gated, 1):
                 raise AssertionError("the near-radius shell holds too many points")
         return max_err(got, want, keep), (0 if keep is None else int((~keep).sum())), \
-            gated, want_over
+            gated, want_over, int((torch.abs(got - want) > ATOL).sum())
 
     rows = {}
     with torch.no_grad():
         errs = {"coords": check(tp, p, kw)}
         ci = torch.randn((WIDTH, N), generator=g, device=dev)
         errs["c_img"] = check(tpi, p, kw, c_img=ci)
-        n_odd = 1_000_003
+        n_odd, n_small = 1_000_003, 77
         errs["odd_N"] = check(tp, p[:, :n_odd], kw)
+        errs["small_N"] = check(tp, p[:, :n_small], kw)
+        unsorted = p[:, torch.randperm(N, generator=g, device=dev)].contiguous()
+        errs["unsorted"] = check(tp, unsorted, kw)
         p2 = sorted_points(dev, g, N, 2)
         errs["L2"] = check(tp, p2, dict(kw, L=2, tile=256))
         errs["undersized_S"] = check(tp, p, dict(kw, S=8))
         if errs["undersized_S"][3] == 0:
             raise AssertionError("the undersized window counts no overflow")
+        lib = K._window_lib()
+        gate = contact_sets(dev, 6)["clustered"]
+        log("kernels", kernel="fused_trunk_window_cn", dynamic_smem_bytes=dict(
+            coords=lib.window_smem_bytes(K._window_operands(tp, 0)[0].numel()),
+            gated=lib.window_smem_bytes(K._window_operands(tpi, 2, gate)[0].numel())))
         log("kernels", kernel="fused_trunk_window_cn", N=N, n_odd=n_odd,
-            **{f"err_{k}": v[0] for k, v in errs.items()},
+            n_small=n_small, **{f"err_{k}": v[0] for k, v in errs.items()},
             **{f"overflow_{k}": v[3] for k, v in errs.items()})
         ms = cuda_ms(lambda a, b: K.fused_trunk_window_cn(tp, a, b, **kw), sets, 30)
+        sets_d = [(a, b[:, :N_EVAL["d"]].contiguous()) for a, b in sets]
+        wrapper_ms = host_ms(lambda a, b: K.fused_trunk_window_cn(tp, a, b, **kw),
+                             sets_d, 30)
         plain_ms = cuda_ms(lambda a, b: FT.trunk_cn(
             tp, b, scattered_grid_features_cn(a, b, PADDING)), sets, 6)
-        flops, nbytes = trunk_work(N, False)
-        flops += interp_work(N)
-        nbytes += grid.numel() * 4 - N * WIDTH * 4   # the grid, not features
+        work = trunk_work(N, False)
+        work[1] += interp_work(N)
+        work[2] += grid.numel() * 4 - N * WIDTH * 4   # the grid, not features
         rows["fused_trunk_window_cn"] = r = kernel_row(
-            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
+            max(v[0] for v in errs.values()), ms, plain_ms, work, peak)
         log("kernels", kernel="fused_trunk_window_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=r["bound_ms"], gflop=flops / 1e9, mb=nbytes / 1e6)
+            bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+            chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6,
+            wrapper_host_ms_2e19=wrapper_ms)
 
         cs = contact_sets(dev, seed=6)
         errs = {name: check(tpi, p, kw, gate=c) for name, c in cs.items()}
         errs["odd_N"] = check(tpi, p[:, :n_odd], kw, gate=cs["invalid_rows"])
+        errs["small_N"] = check(tpi, p[:, :n_small], kw, gate=cs["clustered"])
+        errs["unsorted"] = check(tpi, unsorted, kw, gate=cs["invalid_rows"])
+        q_edge = K.window_box_edge_contacts(p, seed=7, K=K_CONTACTS, radius=RADIUS)
+        errs["box_edge"] = check(tpi, p, kw, gate=(
+            q_edge, cs["clustered"][1], torch.ones(q_edge.shape[:2], dtype=torch.bool,
+                                                   device=dev)))
+        # 32 times the contacts per finger: shared memory does not grow with
+        # them (every 128th point, 2^14, for the plain version's (5 K, N)
+        # distances)
+        g_many = torch.Generator(device=dev).manual_seed(8)
+        q_many = torch.rand((5, 32 * K_CONTACTS, 3), generator=g_many,
+                            device=dev) * 0.8 - 0.4
+        errs["many_contacts"] = check(tpi, p[:, ::128].contiguous(), kw, gate=(
+            q_many, cs["clustered"][1],
+            torch.rand(q_many.shape[:2], generator=g_many, device=dev) > 0.3))
+        # weights and contacts made as inference tensors, as under
+        # eval_points' torch.inference_mode
+        with torch.inference_mode():
+            tpi_inf = FT.extract_trunk_params(random_decoder(dev, seed=0), with_img=True)
+            errs["inference_mode"] = check(tpi_inf, p, kw, gate=tuple(
+                t.clone() for t in cs["invalid_rows"]))
         log("kernels", kernel="fused_trunk_window_cn:gated", N=N,
             **{f"err_{k}": v[0] for k, v in errs.items()},
             **{f"near_{k}": v[1] for k, v in errs.items()},
+            **{f"flipped_{k}": v[4] for k, v in errs.items()},
             **{f"gated_{k}": v[2] for k, v in errs.items()})
         if min(errs["clustered"][2], errs["invalid_rows"][2]) * 1000 < N:
             raise AssertionError("the contact sets gate too few points")
         q, feat, valid = cs["invalid_rows"]
         gk = dict(kw, gate_pts=q, gate_feat=feat, gate_valid=valid)
         ms = cuda_ms(lambda a, b: K.fused_trunk_window_cn(tpi, a, b, **gk), sets, 30)
+        wrapper_ms = host_ms(lambda a, b: K.fused_trunk_window_cn(tpi, a, b, **gk),
+                             sets_d, 30)
         plain_ms = cuda_ms(lambda a, b: plain_gated(
             tpi, b, scattered_grid_features_cn(a, b, PADDING), q, feat, valid,
             RADIUS), sets, 3)
-        tests, gated, _ = gate_stats(p, q, valid, RADIUS)
-        flops, nbytes = trunk_work(N, True, tests=tests, gated=gated)
-        flops += interp_work(N)
-        nbytes += grid.numel() * 4 - N * WIDTH * 4
+        tests, gated, _ = gate_stats(p, q, valid, RADIUS, tile=K.WINDOW_TILE)
+        unculled, _, _ = gate_stats(p, q, valid, RADIUS)
+        work = trunk_work(N, True, tests=tests, gated=gated)
+        work[1] += interp_work(N)
+        work[2] += grid.numel() * 4 - N * WIDTH * 4
         rows["fused_trunk_window_cn:gated"] = r = kernel_row(
-            max(v[0] for v in errs.values()), ms, plain_ms, flops, nbytes, peak)
+            max(v[0] for v in errs.values()), ms, plain_ms, work, peak)
         log("kernels", kernel="fused_trunk_window_cn:gated", ms=ms,
-            plain_ms=plain_ms, bound_ms=r["bound_ms"], gflop=flops / 1e9,
-            mb=nbytes / 1e6,
-            distance_tests=tests, gated_points=gated)
+            plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+            chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6,
+            distance_tests=tests, distance_tests_unculled=unculled, gated_points=gated,
+            wrapper_host_ms_2e19=wrapper_ms)
     return rows
 
 
@@ -747,7 +834,8 @@ def main():
     variant, peak = peaks(name)
     log("device", name=repr(name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, peak_row=variant,
-        f32_tflops=peak[0] / 1e12, hbm_tbs=peak[1] / 1e12,
+        f32_tflops=peak[0] / 1e12, tf32_tflops=peak[1] / 1e12,
+        hbm_tbs=peak[2] / 1e12,
         tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
         tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
@@ -756,7 +844,7 @@ def main():
     log("build", seconds=round(time.perf_counter() - t0, 3), built=sorted(reports))
     for src, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry", "registers", "spill", "smem")):
                 print(f"[ptxas {src}] {line.strip()}")
 
     rows = kernel_phase(dev, peak)
@@ -782,7 +870,8 @@ def main():
             "source": f"vtaco_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "bound_f32_ms": r["bound_f32_ms"],
+            "library_ms": None,
         })
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))

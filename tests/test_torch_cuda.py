@@ -136,23 +136,47 @@ def _window_inputs(device, N, L, R=64, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["coords", "c_img", "invalid_rows",
-                                     "clustered", "all_invalid"])
+                                     "clustered", "all_invalid", "box_edge"])
 @pytest.mark.parametrize("L,S", [(1, 128), (2, 128), (1, 8)])
 def test_fused_trunk_window_cn(cuda, variant, L, S):
     """K3 (coords, c_img rows) and K4 (gated) against window_trunk_plain:
     logits, the overflow count (positive for the undersized S = 8; these
     100,003 points are sparse enough to overflow S = 128 too), and the
     kernel's keys against the torch keys on the card."""
-    N, R, radius = 100_003, 64, 0.05
+    grid, p = _window_inputs(cuda, 100_003, L)
+    _check_window(cuda, variant, grid, p, L, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["coords", "c_img", "invalid_rows",
+                                     "clustered", "box_edge"])
+@pytest.mark.parametrize("case", ["unsorted", "small_N"])
+def test_fused_trunk_window_cn_any_order_and_size(cuda, variant, case):
+    """The window kernels are right on points in any order (each tile then
+    spans the box and keeps every contact) and on fewer points than one
+    tile."""
+    grid, p = _window_inputs(cuda, 100_003, 1)
+    if case == "unsorted":
+        p = p[:, torch.randperm(p.shape[1], device=cuda)].contiguous()
+    else:
+        p = p[:, :77].contiguous()
+    _check_window(cuda, variant, grid, p, 1, 128)
+
+
+def _check_window(cuda, variant, grid, p, L, S):
+    N, R, radius = p.shape[1], 64, 0.05
     dec = random_decoder(cuda)
-    grid, p = _window_inputs(cuda, N, L)
     gated = variant not in ("coords", "c_img")
     tp = FT.extract_trunk_params(dec, with_img=variant != "coords")
     kw = dict(reso=R, padding=0.1, L=L, S=S, tile=256)
     if variant == "c_img":
         kw["c_img_cn"] = torch.randn((32, N), device=cuda)
     if gated:
-        q, feat, valid = _contacts(cuda, variant)
+        q, feat, valid = _contacts(cuda, "invalid_rows" if variant == "box_edge"
+                                   else variant)
+        if variant == "box_edge":
+            q = K.window_box_edge_contacts(p, 4, radius=radius)
+            valid = torch.ones_like(valid)
         kw.update(gate_pts=q, gate_feat=feat, gate_valid=valid, radius=radius)
     keys = torch.empty(N, dtype=torch.int32, device=cuda)
     counter = "launches_gated" if gated else "launches"
@@ -164,11 +188,59 @@ def test_fused_trunk_window_cn(cuda, variant, L, S):
         torch.cuda.synchronize()
     assert torch.equal(keys, supercell_keys(p, R, 0.1, L))
     assert int(n_over) == int(want_over)
-    assert int(n_over) > 0 or S != 8
+    assert int(n_over) > 0 or S != 8 or N < 1000
     assert got.shape == (N,) and got.dtype == torch.float32
     keep = torch.ones(N, dtype=torch.bool, device=cuda)
     if gated:
         d2 = FT.contact_sq_dist(p, q, valid)
         keep = ~torch.any(torch.abs(d2 - radius * radius) < 1e-6, dim=0)
-    assert int((~keep).sum()) * 100 <= N
+    assert int((~keep).sum()) * 100 <= max(N, 100)
     assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["coords", "invalid_rows"])
+def test_fused_trunk_window_cn_inference_tensors(cuda, variant):
+    """Weights and contacts made under torch.inference_mode (as
+    eval_points makes them) go through K3/K4 like any others."""
+    grid, p = _window_inputs(cuda, 100_003, 1)
+    with torch.inference_mode():
+        dec = random_decoder(cuda)
+        gated = variant != "coords"
+        tp = FT.extract_trunk_params(dec, with_img=gated)
+        kw = dict(reso=64, padding=0.1, L=1, S=128, tile=256, radius=0.05)
+        if gated:
+            q, feat, valid = _contacts(cuda, variant)
+            kw.update(gate_pts=q, gate_feat=feat, gate_valid=valid)
+        got, n_over = K.fused_trunk_window_cn(tp, grid, p, **kw)
+        want, want_over = K.window_trunk_plain(tp, grid, p, **kw)
+        keep = torch.ones(p.shape[1], dtype=torch.bool, device=cuda)
+        if gated:
+            d2 = FT.contact_sq_dist(p, q, valid)
+            keep = ~torch.any(torch.abs(d2 - 0.05 ** 2) < 1e-6, dim=0)
+        torch.cuda.synchronize()
+    assert int(n_over) == int(want_over)
+    assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
+
+
+@pytest.mark.cuda
+def test_fused_trunk_window_cn_many_contacts(cuda):
+    """K4 takes any number of contacts per finger: its shared memory does
+    not grow with them (here 2,048 per finger, ten thousand rows)."""
+    grid, p = _window_inputs(cuda, 20_000, 1)
+    q, feat, valid = _contacts(cuda, "invalid_rows", K_=2048)
+    radius = 0.02
+    dec = random_decoder(cuda)
+    tp = FT.extract_trunk_params(dec, with_img=True)
+    kw = dict(reso=64, padding=0.1, L=1, S=128, tile=256, gate_pts=q,
+              gate_feat=feat, gate_valid=valid, radius=radius)
+    with torch.no_grad():
+        got, _ = K.fused_trunk_window_cn(tp, grid, p, **kw)
+        want, _ = K.window_trunk_plain(tp, grid, p, **kw)
+        d2 = FT.contact_sq_dist(p, q, valid)
+        near = torch.any(torch.abs(d2 - radius * radius) < 1e-6, dim=0)
+        gated = int(torch.any(d2 < radius * radius, dim=0).sum())
+        torch.cuda.synchronize()
+    assert gated > 1000
+    assert int(near.sum()) * 20 <= gated
+    assert float(torch.max(torch.abs(got - want)[~near])) < ATOL

@@ -1,5 +1,5 @@
-// The pieces of the fused occupancy-decoder trunk that every trunk kernel
-// shares (trunk.cu: K1, K2; window.cu: K3, K4): the packed weight layout,
+// The pieces of the one-thread-per-point decoder trunk of trunk.cu (K1,
+// K2; window.cu runs the tile chain of tile_chain.cuh): the packed weight layout,
 // the input projection with its three modes, contact gating, and the
 // conditioned ResNet-FC chain. A kernel includes this header, stages the
 // weight blob in shared memory, brings each point's features into registers

@@ -6,7 +6,11 @@
 K1 and K2 live in ``csrc/trunk.cu``, K3 and K4 (the two branches of
 ``fused_trunk_window_cn``) in ``csrc/window.cu``; see each source's header
 for what bounds it on the card and how the design answers it. This module
-packs the weights, checks the inputs and launches them through ctypes.
+packs the weights (``pack_trunk_params`` for trunk.cu,
+``pack_window_params`` for window.cu's tensor-core chain), checks the
+inputs and launches them through ctypes. ``window_gate_candidates`` is the
+plain version of window.cu's per-tile contact culling, and
+``window_box_edge_contacts`` a contact set that probes its margin.
 
 Wrapper contract: CPU tensors take the plain PyTorch version in
 ops/fast_trunk.py (the function the kernel computes); CUDA tensors launch
@@ -38,6 +42,7 @@ from vtaco_tpu_torch.ops.dense_decode import (
 
 WIDTHS = (32, 32)  # (hidden, C) the kernel is instantiated for
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+WINDOW_TILE = 128  # points per tile of csrc/window.cu (kTile)
 
 
 def pack_trunk_params(tp, with_img: bool):
@@ -66,6 +71,53 @@ def pack_trunk_params(tp, with_img: bool):
     return blob, (w_in[:, 3:].contiguous() if with_img else None)
 
 
+def tf32_rna(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives for finite x."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _fragments(w):
+    """(P, 32, 32) weights (out, in) → (P, 2, 1024): the hi then the lo TF32
+    part of each, in csrc/tile_chain.cuh's core-matrix order: k8 step jk,
+    core matrix nb along N and kb along K, row r and element e hold
+    W[8nb + r][8jk + 2e + kb] (the input axis permuted within each
+    8-block)."""
+    P = w.shape[0]
+    w = w.float().reshape(P, 4, 8, 4, 4, 2).permute(0, 3, 1, 5, 2, 4).reshape(P, 1024)
+    hi = tf32_rna(w)
+    return torch.stack([hi, tf32_rna(w - hi)], dim=1)
+
+
+def pack_window_params(tp, with_img: bool, img_rows: bool = False):
+    """extract_trunk_params output → (blob, w_img) for csrc/window.cu.
+
+    ``blob`` is the flat f32 array of ``tile_chain.cuh``'s ``Layout``: the
+    3·NB chain products (wc, w0, w1 of each block) split into TF32 hi/lo
+    parts (``_fragments``), then wp (coord columns + b_in) | bc | b0 | b1 |
+    w_out | b_out padded to 4 in natural order, and with ``img_rows`` the
+    c_img half of fc_p_img as one more product (the MODE_CIMG tail).
+    ``w_img`` is that (h, C) half, or None for fc_p. The wrapper packs on
+    every call, so the parts are few: each is an operation on the device."""
+    w_in, b_in = tp["fc_p_img"] if with_img else tp["fc_p"]
+    w_in = w_in.float()
+    w_out, b_out = tp["fc_out"]
+    blocks = tp["blocks"]
+    prods = []
+    for (wc, _), blk in zip(tp["fc_c"], blocks):
+        prods += [wc, blk[0], blk[2]]
+    w_img = w_in[:, 3:] if with_img else None
+    parts = [_fragments(torch.stack(prods)),
+             torch.cat([w_in[:, :3], b_in.float()[:, None]], dim=1),
+             *[b for _, b in tp["fc_c"]], *[blk[1] for blk in blocks],
+             *[blk[3] for blk in blocks], w_out, b_out.reshape(1),
+             b_out.new_zeros(3)]
+    if img_rows:
+        parts.append(_fragments(w_img[None]))
+    return torch.cat([t.float().reshape(-1) for t in parts]), w_img
+
+
 def _stored(x, store_dtype):
     """The f32 values a kernel reads from `x` stored as `store_dtype`."""
     x = x.float()
@@ -89,9 +141,15 @@ def _lib():
 def _window_lib():
     lib = build.library("window")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.window_cn_launch.argtypes = [P, I, I, I, I, I, I, F, I, P, P, I, F, F,
-                                     I, I, P, P, P, ctypes.c_longlong, P]
+    lib.window_cn_launch.argtypes = [P, I, I, I, I, I, I, F, I, P, P, P, I, F,
+                                     F, I, I, P, P, P, ctypes.c_longlong, P]
     lib.window_cn_launch.restype = I
+    lib.window_tile.restype = I
+    lib.window_smem_bytes.argtypes = [I]
+    lib.window_smem_bytes.restype = I
+    if lib.window_tile() != WINDOW_TILE:
+        raise RuntimeError(f"window.cu tiles {lib.window_tile()} points, "
+                           f"WINDOW_TILE is {WINDOW_TILE}")
     return lib
 
 
@@ -211,6 +269,78 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
 fused_trunk_gated_cn.launches = 0
 
 
+def _window_operands(tp, mode, gate=None):
+    """(blob, contacts) of window.cu in ``mode`` (0 coords, 1 c_img rows, 2
+    gated with ``gate`` = (gate_pts, gate_feat, gate_valid)): the blob is
+    ``pack_window_params``'s, in mode 2 followed by W_img g_f per finger;
+    the contacts (mode 2, else None) are the (F K, 4) rows (q, |q|²) in
+    finger order, |q|² replaced by -1 on invalid rows."""
+    blob, w_img = pack_window_params(tp, with_img=mode != 0, img_rows=mode == 1)
+    if mode != 2:
+        return blob, None
+    gate_pts, gate_feat, gate_valid = gate
+    q = gate_pts.reshape(-1, 3).float()
+    q2 = torch.where(gate_valid.reshape(-1).bool(), (q * q).sum(dim=1), -1.0)
+    gproj = gate_feat.float() @ w_img.T                  # (F, h): W_img g_f
+    return torch.cat([blob, gproj.reshape(-1)]), torch.cat([q, q2[:, None]], dim=1)
+
+
+def window_gate_candidates(p_cn, gate_pts, gate_valid, radius=0.015,
+                           tile=WINDOW_TILE):
+    """The contacts window.cu's K4 keeps for each tile of ``tile``
+    consecutive points, by the kernel's rule, in f32: the valid contacts q
+    whose squared distance to the box of the tile's points is at most
+    r² + 2^-19 (|q|² + P² + r²), P² the largest |p|² of the box (the
+    margin covers the rounding of the expanded distance, csrc/window.cu).
+    A ragged last tile boxes its real points. p_cn (3, N), gate_pts
+    (F, K, 3), gate_valid (F, K) → (n_tiles, F, K) bool."""
+    n_f, K, _ = gate_pts.shape
+    N = p_cn.shape[1]
+    n_tiles = -(-N // tile)
+    p = p_cn.float()
+    p = torch.cat([p, p[:, -1:].expand(3, n_tiles * tile - N)], dim=1)
+    p = p.reshape(3, n_tiles, tile)
+    lo, hi = p.amin(dim=2), p.amax(dim=2)                   # (3, n_tiles)
+    big = torch.maximum(lo * lo, hi * hi)
+    P2 = big[0] + big[1] + big[2]
+    q = gate_pts.reshape(n_f * K, 3).float().to(p.device)
+    q2 = torch.sum(q * q, dim=1)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32, device=p.device)
+    keep = []
+    chunk = 4096                      # tiles at a time: (3, F K, chunk) floats
+    for s in range(0, n_tiles, chunk):
+        l, h = lo[:, None, s:s + chunk], hi[:, None, s:s + chunk]
+        d = q.T[:, :, None] - torch.minimum(torch.maximum(q.T[:, :, None], l), h)
+        d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]            # (F K, tiles)
+        keep.append(d2 <= r2 + 2.0 ** -19 * (q2[:, None] + P2[None, s:s + chunk] + r2))
+    keep = torch.cat(keep, dim=1) & gate_valid.reshape(-1, 1).to(p.device)
+    return keep.T.reshape(n_tiles, n_f, K)
+
+
+def window_box_edge_contacts(p_cn, seed, n_fingers=5, K=128, radius=0.015,
+                             tile=WINDOW_TILE):
+    """(n_fingers, K, 3) f32 contacts on ``p_cn``'s device that probe the
+    culling's margin: each r (1 ± 1e-6) from the box of one of window.cu's
+    tiles of ``p_cn`` (its first tile when it holds fewer points), out from
+    the middle of a face or out along the diagonal of a corner."""
+    g = torch.Generator().manual_seed(seed)
+    n_tiles = max(p_cn.shape[1] // tile, 1)
+    box = p_cn[:, :n_tiles * tile].reshape(3, n_tiles, -1).double().cpu()
+    lo, hi = box.amin(2), box.amax(2)
+    shape = (n_fingers, K)
+    t = torch.randint(0, n_tiles, shape, generator=g)
+    kind = torch.randint(0, 8, shape, generator=g)
+    s = radius * (1 + 1e-6 * (2 * torch.randint(0, 2, shape, generator=g) - 1))
+    lo, hi = lo[:, t], hi[:, t]                                  # (3, F, K)
+    q = (lo + hi) / 2
+    for axis in range(3):
+        q[axis] = torch.where(kind == 2 * axis, hi[axis] + s, q[axis])
+        q[axis] = torch.where(kind == 2 * axis + 1, lo[axis] - s, q[axis])
+        q[axis] = torch.where(kind == 6, hi[axis] + s / 3 ** 0.5, q[axis])
+        q[axis] = torch.where(kind == 7, lo[axis] - s / 3 ** 0.5, q[axis])
+    return q.permute(1, 2, 0).float().to(p_cn.device)
+
+
 def window_trunk_plain(tp, grid, p_cn, *, reso, padding, L, S, tile,
                        c_img_cn=None, gate_pts=None, gate_feat=None,
                        gate_valid=None, radius=0.015, keys_out=None):
@@ -236,7 +366,9 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
     fused in. The contract of the JAX package's ``fused_trunk_window_cn``.
 
     grid (R, R, R, C) f32 channels-last (``reso`` = R); p_cn (3, N) f32
-    world coords in super-cell order (``supercell_keys`` at L), any N;
+    world coords, any N, in super-cell order (``supercell_keys`` at L) for
+    speed: the kernel is right in any order, but sorted tiles of
+    ``WINDOW_TILE`` points share grid cells and keep few contacts;
     c_img_cn (C, N) extra input-projection rows (fc_p_img weights), or the
     gate_* contact gating (fc_p_img, as ``fused_trunk_gated_cn``), not both.
     Returns ``(logits (N,) f32, n_overflow)``: n_overflow, a 0-dim int64
@@ -257,16 +389,13 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
             c_img_cn=c_img_cn, gate_pts=gate_pts, gate_feat=gate_feat,
             gate_valid=gate_valid, radius=radius, keys_out=keys_out)
     if gated:
-        blob = _gated_blob(tp, gate_pts, gate_feat, gate_valid)
         n_fingers, K, _ = gate_pts.shape
         mode = 2
     else:
-        blob, w_img = pack_trunk_params(tp, with_img=c_img_cn is not None)
-        if w_img is not None:
-            blob = torch.cat([blob, w_img.reshape(-1)])
-        blob = _pad4(blob)
         n_fingers = K = 0
         mode = 0 if c_img_cn is None else 1
+    blob, contacts = _window_operands(
+        tp, mode, (gate_pts, gate_feat, gate_valid) if gated else None)
     if grid.shape != (reso,) * 3 + (grid.shape[-1],) or grid.dtype != torch.float32:
         raise ValueError(f"grid must be ({reso},)*3 + (C,) float32, got "
                          f"{tuple(grid.shape)} {grid.dtype}")
@@ -274,8 +403,8 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
         raise ValueError(f"coords must be float32, got {p_cn.dtype}")
     C = grid.shape[-1]
     N = _check(tp, p_cn, C, blob, *([] if c_img_cn is None else [c_img_cn]))
-    if grid.device != p_cn.device:
-        raise ValueError("coords and grid must share one device")
+    if grid.device != p_cn.device or (gated and contacts.device != p_cn.device):
+        raise ValueError("coords, grid and contacts must share one device")
     x = p_cn.contiguous()
     g = grid.contiguous()
     ci = None if c_img_cn is None else _streamed(c_img_cn, None)
@@ -285,11 +414,17 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
             or keys.device != p_cn.device or not keys.is_contiguous()):
         raise ValueError("keys_out must be a contiguous (N,) int32 tensor on "
                          "the coords' device")
+    smem = _window_lib().window_smem_bytes(blob.numel())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the window kernel needs {smem} B of shared memory, "
+                         f"more than a block has ({SMEM_LIMIT})")
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
     n1 = -(-(reso - 1) // L)
     rc = _window_lib().window_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
-        float(radius) * float(radius), mode, x.data_ptr(), g.data_ptr(), reso,
+        float(radius) * float(radius), mode,
+        None if contacts is None else contacts.data_ptr(), x.data_ptr(),
+        g.data_ptr(), reso,
         float(np.float32(1 + padding + 10e-4)), float(np.float32(1 - 10e-4)),
         L, n1, None if ci is None else ci.data_ptr(), out.data_ptr(),
         keys.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
