@@ -8,15 +8,22 @@ ends:
      CUDA versions; TF32 is turned off for matmuls and cuDNN, since the JAX
      reference computes in IEEE float32.
   2. build: nvcc compiles every CUDA source of the package (in parallel).
-  3. kernels: each CUDA kernel against its plain PyTorch version at the
+  3. kernels: K2 and K1 against their plain PyTorch versions at the
      flagship shapes (N = 128^3 query points, C = hidden = 32, 5 blocks,
-     K = 128 contacts per finger), max abs error <= 1e-4, then its time
-     (CUDA events, after warm-up, cycling three distinct input sets) beside
-     its bound and the plain version's time. The bound is the largest of
-     the 32 x 32 chain products at the 3xTF32 tensor-core rate (a third of
-     the TF32 rate, the card's fastest f32-accurate unit), the other
-     operations at the f32 CUDA-core rate and the bytes at the memory
-     rate; bound_f32_ms puts every operation on the CUDA cores.
+     K = 128 contacts per finger), max abs error <= 1e-4: c_img rows, bf16
+     storage, odd N, N below one tile, the mesh lattice's order, weights
+     and gates made under torch.inference_mode, and for K1 contact sets
+     spread with invalid rows, clustered, all invalid and 32 times as many
+     per finger. Then each kernel's time (CUDA events, after warm-up,
+     cycling three distinct input sets) on uniform random points (the
+     yardstick of earlier runs) and on the lattice (dense_query_grid_cn,
+     the main path's order; K1 with clustered contacts), beside its bound
+     and the plain version's time. The bound is the largest of the 32 x 32
+     chain products at the 3xTF32 tensor-core rate (a third of the TF32
+     rate, the card's fastest f32-accurate unit), the other operations at
+     the f32 CUDA-core rate and the bytes at the memory rate; bound_f32_ms
+     puts every operation on the CUDA cores. K1's bound counts the distance
+     tests of its culled per-tile contact lists (K.window_gate_candidates).
   4. window kernels: K3 (coords only, c_img rows) and K4 (contact-gated)
      against their plain versions at N = 2^21 points sorted by super-cell
      on the 64^3 x 32 grid, with an odd N, N below one tile, unsorted
@@ -284,49 +291,81 @@ def contact_sets(dev, seed):
 
 
 def kernel_phase(dev, peak):
-    """K2 and K1 against their plain versions, then timed."""
+    """K2 and K1 against their plain versions, then timed on uniform random
+    points (the yardstick of earlier runs) and on the mesh path's lattice
+    order."""
     dec = random_decoder(dev, seed=0)
     tp = FT.extract_trunk_params(dec, with_img=False)
     tpi = FT.extract_trunk_params(dec, with_img=True)
+    cs = contact_sets(dev, seed=2)
+    with torch.inference_mode():    # as eval_points makes weights and gates
+        dec_inf = random_decoder(dev, seed=0)
+        tp_inf = FT.extract_trunk_params(dec_inf, with_img=False)
+        tpi_inf = FT.extract_trunk_params(dec_inf, with_img=True)
+        gate_inf = tuple(t.clone() for t in cs["invalid_rows"])
     N = N_FLAGSHIP
     g = torch.Generator(device=dev).manual_seed(1)
     sets = [((torch.rand((3, N), generator=g, device=dev) * 1.1 - 0.55),
              torch.randn((WIDTH, N), generator=g, device=dev)) for _ in range(3)]
     p, f = sets[0]
+    # the main path's own order: the 128^3 lattice, z slowest, so each tile
+    # of 128 points is one x-row
+    lattice = dense_query_grid_cn(128, 1 + PADDING, device=dev)
+    sets_lat = [(lattice, b) for _, b in sets]
+    n_odd, n_small = 1_000_003, 77
     rows = {}
     with torch.no_grad():
-        # K2: coords only (the main path), c_img rows, bf16 storage, odd N
-        err = max_err(K.fused_trunk_cn(tp, p, f), FT.trunk_cn(tp, p, f))
-        ci = torch.randn((WIDTH, N), generator=g, device=dev)
-        e_img = max_err(K.fused_trunk_cn(tpi, p, f, ci), FT.trunk_cn(tpi, p, f, ci))
+        # K2: coords only (the main path), c_img rows, bf16 storage, odd N,
+        # N below one tile, lattice order, inference tensors
         bf = torch.bfloat16
-        e_bf = max_err(K.fused_trunk_cn(tp, p, f, store_dtype=bf),
-                       FT.trunk_cn(tp, K._stored(p, bf), K._stored(f, bf)))
-        n_odd = 1_000_003
-        e_odd = max_err(K.fused_trunk_cn(tp, p[:, :n_odd], f[:, :n_odd]),
-                        FT.trunk_cn(tp, p[:, :n_odd], f[:, :n_odd]))
-        log("kernels", kernel="fused_trunk_cn", N=N, err=err, err_c_img=e_img,
-            err_bf16=e_bf, err_odd_N=e_odd, n_odd=n_odd)
+        ci = torch.randn((WIDTH, N), generator=g, device=dev)
+        cases = {"coords": (tp, p, f, None, None), "c_img": (tpi, p, f, ci, None),
+                 "bf16": (tp, p, f, None, bf),
+                 "odd_N": (tp, p[:, :n_odd], f[:, :n_odd], None, None),
+                 "small_N": (tp, p[:, :n_small], f[:, :n_small], None, None),
+                 "lattice": (tp, lattice, f, None, None),
+                 "inference_mode": (tp_inf, p, f, None, None)}
+        errs = {}
+        for case, (tp_, pn, fn, cn, store) in cases.items():
+            want = FT.trunk_cn(tp_, K._stored(pn, store), K._stored(fn, store),
+                               None if cn is None else K._stored(cn, store))
+            errs[case] = max_err(K.fused_trunk_cn(tp_, pn, fn, cn, store_dtype=store), want)
+        log("kernels", kernel="fused_trunk_cn", N=N, n_odd=n_odd, n_small=n_small,
+            **{f"err_{k}": v for k, v in errs.items()})
         ms = cuda_ms(lambda a, b: K.fused_trunk_cn(tp, a, b), sets, 30)
+        ms_lat = cuda_ms(lambda a, b: K.fused_trunk_cn(tp, a, b), sets_lat, 30)
         plain_ms = cuda_ms(lambda a, b: FT.trunk_cn(tp, a, b), sets, 6)
         work = trunk_work(N, False)
-        rows["fused_trunk_cn"] = r = kernel_row(
-            max(err, e_img, e_bf, e_odd), ms, plain_ms, work, peak)
-        log("kernels", kernel="fused_trunk_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+        rows["fused_trunk_cn"] = r = kernel_row(max(errs.values()), ms, plain_ms, work,
+                                                peak)
+        r.update(lattice_ms=ms_lat, lattice_bound_ms=r["bound_ms"])
+        log("kernels", kernel="fused_trunk_cn", ms=ms, lattice_ms=ms_lat,
+            plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
             chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6)
 
         # K1: spread contacts with invalid rows, clustered, all invalid,
-        # bf16 storage, odd N
-        cs = contact_sets(dev, seed=2)
-        cases = [(name, N, None, c) for name, c in cs.items()]
-        cases += [("bf16", N, bf, cs["clustered"]),
-                  ("odd_N", n_odd, None, cs["invalid_rows"])]
+        # bf16 storage, odd N, N below one tile, the lattice with clustered
+        # contacts, 32 times the contacts per finger (every 128th point,
+        # 2^14, for the plain version's (5 K, N) distances), inference tensors
+        g_many = torch.Generator(device=dev).manual_seed(3)
+        q_many = torch.rand((5, 32 * K_CONTACTS, 3), generator=g_many,
+                            device=dev) * 0.8 - 0.4
+        many = (q_many, cs["clustered"][1],
+                torch.rand(q_many.shape[:2], generator=g_many, device=dev) > 0.3)
+        lat_gate = contact_sets(dev, seed=4)["clustered"]
+        cases = {name: (tpi, p, f, None, c) for name, c in cs.items()}
+        cases.update(
+            bf16=(tpi, p, f, bf, cs["clustered"]),
+            odd_N=(tpi, p[:, :n_odd], f[:, :n_odd], None, cs["invalid_rows"]),
+            small_N=(tpi, p[:, :n_small], f[:, :n_small], None, cs["invalid_rows"]),
+            lattice=(tpi, lattice, f, None, lat_gate),
+            many_contacts=(tpi, p[:, ::128].contiguous(), f[:, ::128].contiguous(),
+                           None, many),
+            inference_mode=(tpi_inf, p, f, None, gate_inf))
         errs, gated = {}, {}
-        for case, n, store, (q, feat, valid) in cases:
-            pn, fn = p[:, :n], f[:, :n]
-            want = plain_gated(tpi, pn, fn, q, feat, valid, RADIUS, store=store)
-            got = K.fused_trunk_gated_cn(tpi, pn, fn, q, feat, valid,
+        for case, (tp_, pn, fn, store, (q, feat, valid)) in cases.items():
+            want = plain_gated(tp_, pn, fn, q, feat, valid, RADIUS, store=store)
+            got = K.fused_trunk_gated_cn(tp_, pn, fn, q, feat, valid,
                                          radius=RADIUS, store_dtype=store)
             _, gated[case], keep = gate_stats(K._stored(pn, store), q, valid, RADIUS)
             errs[case] = (max_err(got, want, keep), int((~keep).sum()),
@@ -342,23 +381,38 @@ def kernel_phase(dev, peak):
         # points in the comparison
         if any(errs[k][1] * 20 > gated[k] for k in errs if gated[k]):
             raise AssertionError("the near-radius shell holds too many points")
-        if min(gated["clustered"], gated["invalid_rows"]) * 1000 < N:
+        if min(gated[k] for k in ("clustered", "invalid_rows", "lattice")) * 1000 < N:
             raise AssertionError(f"the contact sets gate too few points: {gated}")
 
-        # timed on the spread contacts: every point tests all 5 fingers
+        # timed on the spread contacts (every tile of random points keeps
+        # every valid contact) and on the lattice with clustered contacts;
+        # the bounds count the distance tests of the culled per-tile lists
         q, feat, valid = cs["invalid_rows"]
         ms = cuda_ms(lambda a, b: K.fused_trunk_gated_cn(
             tpi, a, b, q, feat, valid, radius=RADIUS), sets, 30)
         plain_ms = cuda_ms(lambda a, b: plain_gated(
             tpi, a, b, q, feat, valid, RADIUS), sets, 3)
-        tests, gated, _ = gate_stats(p, q, valid, RADIUS)
+        tests, gated, _ = gate_stats(p, q, valid, RADIUS, tile=K.WINDOW_TILE)
+        unculled, _, _ = gate_stats(p, q, valid, RADIUS)
         work = trunk_work(N, True, tests=tests, gated=gated)
         rows["fused_trunk_gated_cn"] = r = kernel_row(
             max(v[0] for v in errs.values()), ms, plain_ms, work, peak)
-        log("kernels", kernel="fused_trunk_gated_cn", ms=ms, plain_ms=plain_ms,
-            bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
+        log("kernels", kernel="fused_trunk_gated_cn", order="random", ms=ms,
+            plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_f32_ms=r["bound_f32_ms"],
             chain_gflop=work[0] / 1e9, other_gflop=work[1] / 1e9, mb=work[2] / 1e6,
-            distance_tests=tests, gated_points=gated)
+            distance_tests=tests, distance_tests_unculled=unculled, gated_points=gated)
+        q, feat, valid = lat_gate
+        ms_lat = cuda_ms(lambda a, b: K.fused_trunk_gated_cn(
+            tpi, a, b, q, feat, valid, radius=RADIUS), sets_lat, 30)
+        tests, gated, _ = gate_stats(lattice, q, valid, RADIUS, tile=K.WINDOW_TILE)
+        unculled, _, _ = gate_stats(lattice, q, valid, RADIUS)
+        work = trunk_work(N, True, tests=tests, gated=gated)
+        r_lat = kernel_row(0.0, ms_lat, plain_ms, work, peak)
+        r.update(lattice_ms=ms_lat, lattice_bound_ms=r_lat["bound_ms"])
+        log("kernels", kernel="fused_trunk_gated_cn", order="lattice", ms=ms_lat,
+            bound_ms=r_lat["bound_ms"], bound_f32_ms=r_lat["bound_f32_ms"],
+            other_gflop=work[1] / 1e9, distance_tests=tests,
+            distance_tests_unculled=unculled, gated_points=gated)
     return rows
 
 
@@ -871,7 +925,8 @@ def main():
             "launches": launches[kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "bound_f32_ms": r["bound_f32_ms"],
-            "library_ms": None,
+            "lattice_ms": r.get("lattice_ms"),
+            "lattice_bound_ms": r.get("lattice_bound_ms"), "library_ms": None,
         })
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))

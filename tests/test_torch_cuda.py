@@ -1,5 +1,6 @@
 """The CUDA trunk kernels (K1, K2 in csrc/trunk.cu; K3, K4 in
-csrc/window.cu) against their plain PyTorch versions on the card.
+csrc/window.cu; all on the tile chain of csrc/tile_chain.cuh) against
+their plain PyTorch versions on the card.
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -7,8 +8,9 @@ only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Without a GPU every test here skips (the kernels have no CPU mode). The
-tolerance is 1e-4 on logits of order 1: the kernel sums each dot product in
-its own order (and with FMAs) where cuBLAS picks another. Contact gating
+tolerance is 1e-4 on logits of order 1: the kernels compute each product
+in 3xTF32 on the tensor cores (about 2^-22 relative per product) and sum
+in their own order where cuBLAS picks another. Contact gating
 compares an expanded squared distance with r²; points within 1e-6 of r²
 for some valid contact may round to the other side and are left out.
 """
@@ -20,7 +22,7 @@ import torch
 from vtaco_tpu_torch.models.decoder import LocalDecoder
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import decode as K
-from vtaco_tpu_torch.ops.dense_decode import supercell_keys
+from vtaco_tpu_torch.ops.dense_decode import dense_query_grid_cn, supercell_keys
 
 ATOL = 1e-4
 
@@ -55,8 +57,9 @@ def _inputs(device, N, seed=1, width=32):
 
 def _contacts(device, case, K_=128, seed=2):
     g = torch.Generator().manual_seed(seed)
-    if case == "clustered":
-        q = 0.25 + 0.02 * torch.randn((5, K_, 3), generator=g)
+    if case in ("clustered", "patch"):     # a tight cluster, a fingertip's patch
+        q = 0.25 + (0.02 if case == "clustered" else 0.05) * torch.randn(
+            (5, K_, 3), generator=g)
     else:
         q = torch.rand((5, K_, 3), generator=g) * 0.8 - 0.4
     valid = torch.rand((5, K_), generator=g) > 0.3
@@ -67,7 +70,7 @@ def _contacts(device, case, K_=128, seed=2):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [100_000, 100_003])
+@pytest.mark.parametrize("N", [100_000, 100_003, 77])
 @pytest.mark.parametrize("variant", ["coords", "c_img", "bf16"])
 def test_fused_trunk_cn(cuda, N, variant):
     dec = random_decoder(cuda)
@@ -114,6 +117,59 @@ def test_fused_trunk_gated_cn(cuda, case, store):
     # 95 % of the gated points in the comparison
     assert int(near.sum()) * 20 <= gated
     assert float(torch.max(torch.abs(got - want)[~near])) < ATOL
+
+
+def _lattice(device, planes=16, z=0.25, nx=128):
+    """The `planes` z-planes nearest z of the mesh path's nx³ query lattice
+    (dense_query_grid_cn: x fastest, z slowest), so that each tile of 128
+    points is one x-row."""
+    g = dense_query_grid_cn(nx, 1.1, device=device)
+    i0 = int(torch.argmin(torch.abs(g[2, ::nx * nx] - z))) - planes // 2
+    return g[:, i0 * nx * nx:(i0 + planes) * nx * nx].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,gated", [
+    ("lattice", False), ("small_N", False), ("inference", False),
+    ("lattice", True), ("small_N", True), ("many_contacts", True),
+    ("inference", True)])
+def test_fused_trunk_cases(cuda, case, gated):
+    """K2 and K1 on the mesh path's lattice order (K1 with a patch of
+    contacts: most tiles keep none; the tight cluster would put 6 % of the
+    gated lattice points in the near shell), on fewer points than one tile, with
+    4,096 contacts per finger (K1 reads them from global memory, so any
+    count fits), and with weights and gates made under
+    torch.inference_mode, as eval_points makes them."""
+    radius = 0.05
+    N = {"small_N": 77, "many_contacts": 20_000}.get(case, 100_003)
+    p, f = _inputs(cuda, N)
+    if case == "lattice":
+        p = _lattice(cuda)
+        N = p.shape[1]
+        f = torch.randn((32, N), device=cuda)
+    with torch.inference_mode(case == "inference"):
+        tp = FT.extract_trunk_params(random_decoder(cuda), with_img=gated)
+        q, feat, valid = _contacts(cuda, "patch" if case == "lattice" else
+                                   "invalid_rows",
+                                   K_=4096 if case == "many_contacts" else 128)
+    fn = K.fused_trunk_gated_cn if gated else K.fused_trunk_cn
+    keep = torch.ones(N, dtype=torch.bool, device=cuda)
+    with torch.no_grad():
+        before = fn.launches
+        got = fn(tp, p, f, q, feat, valid, radius=radius) if gated else fn(tp, p, f)
+        assert fn.launches == before + 1
+        c_img = FT.gate_contact_cn(p, q, feat, valid, radius) if gated else None
+        want = FT.trunk_cn(tp, p, f, c_img)
+        if gated:
+            d2 = FT.contact_sq_dist(p, q, valid)
+            keep = ~torch.any(torch.abs(d2 - radius * radius) < 1e-6, dim=0)
+        torch.cuda.synchronize()
+    if gated and N > 1000:
+        n_gated = int(torch.any(c_img != 0, dim=0).sum())
+        assert n_gated > 100
+        assert int((~keep).sum()) * 20 <= n_gated
+    assert got.shape == (N,) and got.dtype == torch.float32
+    assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
 
 
 @pytest.mark.cuda

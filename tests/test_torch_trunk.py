@@ -164,18 +164,3 @@ def test_gate_contact_last_finger_wins():
     valid[3, 1] = False                              # invalid rows never gate
     got = FT.gate_contact_cn(T(p), T(gate_pts), T(feat), T(valid))
     np.testing.assert_array_equal(got[:, 0].numpy(), feat[1])
-
-
-def test_pack_trunk_params_layout(dec):
-    """The blob follows csrc/trunk.cu's Layout: per-block matrices first,
-    then the coord columns with b_in, then the bias vectors."""
-    _, ttp = _tp(dec, True)
-    blob, w_img = K.pack_trunk_params(ttp, with_img=True)
-    H = HID
-    assert blob.numel() == NB * (H * C + 2 * H * H + 3 * H) + 4 * H + H + 4
-    w_in, b_in = ttp["fc_p_img"]
-    np.testing.assert_array_equal(w_img.numpy(), w_in[:, 3:].numpy())
-    wp = blob[NB * (H * C + 2 * H * H):][:4 * H].reshape(H, 4)
-    np.testing.assert_array_equal(wp[:, :3].numpy(), w_in[:, :3].numpy())
-    np.testing.assert_array_equal(wp[:, 3].numpy(), b_in.numpy())
-    np.testing.assert_array_equal(blob[-4].item(), ttp["fc_out"][1].item())

@@ -1,5 +1,5 @@
-"""The window kernels' tile design (csrc/window.cu, csrc/tile_chain.cuh) on
-the CPU, where the kernel itself cannot run:
+"""The tile kernels' design (csrc/trunk.cu, csrc/window.cu on the chain of
+csrc/tile_chain.cuh) on the CPU, where the kernels themselves cannot run:
 
 - ``pack_window_params``: the chain evaluated in plain torch through the
   packed blob, the way the kernel evaluates it (B-fragment order undone,
@@ -7,13 +7,17 @@ the CPU, where the kernel itself cannot run:
   the 13 low mantissa bits, lo.hi + hi.lo + hi.hi per product), against
   the port's ``trunk_cn`` and the JAX package's at the flagship widths
   (hidden = C = 32, 5 blocks) within 1e-5: a tenfold margin under the
-  card's 1e-4 check; ``_window_operands``, what the wrapper hands the
-  kernel in each mode.
-- ``window_gate_candidates``, the plain version of K4's per-tile contact
-  culling: restricting each tile's gate to its candidates changes no
-  decision, on sorted and unsorted points; contacts at r (1 +- 1e-6) from
-  a tile's box and at its corners are kept (and the card checks' set
-  ``window_box_edge_contacts``); ragged tiles and N < T.
+  card's 1e-4 check; ``_window_operands`` and ``_trunk_operands``, what
+  the wrappers hand the kernels in each mode, and K1/K2's operands
+  (c_img rows, bf16 storage, contact gating) through the emulated chain
+  against both packages' trunks, the JAX one its Pallas kernel in
+  interpret mode.
+- ``window_gate_candidates``, the plain version of K1's and K4's per-tile
+  contact culling: restricting each tile's gate to its candidates changes
+  no decision, on sorted and unsorted points and on the rows of the mesh
+  lattice; contacts at r (1 +- 1e-6) from a tile's box and at its corners
+  are kept (and the card checks' set ``window_box_edge_contacts``); ragged
+  tiles and N < T.
 """
 
 import jax.numpy as jnp
@@ -22,9 +26,14 @@ import pytest
 import torch
 
 from vtaco_tpu.ops import fast_trunk as JFT
+from vtaco_tpu.ops.pallas.decode import (
+    fused_trunk_cn as j_fused_trunk_cn,
+    fused_trunk_gated_cn as j_fused_trunk_gated_cn,
+    pack_trunk_params as j_pack,
+)
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import decode as K
-from vtaco_tpu_torch.ops.dense_decode import supercell_keys
+from vtaco_tpu_torch.ops.dense_decode import dense_query_grid_cn, supercell_keys
 
 from test_torch_trunk import T, _decoders
 
@@ -61,9 +70,12 @@ def _product(x, w_hi, w_lo):
     return (lo @ w_hi.T + hi @ w_lo.T) + hi @ w_hi.T
 
 
-def _emulated_chain(blob, p_cn, f_cn, c_img_cn=None):
-    """The logits window.cu computes from ``blob``, its order of operations
-    included, with numpy-exact TF32 splits in place of cvt.rna."""
+def _emulated_chain(blob, p_cn, f_cn, c_img_cn=None, sel=None):
+    """The logits the tile kernels compute from ``blob``, their order of
+    operations included, with numpy-exact TF32 splits in place of cvt.rna:
+    with ``c_img_cn`` the blob's c_img product (mode 1), with ``sel`` (N,)
+    the gated finger per point or -1, whose row W_img g_f of the blob's
+    tail is added to the input projection (mode 2)."""
     n_frag = 3 * NBLK * 2048
     w_hi, w_lo = _unpack(blob[:n_frag].reshape(3 * NBLK, 2048))
     o = n_frag
@@ -75,6 +87,9 @@ def _emulated_chain(blob, p_cn, f_cn, c_img_cn=None):
     w_out, b_out = blob[o:o + W], blob[o + W]
     p, f = p_cn.T, f_cn.T
     net = p @ wp[:, :3].T + wp[:, 3]
+    if sel is not None:
+        gproj = blob[o + W + 4:].reshape(-1, W)
+        net = net + torch.where(sel[:, None] >= 0, gproj[sel.clamp(min=0)], 0.0)
     if c_img_cn is not None:
         img_hi, img_lo = _unpack(blob[o + W + 4:].reshape(1, 2048))
         net = net + _product(c_img_cn.T, img_hi[0], img_lo[0])
@@ -167,6 +182,101 @@ def test_window_operands(flagship, mode):
     v = valid.reshape(-1)
     assert torch.equal(contacts[v, 3], torch.sum(q.reshape(40, 3)[v] ** 2, dim=1))
     assert torch.all(contacts[~v, 3] == -1)
+
+
+def _gate(rng, n_f=5, K_=8):
+    q = T(rng.uniform(-0.4, 0.4, (n_f, K_, 3)).astype(np.float32))
+    feat = T(rng.standard_normal((n_f, W)).astype(np.float32))
+    valid = T(rng.random((n_f, K_)) > 0.3)
+    return q, feat, valid
+
+
+@pytest.mark.parametrize("store", [None, torch.bfloat16])
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_trunk_operands(flagship, mode, store):
+    """What the K1/K2 wrappers hand csrc/trunk.cu, packed from inference
+    tensors as eval_points makes them: the blob and contacts of
+    _window_operands in the same mode, and the coords, features and c_img
+    rows contiguous in the storage type, channels first."""
+    _, tdec = flagship
+    rng = np.random.default_rng(3)
+    N = 77
+    p = T(rng.uniform(-0.55, 0.55, (3, N)).astype(np.float32))
+    f = T(rng.standard_normal((N, W)).astype(np.float32)).T     # strided
+    ci = T(rng.standard_normal((W, N)).astype(np.float32)) if mode == 1 else None
+    gate = _gate(rng) if mode == 2 else None
+    with torch.inference_mode():
+        tp = FT.extract_trunk_params(tdec, with_img=mode != 0)
+        blob, contacts, (x, fs, cs) = K._trunk_operands(
+            tp, p.clone(), f.clone(), None if ci is None else ci.clone(),
+            None if gate is None else tuple(t.clone() for t in gate),
+            store_dtype=store)
+    want_blob, want_contacts = K._window_operands(tp, mode, gate)
+    assert torch.equal(blob, want_blob)
+    assert (contacts is None) == (mode != 2)
+    if mode == 2:
+        assert torch.equal(contacts, want_contacts)
+    assert (cs is None) == (mode != 1)
+    for got, src in ((x, p), (fs, f), (cs, ci)):
+        if src is None:
+            continue
+        assert got.dtype == (store or torch.float32) and got.is_contiguous()
+        assert got.shape == src.shape and torch.equal(got.float(), K._stored(src, store))
+
+
+@pytest.mark.parametrize("variant", ["coords_bf16", "c_img", "c_img_bf16", "gated"])
+def test_trunk_operands_through_chain(flagship, variant):
+    """K1/K2's operands through the emulated 3xTF32 chain against the port's
+    trunk_cn on the stored values and the JAX package's Pallas kernel in
+    interpret mode, within 1e-5; bf16 values are exact in TF32, so their
+    split loses nothing. The gated case leaves out the points within 1e-6
+    of r² for some contact, which the packages may round either way."""
+    params, tdec = flagship
+    rng = np.random.default_rng(12)
+    N, radius = 1000, 0.05
+    store = torch.bfloat16 if variant.endswith("bf16") else None
+    with_img = variant != "coords_bf16"
+    p = rng.uniform(-0.45, 0.45, (3, N)).astype(np.float32)
+    f = rng.standard_normal((W, N)).astype(np.float32)
+    ci = rng.standard_normal((W, N)).astype(np.float32) if variant.startswith("c_img") else None
+    q, valid = _contacts_near(rng, p, K_=16, spread=0.03)
+    feat = rng.standard_normal((5, W)).astype(np.float32)
+    gate = (T(q), T(feat), T(valid)) if variant == "gated" else None
+    tp = FT.extract_trunk_params(tdec, with_img=with_img)
+    blob, _, (x, fs, cs) = K._trunk_operands(
+        tp, T(p), T(f), None if ci is None else T(ci), gate, store_dtype=store)
+    x, fs = x.float(), fs.float()
+    cs = None if cs is None else cs.float()
+    sel = None
+    keep = np.ones(N, bool)
+    if gate is not None:
+        hit = (_kernel_d2(x.numpy(), q) < np.float32(radius * radius)).numpy()
+        hit = (hit & valid.reshape(1, -1)).reshape(N, 5, -1).any(axis=2)
+        last = np.where(hit.any(axis=1), 4 - np.argmax(hit[:, ::-1], axis=1), -1)
+        sel = torch.as_tensor(last)
+        assert (last >= 0).sum() > 50                  # many points gated
+        d2 = FT.contact_sq_dist(x, T(q), T(valid)).numpy()
+        keep = ~(np.abs(d2 - radius * radius) < 1e-6).any(axis=0)
+        assert (~keep).sum() <= 5
+    with torch.no_grad():
+        got = _emulated_chain(blob, x, fs, cs, sel)
+        c_img = FT.gate_contact_cn(x, *gate, radius) if gate is not None else cs
+        want = FT.trunk_cn(tp, x, fs, c_img)
+    jtp = JFT.extract_trunk_params(params, NBLK, with_img=with_img)
+    jstore = None if store is None else jnp.bfloat16
+    if gate is None:
+        jwant = j_fused_trunk_cn(j_pack(jtp, with_img=with_img), jnp.asarray(p),
+                                 jnp.asarray(f), None if ci is None else jnp.asarray(ci),
+                                 tile=128, interpret=True, store_dtype=jstore)
+    else:
+        jwant = j_fused_trunk_gated_cn(
+            j_pack(jtp, with_img=True), jnp.asarray(p), jnp.asarray(f),
+            jnp.asarray(q), jnp.asarray(feat), jnp.asarray(valid), radius=radius,
+            tile=128, interpret=True)
+    assert float(want.abs().max()) > 1.0
+    np.testing.assert_allclose(got.numpy()[keep], want.numpy()[keep], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy()[keep], np.asarray(jwant)[keep], atol=1e-5,
+                               rtol=0)
 
 
 # -- the contact culling -----------------------------------------------------
@@ -284,6 +394,29 @@ def test_candidates_ragged_and_small(N):
     want = K.window_gate_candidates(T(last), T(q), T(valid), RADIUS, tile=last.shape[1])
     assert torch.equal(cand[-1], want[0])
     _decisions_kept(p, q, valid, cand)
+
+
+def test_candidates_on_mesh_lattice_rows():
+    """The mesh path's own order: dense_query_grid_cn at nx = 128 makes each
+    tile one x-row at fixed (y, z), a segment. With contacts clustered as a
+    fingertip's, most rows keep no contact, those through the cluster keep
+    a few, and no gate decision changes (two z-planes: one through the
+    cluster, one far from it)."""
+    nx = TILE
+    grid = dense_query_grid_cn(nx, 1.1, device="cpu")
+    planes = [int(np.argmin(np.abs(grid[2, ::nx * nx].numpy() - z))) for z in (0.2, -0.3)]
+    p = torch.cat([grid[:, i * nx * nx:(i + 1) * nx * nx] for i in planes], dim=1)
+    rows = p.reshape(3, -1, TILE)
+    assert torch.all(rows[1:].amax(2) == rows[1:].amin(2))     # a tile is an x-row
+    rng = np.random.default_rng(8)
+    q = (0.2 + 0.05 * rng.standard_normal((5, 128, 3))).astype(np.float32)
+    valid = rng.random((5, 128)) > 0.3
+    cand = K.window_gate_candidates(p, T(q), T(valid), RADIUS)
+    kept = cand.sum(dim=(1, 2))
+    assert float((kept == 0).float().mean()) > 0.7
+    assert int(kept[:nx].max()) > 0 and int(kept[nx:].max()) == 0
+    assert int(kept.max()) < 0.1 * valid.sum()
+    assert _decisions_kept(p.numpy(), q, valid, cand) > 0
 
 
 def test_candidates_keep_box_edge_set():

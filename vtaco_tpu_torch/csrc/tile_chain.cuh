@@ -1,7 +1,17 @@
 // The decoder trunk's conditioned ResNet-FC chain on Hopper's tensor cores,
-// for a warpgroup's 128 points at once (32 per warp): the pieces of the
-// window kernels (window.cu: K3, K4) that a later redesign of trunk.cu can
-// share.
+// for a warpgroup's 128 points at once (32 per warp), and the tile loop
+// around it: the one chain of all four trunk kernels (trunk.cu: K1, K2;
+// window.cu: K3, K4), which differ only in where a tile's features come
+// from (streamed (C, N) rows or the trilinear gather).
+//
+// What bounds a kernel built on it: the chain's 15 products of 32 x 32
+// (30.7 kFLOP per point) at the 3xTF32 rate, a third of the TF32 tensor-core
+// rate; the input projection, head and contact tests run on the CUDA cores,
+// and the streamed bytes (at most 272 B per point) take a fifth of the
+// products' time at the memory rate. The design keeps the tensor cores fed:
+// net and h never leave the accumulator registers, three warpgroups per SM
+// overlap one another's waits, loads and epilogues, and a tile's contact
+// gate tests only the contacts near its points (tile_gate).
 //
 // Per point (rows), with hidden = C = 32 (columns):
 //   net = W_in [p; c_img] + b_in
@@ -43,7 +53,7 @@
 // + e is part(W[8nb + r][8jk + 2e + kb]): no-swizzle K-major core matrices,
 // 128 B apart along K and 256 B along N. The weights are split on the
 // host: 15 products x 8 KB = 123 KB of shared memory, which leaves room for
-// three 128-point tiles per block (window.cu).
+// three 128-point tiles per block.
 
 #pragma once
 
@@ -59,8 +69,45 @@ constexpr int kFragFloats = 2048;       // one packed 32 x 32 product
 constexpr int kRowStride = 40;          // floats per point row of an A tile:
                                         // float2 loads of 8 rows x 4 lanes
                                         // hit 32 distinct banks
+constexpr int kChanStride = 36;         // floats per channel row of a
+                                        // channel-major A tile (col_a): 36
+                                        // = 4 (mod 16), so its float2 loads
+                                        // hit 32 distinct banks
 
-// The window blob, in floats (pack_window_params):
+constexpr int kTile = 128;              // points per tile (WINDOW_TILE in
+                                        // ops/cuda/decode.py): a warpgroup's
+constexpr int kWarps = kTile / 32;      // warps per group
+constexpr int kGroups = 3;              // tiles in flight per block
+constexpr int kThreads = kTile * kGroups;
+constexpr int kRowsPerThread = 2;                  // contact rows culled per
+constexpr int kChunk = kRowsPerThread * kTile;     // thread and chunk
+constexpr int kWalk = 4;                // kept rows a point tests per step
+
+// Per-group scratch after the blob, in floats:
+//   f    [kWarps][32 kRowStride]    the warp's A tile of features (or c_img
+//                                   rows): point-major rows of kRowStride
+//                                   (tile_a) or channel-major rows of
+//                                   kChanStride (col_a)
+//   pts  [kWarps][3][32]            coordinates
+//   sel  [kWarps][32] (int)         gated finger per point, or -1
+//   part [kWarps][8]                box partials (lo xyz, hi xyz)
+//   mask [2][kRowsPerThread kWarps] (unsigned)  kept rows of a chunk, one
+//                                   bit per row, double-buffered
+constexpr int kF = 0;
+constexpr int kPts = kF + kWarps * 32 * kRowStride;
+constexpr int kSel = kPts + kWarps * 3 * 32;
+constexpr int kPart = kSel + kWarps * 32;
+constexpr int kMask = kPart + kWarps * 8;
+constexpr int kGroupFloats = (kMask + 2 * kRowsPerThread * kWarps + 3) / 4 * 4;
+static_assert(kWidth * kChanStride <= 32 * kRowStride, "col_a tile too large");
+static_assert(2 * kChunk * 4 <= kPts - kF, "tile_gate's stage exceeds the f tiles");
+
+// Dynamic shared memory of a launch: the blob and kGroups tiles' scratch.
+inline int smem_bytes(int n_floats) {
+  return (n_floats + kGroups * kGroupFloats) * (int)sizeof(float);
+}
+
+// The blob, in floats (pack_window_params):
 //   frag [3 NB][2048]         the packed products wc_i, w0_i, w1_i of
 //                             each block i (the order above)
 //   wp [H][4] (x, y, z, b_in) | bc [NB][H] | b0 [NB][H] | b1 [NB][H]
@@ -68,7 +115,7 @@ constexpr int kRowStride = 40;          // floats per point row of an A tile:
 // then a mode-dependent tail:
 //   MODE_CIMG:  w_img packed as one more product [2048]
 //   MODE_GATED: gproj [F][H] (W_img g_f per finger); the contacts
-//               themselves stay in global memory (window.cu)
+//               themselves stay in global memory (tile_gate)
 struct Layout {
   int frag, wp, bc, b0, b1, wout, bout, tail;
 };
@@ -189,6 +236,27 @@ __device__ __forceinline__ void tile_a(const float* __restrict__ x, int mi,
   a[3] = bot.y;
 }
 
+// The column of the warp's point r (0..31) in a channel-major A tile: rows
+// g and g + 8 of each m16 tile side by side, so that col_a reads both with
+// one float2 load.
+__device__ __forceinline__ int a_col(int r) {
+  return (r & 16) | ((r & 7) << 1) | ((r >> 3) & 1);
+}
+
+// A fragments read from a channel-major tile (kWidth rows of kChanStride,
+// point r at column a_col(r)), as load_cols writes it.
+__device__ __forceinline__ void col_a(const float* __restrict__ x, int mi,
+                                      int jk, float (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* r = x + (8 * jk + 2 * t) * kChanStride + 16 * mi + 2 * g;
+  const float2 k0 = *reinterpret_cast<const float2*>(r);
+  const float2 k1 = *reinterpret_cast<const float2*>(r + kChanStride);
+  a[0] = k0.x;
+  a[1] = k0.y;
+  a[2] = k1.x;
+  a[3] = k1.y;
+}
+
 // A fragments of relu(src), src the accumulator of the previous product.
 __device__ __forceinline__ void relu_a(const Acc& src, int mi, int jk,
                                        float (&a)[4]) {
@@ -231,26 +299,25 @@ __device__ __forceinline__ int acc_col(int jn, int e) {
   return 8 * jn + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// The chain from `net` (the input projection) with the warp's features f
-// (a 32 x kRowStride tile in shared memory), then the output head. Returns,
-// for the lanes with t == 0, the logits of rows g, g + 8, 16 + g, 24 + g in
-// out[0..3] (other lanes hold partial sums).
+// The chain from `net` (the input projection) with the warp's features,
+// whose A fragments load_f(mi, jk, a) reads (tile_a or col_a), then the
+// output head. Returns, for the lanes with t == 0, the logits of rows g,
+// g + 8, 16 + g, 24 + g in out[0..3] (other lanes hold partial sums).
 //
 // Each product accumulates from its bias in an accumulator of its own and
 // is then added to net in f32: the tensor cores round each mma's sum at
 // the scale of its accumulator, and net grows along the chain (logits of
 // order 10), so accumulating into net itself loses the products' low bits
 // twelve times per product.
+template <class LoadF>
 __device__ __forceinline__ void chain(const float* __restrict__ sm,
                                       const Layout& L, int NB, Acc& net,
-                                      const float* __restrict__ f,
-                                      float (&out)[4]) {
+                                      LoadF load_f, float (&out)[4]) {
   const float* frag = sm + L.frag;
   for (int b = 0; b < NB; ++b) {
     Acc h, d;
     set_cols(d, sm + L.bc + b * kWidth);
-    product(frag + (3 * b + 0) * kFragFloats, d,
-            [&](int mi, int jk, float (&a)[4]) { tile_a(f, mi, jk, a); });
+    product(frag + (3 * b + 0) * kFragFloats, d, load_f);
     add(net, d);
     set_cols(h, sm + L.b0 + b * kWidth);
     product(frag + (3 * b + 1) * kFragFloats, h,
@@ -279,6 +346,290 @@ __device__ __forceinline__ void chain(const float* __restrict__ sm,
       out[2 * mi + half] = s + b_out;
     }
   }
+}
+
+// ---- The tile loop ---------------------------------------------------------
+
+// f32 values of streamed operands, stored as f32 or as bf16 bits (uint16_t:
+// a bf16 value is the high half of its f32).
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  return __uint_as_float((uint32_t)__ldg(p) << 16);
+}
+
+// The warp's 32 points n0 + r of the (kWidth, N) channels-first rows `src`
+// into the channel-major A tile x (col_a), zero past N. Lane r loads point
+// n0 + r of every channel: each channel is one coalesced 128 B row (64 B in
+// bf16), all 32 in flight, and the stores hit distinct banks.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ src, long long n0,
+                                          long long N, float* __restrict__ x) {
+  const int lane = threadIdx.x & 31;
+  const long long n = n0 + lane;
+  float v[kWidth];
+#pragma unroll
+  for (int c = 0; c < kWidth; ++c) v[c] = n < N ? load_f32(src + c * N + n) : 0.f;
+  const int col = a_col(lane);
+#pragma unroll
+  for (int c = 0; c < kWidth; ++c) x[c * kChanStride + col] = v[c];
+}
+
+__device__ __forceinline__ void group_sync() {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + (int)threadIdx.x / kTile), "r"(kTile)
+               : "memory");
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// The contact gate of the group's tile (K1, K4): the finger whose feature
+// this lane's point (px, py, pz) takes into its input projection, or -1.
+// The rows
+// q[0 .. rows) are (qx, qy, qz, |q|^2) in finger order, K per finger, in
+// global memory; an invalid row carries |q|^2 = -1 and is never kept.
+//
+// A point gates on q when the expanded distance d = (|q|^2 + |p|^2) - 2 q.p,
+// rounded step by step, is below r^2; the decision is that of the last
+// finger with such a contact. The tile's box (a reduction over its valid
+// points) keeps only the contacts with dist(q, box)^2 <= r^2 + m. Each
+// rounding of d is at most u = 2^-24 relative, so |d - |q - p|^2| <=
+// 8u (|q|^2 + |p|^2 + r^2) (three for each squared norm and the dot
+// product, one for each of the sum and the difference, which is near r^2
+// where it matters). Every hit thus has |q - p|^2 < r^2 + 8u (...), and
+// dist(q, box) <= |q - p|. The gate takes m = 2^-19 (|q|^2 + P^2 + r^2),
+// P^2 the largest |p|^2 of the box: four times that bound, which also
+// covers the rounding of the box distance itself. With |q|^2, |p|^2 <= 1
+// and r = 0.015, m <= 3.8e-6, a margin of about m / 2r = 1.3e-4 in
+// distance. So no point loses a hit.
+//
+// The warpgroup culls kChunk rows at a time, from the last chunk back, each
+// warp publishing one ballot mask per 32 rows and staging the chunk's rows
+// in the group's f tiles, which are free until the gate returns (shared
+// memory does not grow with the contact count). Each point without a
+// finger yet tests the kept rows from the last, kWalk per step so that
+// their loads overlap: its first hit is in the last finger that has one,
+// the decision of the unculled loop. A tile of points close together
+// (sorted by super-cell, or one x-row of the mesh lattice) keeps few of the
+// valid contacts; a tile spread over the box keeps them all, and then the
+// walk is most of the gate's time. Every barrier is taken by all threads:
+// on the H100, versions that staged or closed only when rows were kept
+// (a barrier behind a branch) ran the sparse tiles 0.05-0.2 ms slower.
+__device__ __forceinline__ int tile_gate(const float4* __restrict__ q, int rows,
+                                         int K, float* scratch, float r2,
+                                         bool valid, float px, float py,
+                                         float pz) {
+  const int gi = threadIdx.x % kTile, warp = gi / 32, lane = threadIdx.x & 31;
+  float* part = scratch + kPart;
+  unsigned* masks = reinterpret_cast<unsigned*>(scratch + kMask);
+  float4* stage = reinterpret_cast<float4*>(scratch + kF);   // [2][kChunk]
+
+  // this thread's rows c0 + 32 s + lane, s = j kWarps + warp, of the last
+  // chunk, loaded before the box is known; later chunks a chunk ahead
+  int c0 = (rows - 1) / kChunk * kChunk;
+  const float4 none = make_float4(0.f, 0.f, 0.f, -1.f);
+  float4 c[kRowsPerThread];
+#pragma unroll
+  for (int j = 0; j < kRowsPerThread; ++j)
+    c[j] = c0 + j * kTile + gi < rows ? __ldg(q + c0 + j * kTile + gi) : none;
+
+  const float inf = __int_as_float(0x7f800000);
+  const float b[6] = {warp_min(valid ? px : inf), warp_min(valid ? py : inf),
+                      warp_min(valid ? pz : inf), warp_max(valid ? px : -inf),
+                      warp_max(valid ? py : -inf), warp_max(valid ? pz : -inf)};
+  if (lane == 0)
+    for (int i = 0; i < 6; ++i) part[warp * 8 + i] = b[i];
+  group_sync();
+  float lo[3], hi[3];
+  for (int i = 0; i < 3; ++i) {
+    lo[i] = part[i];
+    hi[i] = part[3 + i];
+    for (int w = 1; w < kWarps; ++w) {
+      lo[i] = fminf(lo[i], part[w * 8 + i]);
+      hi[i] = fmaxf(hi[i], part[w * 8 + 3 + i]);
+    }
+  }
+  float big[3];
+  for (int i = 0; i < 3; ++i)
+    big[i] = fmaxf(__fmul_rn(lo[i], lo[i]), __fmul_rn(hi[i], hi[i]));
+  const float P2 = __fadd_rn(__fadd_rn(big[0], big[1]), big[2]);
+  const float p2 = __fadd_rn(__fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py)),
+                             __fmul_rn(pz, pz));
+
+  // the expanded distance test of a point, rounded step by step
+  const auto hits = [&](float4 e) {
+    const float dot = __fadd_rn(
+        __fadd_rn(__fmul_rn(e.x, px), __fmul_rn(e.y, py)), __fmul_rn(e.z, pz));
+    return __fsub_rn(__fadd_rn(e.w, p2), __fmul_rn(2.f, dot)) < r2;
+  };
+
+  // Each chunk: its rows staged and one ballot mask per 32 rows (barrier),
+  // then every point without a finger yet tests the kept rows from the
+  // last. Masks and rows are double-buffered, so one barrier per chunk
+  // orders them.
+  int sel = -1;
+  for (int buf = 0; c0 >= 0; c0 -= kChunk, buf ^= 1) {
+    unsigned* mk = masks + buf * kRowsPerThread * kWarps;
+    float4* st = stage + buf * kChunk;
+    float4 next[kRowsPerThread];
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) {
+      next[j] = c0 >= kChunk ? __ldg(q + c0 - kChunk + j * kTile + gi) : none;
+      st[j * kTile + gi] = c[j];
+      // rounded step by step, as window_gate_candidates computes it
+      const float4 e = c[j];
+      const float dx = __fsub_rn(e.x, fminf(fmaxf(e.x, lo[0]), hi[0]));
+      const float dy = __fsub_rn(e.y, fminf(fmaxf(e.y, lo[1]), hi[1]));
+      const float dz = __fsub_rn(e.z, fminf(fmaxf(e.z, lo[2]), hi[2]));
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      const float mg = __fmul_rn(0x1p-19f, __fadd_rn(__fadd_rn(e.w, P2), r2));
+      // e.w < 0: an invalid row
+      const unsigned m =
+          __ballot_sync(0xffffffffu, e.w >= 0.f && d2 <= __fadd_rn(r2, mg));
+      if (lane == 0) mk[j * kWarps + warp] = m;
+    }
+    group_sync();
+    for (int s = kRowsPerThread * kWarps - 1; s >= 0 && valid && sel < 0; --s) {
+      for (unsigned m = mk[s]; m != 0u;) {
+        int bit[kWalk];   // the next kWalk kept rows, last first (repeated
+        bool hit[kWalk];  // when fewer remain)
+        bit[0] = 31 - __clz(m);
+        m ^= 1u << bit[0];
+#pragma unroll
+        for (int i = 1; i < kWalk; ++i) {
+          bit[i] = m != 0u ? 31 - __clz(m) : bit[i - 1];
+          m &= ~(1u << bit[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < kWalk; ++i) hit[i] = hits(st[32 * s + bit[i]]);
+        int first = -1;
+#pragma unroll
+        for (int i = kWalk - 1; i >= 0; --i) first = hit[i] ? bit[i] : first;
+        if (first >= 0) {
+          sel = (c0 + 32 * s + first) / K;
+          break;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsPerThread; ++j) c[j] = next[j];
+  }
+  group_sync();   // the stage is the f tiles the caller writes next
+  return sel;
+}
+
+// The blob staged in the block's dynamic shared memory (all threads call
+// this once), and each warp's scratch after it.
+__device__ __forceinline__ const float* stage_blob(const float* __restrict__ blob,
+                                                   int n_floats) {
+  extern __shared__ float4 smem4[];
+  const float4* blob4 = reinterpret_cast<const float4*>(blob);
+  for (int i = threadIdx.x; i < n_floats / 4; i += blockDim.x) smem4[i] = blob4[i];
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // for wgmma
+  __syncthreads();
+  return reinterpret_cast<const float*>(smem4);
+}
+
+struct WarpScratch {
+  float* group;   // the group's scratch (tile_gate)
+  float* f;       // the warp's A tile
+  float* pts;     // its points' coordinates [3][32]
+  int* sel;       // their gated fingers [32]
+};
+
+__device__ __forceinline__ WarpScratch warp_scratch(const float* sm, int n_floats) {
+  const int group = threadIdx.x / kTile, warp = (threadIdx.x % kTile) / 32;
+  float* s = const_cast<float*>(sm) + n_floats + group * kGroupFloats;
+  return {s, s + kF + warp * 32 * kRowStride, s + kPts + warp * 96,
+          reinterpret_cast<int*>(s + kSel) + warp * 32};
+}
+
+// body(n0) for each tile of this warp's group, n0 the first of the warp's
+// 32 points in it: tiles blockIdx.x kGroups + group, strided by the grid.
+template <class Body>
+__device__ __forceinline__ void for_each_tile(long long N, Body body) {
+  const int group = threadIdx.x / kTile, warp = (threadIdx.x % kTile) / 32;
+  const long long n_tiles = (N + kTile - 1) / kTile;
+  for (long long ti = (long long)blockIdx.x * kGroups + group; ti < n_tiles;
+       ti += (long long)gridDim.x * kGroups)
+    body(ti * kTile + warp * 32);
+}
+
+// The rest of a tile once the warp's pts, sel (MODE_GATED) and features are
+// in place: the input projection W_in p + b_in on the CUDA cores, plus the
+// gated finger's row W_img g_f (MODE_GATED) or the c_img product `img`
+// (MODE_CIMG); the chain; the logits of the warp's points n0 + r < N.
+template <int MODE, class LoadF>
+__device__ __forceinline__ void finish_tile(const float* __restrict__ sm,
+                                            const Layout& L, int NB,
+                                            const WarpScratch& ws, const Acc& img,
+                                            LoadF load_f, long long n0, long long N,
+                                            float* __restrict__ out) {
+  Acc net;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = acc_row(mi, e);
+      const float rx = ws.pts[row], ry = ws.pts[32 + row], rz = ws.pts[64 + row];
+      const int s = MODE == MODE_GATED ? ws.sel[row] : -1;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        const int col = acc_col(jn, e);
+        const float4 w = reinterpret_cast<const float4*>(sm + L.wp)[col];
+        float v = fmaf(w.z, rz, fmaf(w.y, ry, w.x * rx)) + w.w;
+        if (s >= 0) v += sm[L.tail + s * kWidth + col];
+        net[mi][jn][e] = v;
+      }
+    }
+  }
+  if (MODE == MODE_CIMG) add(net, img);
+
+  float o[4];
+  chain(sm, L, NB, net, load_f, o);
+  if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long m = n0 + acc_row(k >> 1, 2 * (k & 1));
+      if (m < N) out[m] = o[k];
+    }
+  }
+}
+
+// Launches a tile kernel of kThreads threads and smem_bytes(n_floats) of
+// dynamic shared memory on as many blocks as the SMs hold at once (fewer
+// for small N): each block stages the blob once and strides over tiles.
+// Returns a cudaError_t.
+template <class Kernel, class... Args>
+int launch_tiles(Kernel kernel, int n_floats, long long N, cudaStream_t stream,
+                 Args... args) {
+  if (n_floats % 4) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  const int smem = smem_bytes(n_floats);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long want = ((N + kTile - 1) / kTile + kGroups - 1) / kGroups;
+  const long long cap = (long long)sms * per_sm;
+  const int blocks = (int)(want < cap ? want : cap);
+  kernel<<<blocks, kThreads, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace tile

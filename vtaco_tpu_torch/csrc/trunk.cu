@@ -1,120 +1,151 @@
-// Fused occupancy-decoder trunk for Hopper (sm_90a): one CUDA kernel, three
-// modes, replacing the Pallas kernels of vtaco_tpu/ops/pallas/decode.py:
+// Fused occupancy-decoder trunk for Hopper (sm_90a) at precomputed
+// features: one tile kernel, three modes, replacing the Pallas kernels of
+// vtaco_tpu/ops/pallas/decode.py:
 //   MODE_COORDS  fused_trunk_cn (K2), input projection of the coords only
 //   MODE_CIMG    fused_trunk_cn (K2) with precomputed per-point c_img rows
 //   MODE_GATED   fused_trunk_gated_cn (K1), contact gating fused in
 //
-// What it computes, per query point n (columns of channels-first inputs),
-// is the chain of trunk_chain.cuh on the point's coords and its
-// precomputed (C, N) features. With gating, invalid contacts carry
-// |q|^2 = 1e30; the wrapper puts each finger's valid contacts first and
-// passes their count, so the kernel tests only those: an invalid row never
-// passes the test, so skipping it is exact.
-//
-// What bounds it on this card: about 31 kFLOP of f32 FMA work per point at
-// hidden = C = 32 and 5 blocks, against 144 B of streamed inputs (coords
-// and features read once, one logit written), so the trunk is bound by the
-// CUDA cores' f32 rate, not by memory (IEEE f32 on purpose: the JAX
-// reference runs at "highest" precision, so no TF32 tensor cores).
-//
-// What the design does about it: one thread per point, points on
-// threadIdx.x so the (C, N) reads coalesce; the activation vectors net, h
-// and the features stay in registers (widths are template parameters so
-// the arrays are register-resident); all weights (~64 KB) sit in shared
-// memory and every warp reads them as broadcast float4 loads, so the inner
-// loops are FMAs fed from registers and broadcast shared loads. A
-// grid-stride loop over points keeps the number of blocks at what the
-// SMs hold at once, so each block fills shared memory once. For K1 the
-// five per-finger input projections W_img g_f are precomputed by the
-// wrapper (they do not depend on the point), so gating costs only the
-// distance tests against each finger's valid contacts, which stop at the
-// finger's first hit. There are no padded
-// tiles (each thread checks n < N), so the TPU kernel's far-away padding
-// sentinel has no counterpart here.
-//
-// Streamed inputs may be stored as bf16 (T = __nv_bfloat16); the math is
+// What it computes, per query point n of the (3, N) coords and (C, N)
+// channels-first features (and c_img rows): the chain of tile_chain.cuh,
+// with the input projection W_in [p; c_img] + b_in, where in MODE_GATED
+// c_img is the feature g_f of the last finger with a valid contact q at
+// (|q|^2 + |p|^2) - 2 q.p < r^2, rounded step by step, or zero. Streamed
+// operands may be stored as bf16 (T = uint16_t, the bf16 bits); the math is
 // f32 either way, as in the TPU kernel's store_dtype mode.
+//
+// What bounds it on this card: the chain's 30.7 kFLOP per point of 32 x 32
+// products (the 128^3 mesh grid: 64 GFLOP), run on the tensor cores in
+// 3xTF32 at a third of the 495 TFLOP/s TF32 rate: 0.39 ms. The streamed
+// 144 B per point (272 B with c_img rows; half in bf16) take 0.09 ms at the
+// memory rate; the input projection, head and contact tests run on the
+// CUDA cores. An unculled gate would test every valid contact at every
+// point, as many operations as the products on a spread contact set.
+//
+// What the design does about it (the kernel is window.cu's K3/K4 with the
+// corner gather replaced by a streamed load):
+// - Tiles. A warpgroup owns kTile = 128 consecutive points, three
+//   warpgroups per block share the split weights (123 KB, staged once) and
+//   stride over tiles, each on its own named barrier (tile_chain.cuh).
+// - Features. Each lane loads its point's 32 channels, so each channel is
+//   one coalesced 128 B row of the warp's 32 points (64 B in bf16), all 32
+//   in flight, into a channel-major A tile whose columns pair rows g and
+//   g + 8 (col_a): the stores and the fragments' float2 loads are free of
+//   bank conflicts. bf16 values are exact in TF32 (their lo part is 0), so
+//   the bf16 mode loses nothing in the split.
+// - The chain on the tensor cores: 3xTF32 wgmma with net and h in
+//   accumulator registers; the coordinates' projection (3 -> 32), the gated
+//   finger's row W_img g_f and the biases on the CUDA cores.
+// - Per-tile contact culling (K1): tile_gate. The mesh path's points come
+//   in lattice order, z slowest, so a tile is one x-row at fixed (y, z), a
+//   thin segment, and keeps only the few contacts within r of it; the
+//   contacts stay in global memory, so any number fits. On points spread
+//   over the box (the gather route of eval_points) a tile keeps every valid
+//   contact; the gate then stages each chunk of rows in shared memory and
+//   each point tests them from the last, four per step, stopping at its
+//   first hit.
 
-#include "trunk_chain.cuh"
+#include "tile_chain.cuh"
 
 namespace {
 
-using namespace trunk;
+using namespace tile;
 
-template <typename T, int H, int C, int MODE>
-__global__ void __launch_bounds__(kThreads)
-trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int F, int K,
-             float r2, const T* __restrict__ p, const T* __restrict__ feats,
-             const T* __restrict__ c_img, float* __restrict__ out, long long N) {
-  extern __shared__ float4 smem4[];
-  stage_weights(smem4, blob, n_floats);
-  const float* sm = reinterpret_cast<const float*>(smem4);
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads, 1)
+trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int K, float r2,
+             const float4* __restrict__ contacts, int rows, const T* __restrict__ p,
+             const T* __restrict__ feats, const T* __restrict__ c_img,
+             float* __restrict__ out, long long N) {
+  const float* sm = stage_blob(blob, n_floats);
+  const Layout Lw = make_layout(NB);
+  const WarpScratch ws = warp_scratch(sm, n_floats);
+  const int lane = threadIdx.x & 31;
+  const auto feature_a = [&](int mi, int jk, float (&a)[4]) { col_a(ws.f, mi, jk, a); };
 
-  const Layout L = make_layout(H, C, NB);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += stride) {
-    const float px = load_f32(p + n);
-    const float py = load_f32(p + N + n);
-    const float pz = load_f32(p + 2 * N + n);
-
-    float net[H];
-    input_projection<T, H, C, MODE>(sm, L, F, K, r2, px, py, pz, c_img, n, N, net);
-
-    float f[C];
-#pragma unroll
-    for (int k = 0; k < C; ++k) f[k] = load_f32(feats + (long long)k * N + n);
-    out[n] = chain<H, C>(sm, L, NB, net, f);
-  }
+  for_each_tile(N, [&](long long n0) {
+    const long long n = n0 + lane;
+    const bool valid = n < N;
+    float px = 0.f, py = 0.f, pz = 0.f;
+    if (valid) {
+      px = load_f32(p + n);
+      py = load_f32(p + N + n);
+      pz = load_f32(p + 2 * N + n);
+    }
+    __syncwarp();   // the previous tile's reads of f, pts, sel are done
+    ws.pts[lane] = px;
+    ws.pts[32 + lane] = py;
+    ws.pts[64 + lane] = pz;
+    Acc img = {};
+    if (MODE == MODE_CIMG) {
+      load_cols(c_img, n0, N, ws.f);
+      __syncwarp();
+      product(sm + Lw.tail, img, feature_a);
+    }
+    ws.sel[lane] = MODE == MODE_GATED
+        ? tile_gate(contacts, rows, K, ws.group, r2, valid, px, py, pz) : -1;
+    __syncwarp();
+    load_cols(feats, n0, N, ws.f);
+    __syncwarp();
+    finish_tile<MODE>(sm, Lw, NB, ws, img, feature_a, n0, N, out);
+  });
 }
 
 template <typename T, int MODE>
-int launch(const float* blob, int n_floats, int H, int C, int NB, int F, int K,
-           float r2, const void* p, const void* feats, const void* c_img,
-           float* out, long long N, cudaStream_t stream) {
-  if (H != 32 || C != 32) return (int)cudaErrorInvalidValue;
-  if (N <= 0) return (int)cudaSuccess;
-  auto kernel = trunk_kernel<T, 32, 32, MODE>;
-  const int smem = n_floats * (int)sizeof(float);
-  int blocks = 0;
-  cudaError_t err = grid_blocks(kernel, smem, N, &blocks);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      blob, n_floats, NB, F, K, r2, static_cast<const T*>(p),
-      static_cast<const T*>(feats), static_cast<const T*>(c_img), out, N);
-  return (int)cudaGetLastError();
+int launch(const float* blob, int n_floats, int H, int C, int NB, int K, float r2,
+           const float* contacts, int rows, const void* p, const void* feats,
+           const void* c_img, float* out, long long N, cudaStream_t stream) {
+  if (H != kWidth || C != kWidth) return (int)cudaErrorInvalidValue;
+  return launch_tiles(trunk_kernel<T, MODE>, n_floats, N, stream, blob, n_floats, NB,
+                      K, r2, reinterpret_cast<const float4*>(contacts), rows,
+                      static_cast<const T*>(p), static_cast<const T*>(feats),
+                      static_cast<const T*>(c_img), out, N);
+}
+
+template <int MODE>
+int launch_stored(int bf16, const float* blob, int n_floats, int H, int C, int NB,
+                  int K, float r2, const float* contacts, int rows, const void* p,
+                  const void* feats, const void* c_img, float* out, long long N,
+                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch<uint16_t, MODE>(blob, n_floats, H, C, NB, K, r2, contacts,
+                                       rows, p, feats, c_img, out, N, s)
+              : launch<float, MODE>(blob, n_floats, H, C, NB, K, r2, contacts, rows,
+                                    p, feats, c_img, out, N, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2: fused_trunk_cn. c_img may be null (coords-only input projection).
+// Points per tile: the wrapper's WINDOW_TILE must equal it.
+int trunk_tile() { return kTile; }
+
+// Dynamic shared memory of a launch: the blob and kGroups tiles' scratch.
+int trunk_smem_bytes(int n_floats) { return smem_bytes(n_floats); }
+
+// K2: fused_trunk_cn. blob: pack_window_params's layout (tile_chain.cuh),
+// with the c_img product when c_img is given (mode 1), else mode 0; p,
+// feats, c_img: (3, N), (C, N), (C, N), f32 or (bf16 != 0) bf16.
 int trunk_cn_launch(const float* blob, int n_floats, int H, int C, int NB,
                     const void* p, const void* feats, const void* c_img,
                     int bf16, float* out, long long N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_img == nullptr) {
-    return bf16 ? launch<__nv_bfloat16, MODE_COORDS>(blob, n_floats, H, C, NB, 0, 0,
-                                                     0.f, p, feats, c_img, out, N, s)
-                : launch<float, MODE_COORDS>(blob, n_floats, H, C, NB, 0, 0, 0.f, p,
-                                             feats, c_img, out, N, s);
-  }
-  return bf16 ? launch<__nv_bfloat16, MODE_CIMG>(blob, n_floats, H, C, NB, 0, 0, 0.f,
-                                                 p, feats, c_img, out, N, s)
-              : launch<float, MODE_CIMG>(blob, n_floats, H, C, NB, 0, 0, 0.f, p,
-                                         feats, c_img, out, N, s);
+  if (c_img == nullptr)
+    return launch_stored<MODE_COORDS>(bf16, blob, n_floats, H, C, NB, 0, 0.f, nullptr,
+                                      0, p, feats, nullptr, out, N, stream);
+  return launch_stored<MODE_CIMG>(bf16, blob, n_floats, H, C, NB, 0, 0.f, nullptr, 0,
+                                  p, feats, c_img, out, N, stream);
 }
 
-// K1: fused_trunk_gated_cn.
+// K1: fused_trunk_gated_cn. blob: mode 2's, W_img g_f per finger after it;
+// contacts: (F*K, 4) f32 rows (qx, qy, qz, |q|^2, or -1 for an invalid
+// row) in finger order, 16-byte aligned.
 int trunk_gated_cn_launch(const float* blob, int n_floats, int H, int C, int NB,
-                          int F, int K, float r2, const void* p, const void* feats,
-                          int bf16, float* out, long long N, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch<__nv_bfloat16, MODE_GATED>(blob, n_floats, H, C, NB, F, K, r2,
-                                                  p, feats, nullptr, out, N, s)
-              : launch<float, MODE_GATED>(blob, n_floats, H, C, NB, F, K, r2, p,
-                                          feats, nullptr, out, N, s);
+                          int F, int K, float r2, const float* contacts,
+                          const void* p, const void* feats, int bf16, float* out,
+                          long long N, void* stream) {
+  if (F < 1 || K < 1 || contacts == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_stored<MODE_GATED>(bf16, blob, n_floats, H, C, NB, K, r2, contacts,
+                                   F * K, p, feats, nullptr, out, N, stream);
 }
 
 }  // extern "C"

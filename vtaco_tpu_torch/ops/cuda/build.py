@@ -4,8 +4,9 @@ them with ctypes.
 Each source under ``vtaco_tpu_torch/csrc/`` becomes one library, compiled
 for ``sm_90a`` by ``nvcc`` at first use into ``vtaco_tpu_torch/_build/``
 (listed in .gitignore). The library name carries a hash of its source and
-of every header under ``csrc/`` (``trunk_chain.cuh``, ``tile_chain.cuh``), so
-an edited source or header is rebuilt and a stale library is never loaded.
+of every header under ``csrc/`` (``tile_chain.cuh``, which both include),
+so an edited source or header is rebuilt and a stale library is never
+loaded.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 

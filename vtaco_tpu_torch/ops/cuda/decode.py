@@ -4,13 +4,14 @@
 ``fused_trunk_gated_cn`` :538).
 
 K1 and K2 live in ``csrc/trunk.cu``, K3 and K4 (the two branches of
-``fused_trunk_window_cn``) in ``csrc/window.cu``; see each source's header
-for what bounds it on the card and how the design answers it. This module
-packs the weights (``pack_trunk_params`` for trunk.cu,
-``pack_window_params`` for window.cu's tensor-core chain), checks the
-inputs and launches them through ctypes. ``window_gate_candidates`` is the
-plain version of window.cu's per-tile contact culling, and
-``window_box_edge_contacts`` a contact set that probes its margin.
+``fused_trunk_window_cn``) in ``csrc/window.cu``, all four on the tile
+chain of ``csrc/tile_chain.cuh``; see each source's header for what bounds
+it on the card and how the design answers it. This module packs the
+weights (``pack_window_params``: split into TF32 hi/lo parts for the
+tensor cores), checks the inputs and launches the kernels through ctypes.
+``window_gate_candidates`` is the plain version of the kernels' per-tile
+contact culling, and ``window_box_edge_contacts`` a contact set that
+probes its margin.
 
 Wrapper contract: CPU tensors take the plain PyTorch version in
 ops/fast_trunk.py (the function the kernel computes); CUDA tensors launch
@@ -42,33 +43,7 @@ from vtaco_tpu_torch.ops.dense_decode import (
 
 WIDTHS = (32, 32)  # (hidden, C) the kernel is instantiated for
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
-WINDOW_TILE = 128  # points per tile of csrc/window.cu (kTile)
-
-
-def pack_trunk_params(tp, with_img: bool):
-    """extract_trunk_params output → (blob, w_img).
-
-    ``blob`` is the flat f32 weight array in the kernel's layout
-    (csrc/trunk.cu, ``Layout``): wc | w0 | w1 | wp (coord columns + b_in)
-    | bc | b0 | b1 | w_out | b_out padded to 4. ``w_img`` is the (h, C)
-    c_img half of the fc_p_img projection, or None for the fc_p packing."""
-    w_in, b_in = tp["fc_p_img"] if with_img else tp["fc_p"]
-    w_in = w_in.float()
-    w_out, b_out = tp["fc_out"]
-    blocks = tp["blocks"]
-    parts = [
-        torch.stack([w for w, _ in tp["fc_c"]]),
-        torch.stack([blk[0] for blk in blocks]),
-        torch.stack([blk[2] for blk in blocks]),
-        torch.cat([w_in[:, :3], b_in.float()[:, None]], dim=1),
-        torch.stack([b for _, b in tp["fc_c"]]),
-        torch.stack([blk[1] for blk in blocks]),
-        torch.stack([blk[3] for blk in blocks]),
-        w_out.reshape(-1),
-        torch.cat([b_out.reshape(1), b_out.new_zeros(3)]),
-    ]
-    blob = torch.cat([t.float().reshape(-1) for t in parts])
-    return blob, (w_in[:, 3:].contiguous() if with_img else None)
+WINDOW_TILE = 128  # points per tile of the tile kernels (kTile)
 
 
 def tf32_rna(x):
@@ -91,7 +66,7 @@ def _fragments(w):
 
 
 def pack_window_params(tp, with_img: bool, img_rows: bool = False):
-    """extract_trunk_params output → (blob, w_img) for csrc/window.cu.
+    """extract_trunk_params output → (blob, w_img) for the tile kernels.
 
     ``blob`` is the flat f32 array of ``tile_chain.cuh``'s ``Layout``: the
     3·NB chain products (wc, w0, w1 of each block) split into TF32 hi/lo
@@ -124,36 +99,45 @@ def _stored(x, store_dtype):
     return x if store_dtype is None else x.to(store_dtype).float()
 
 
+def _tile_lib(name):
+    """csrc/<name>.cu's library, after checking that it tiles WINDOW_TILE
+    points; ``<name>_smem_bytes`` gives a launch's shared memory."""
+    lib = build.library(name)
+    I = ctypes.c_int
+    tile = getattr(lib, f"{name}_tile")
+    tile.restype = I
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes, smem.restype = [I], I
+    if tile() != WINDOW_TILE:
+        raise RuntimeError(f"{name}.cu tiles {tile()} points, WINDOW_TILE is "
+                           f"{WINDOW_TILE}")
+    return lib
+
+
 @functools.cache
 def _lib():
-    lib = build.library("trunk")
-    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = _tile_lib("trunk")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.trunk_cn_launch.argtypes = [P, I, I, I, I, P, P, P, I, P,
                                     ctypes.c_longlong, P]
     lib.trunk_cn_launch.restype = I
-    lib.trunk_gated_cn_launch.argtypes = [P, I, I, I, I, I, I, ctypes.c_float,
-                                          P, P, I, P, ctypes.c_longlong, P]
+    lib.trunk_gated_cn_launch.argtypes = [P, I, I, I, I, I, I, F, P, P, P, I, P,
+                                          ctypes.c_longlong, P]
     lib.trunk_gated_cn_launch.restype = I
     return lib
 
 
 @functools.cache
 def _window_lib():
-    lib = build.library("window")
+    lib = _tile_lib("window")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.window_cn_launch.argtypes = [P, I, I, I, I, I, I, F, I, P, P, P, I, F,
                                      F, I, I, P, P, P, ctypes.c_longlong, P]
     lib.window_cn_launch.restype = I
-    lib.window_tile.restype = I
-    lib.window_smem_bytes.argtypes = [I]
-    lib.window_smem_bytes.restype = I
-    if lib.window_tile() != WINDOW_TILE:
-        raise RuntimeError(f"window.cu tiles {lib.window_tile()} points, "
-                           f"WINDOW_TILE is {WINDOW_TILE}")
     return lib
 
 
-def _check(tp, p_cn, C, blob, *others):
+def _check(tp, p_cn, C, *others):
     """N, after checking the widths, that the coords are (3, N) and each
     (C, N) operand in ``others`` matches, and that all share one CUDA
     device with the weights."""
@@ -169,19 +153,22 @@ def _check(tp, p_cn, C, blob, *others):
     if p_cn.shape != (3, N) or any(t.shape != (C, N) for t in others):
         raise ValueError(f"coords must be (3, N) and features ({C}, N), got "
                          f"{[tuple(t.shape) for t in (p_cn, *others)]}")
-    if any(t.device != dev for t in (blob, *others)):
+    if any(t.device != dev for t in (tp["fc_out"][0], *others)):
         raise ValueError("coords, features and weights must share one device")
-    if blob.numel() * 4 > SMEM_LIMIT:
-        raise ValueError(f"{blob.numel() * 4} B of weights exceed shared memory")
     return N
+
+
+def _check_smem(smem_bytes, blob):
+    """Raises unless a launch with ``blob`` (``smem_bytes`` of its floats
+    from the kernel's library) fits a block's shared memory."""
+    smem = smem_bytes(blob.numel())
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the kernel needs {smem} B of shared memory, more "
+                         f"than a block has ({SMEM_LIMIT})")
 
 
 def _streamed(x, store_dtype):
     return x.to(store_dtype or torch.float32).contiguous()
-
-
-def _pad4(t):
-    return torch.cat([t, t.new_zeros((-t.numel()) % 4)])
 
 
 def _raise_on(rc, name):
@@ -189,25 +176,18 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} failed with CUDA error {rc}")
 
 
-def _gated_blob(tp, gate_pts, gate_feat, gate_valid):
-    """The fc_p_img weight blob with the contact tail of the gated mode:
-    W_img g_f per finger, the per-finger valid counts, and the contacts
-    with |q|² (1e30 on invalid rows), each finger's valid rows first in
-    their order, so the kernel tests only those (an invalid row never
-    gates a point)."""
-    blob, w_img = pack_trunk_params(tp, with_img=True)
-    n_fingers, K, _ = gate_pts.shape
-    valid = gate_valid.bool()
-    order = torch.argsort((~valid).long() * K
-                          + torch.arange(K, device=valid.device), dim=1)
-    valid = torch.gather(valid, 1, order).reshape(-1)
-    q = torch.gather(gate_pts.float(), 1, order[..., None].expand(-1, -1, 3))
-    q = q.reshape(n_fingers * K, 3)
-    q2 = torch.where(valid, torch.sum(q * q, dim=1), torch.full_like(q[:, 0], 1e30))
-    gproj = gate_feat.float() @ w_img.T                  # (5, h): W_img g_f
-    count = _pad4(gate_valid.sum(dim=1).float())
-    return _pad4(torch.cat([blob, gproj.reshape(-1), count,
-                            torch.cat([q, q2[:, None]], dim=1).reshape(-1)]))
+def _trunk_operands(tp, p_cn, feats_cn, c_img_cn=None, gate=None,
+                    store_dtype=None):
+    """What csrc/trunk.cu takes: ``(blob, contacts, streamed)``,
+    ``_window_operands``' blob and contacts in mode 0 (coords), 1 (c_img
+    rows) or 2 (gated by ``gate`` = (gate_pts, gate_feat, gate_valid)), and
+    the (3, N) coords, (C, N) features and c_img rows (or None), contiguous
+    in ``store_dtype`` (float32 for None)."""
+    mode = 2 if gate is not None else 0 if c_img_cn is None else 1
+    blob, contacts = _window_operands(tp, mode, gate)
+    streamed = [None if t is None else _streamed(t, store_dtype)
+                for t in (p_cn, feats_cn, c_img_cn)]
+    return blob, contacts, streamed
 
 
 def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
@@ -217,16 +197,14 @@ def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
         c_img = None if c_img_cn is None else _stored(c_img_cn, store_dtype)
         return FT.trunk_cn(tp, _stored(p_cn, store_dtype),
                            _stored(feats_cn, store_dtype), c_img)
-    blob, w_img = pack_trunk_params(tp, with_img=c_img_cn is not None)
-    if w_img is not None:
-        blob = torch.cat([blob, w_img.reshape(-1)])
-    blob = _pad4(blob)
-    N = _check(tp, p_cn, feats_cn.shape[0], blob, feats_cn)
-    x = _streamed(p_cn, store_dtype)
-    f = _streamed(feats_cn, store_dtype)
-    ci = None if c_img_cn is None else _streamed(c_img_cn, store_dtype)
+    N = _check(tp, p_cn, feats_cn.shape[0], feats_cn,
+               *([] if c_img_cn is None else [c_img_cn]))
+    blob, _, (x, f, ci) = _trunk_operands(tp, p_cn, feats_cn, c_img_cn,
+                                          store_dtype=store_dtype)
+    lib = _lib()
+    _check_smem(lib.trunk_smem_bytes, blob)
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
-    rc = _lib().trunk_cn_launch(
+    rc = lib.trunk_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]),
         x.data_ptr(), f.data_ptr(), None if ci is None else ci.data_ptr(),
         int(store_dtype == torch.bfloat16), out.data_ptr(), N,
@@ -244,23 +222,29 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
     """K1: contact gating + trunk in one kernel; the same function as
     ``gate_contact_cn`` feeding ``trunk_cn`` with the fc_p_img projection.
 
-    gate_pts (5, K, 3) contact points, gate_feat (5, C) finger features,
-    gate_valid (5, K) bool. Returns (N,) float32 logits."""
+    gate_pts (F, K, 3) contact points, gate_feat (F, C) finger features,
+    gate_valid (F, K) bool, any K >= 1. Returns (N,) float32 logits. Fastest on
+    points in lattice or super-cell order, whose tiles of ``WINDOW_TILE``
+    consecutive points keep few contacts; right in any order."""
     if p_cn.device.type == "cpu":
         p = _stored(p_cn, store_dtype)
         c_img = FT.gate_contact_cn(p, gate_pts, gate_feat, gate_valid, radius)
         return FT.trunk_cn(tp, p, _stored(feats_cn, store_dtype), c_img)
-    blob = _gated_blob(tp, gate_pts, gate_feat, gate_valid)
+    N = _check(tp, p_cn, feats_cn.shape[0], feats_cn)
+    if any(t.device != p_cn.device for t in (gate_pts, gate_feat, gate_valid)):
+        raise ValueError("coords and contacts must share one device")
+    blob, contacts, (x, f, _) = _trunk_operands(
+        tp, p_cn, feats_cn, gate=(gate_pts, gate_feat, gate_valid),
+        store_dtype=store_dtype)
     n_fingers, K, _ = gate_pts.shape
-    N = _check(tp, p_cn, feats_cn.shape[0], blob, feats_cn)
-    x = _streamed(p_cn, store_dtype)
-    f = _streamed(feats_cn, store_dtype)
+    lib = _lib()
+    _check_smem(lib.trunk_smem_bytes, blob)
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
-    rc = _lib().trunk_gated_cn_launch(
+    rc = lib.trunk_gated_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
-        float(radius) * float(radius), x.data_ptr(), f.data_ptr(),
-        int(store_dtype == torch.bfloat16), out.data_ptr(), N,
-        torch.cuda.current_stream(p_cn.device).cuda_stream)
+        float(radius) * float(radius), contacts.data_ptr(), x.data_ptr(),
+        f.data_ptr(), int(store_dtype == torch.bfloat16),
+        out.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
     _raise_on(rc, "trunk_gated_cn_launch")
     fused_trunk_gated_cn.launches += 1
     return out
@@ -270,9 +254,10 @@ fused_trunk_gated_cn.launches = 0
 
 
 def _window_operands(tp, mode, gate=None):
-    """(blob, contacts) of window.cu in ``mode`` (0 coords, 1 c_img rows, 2
-    gated with ``gate`` = (gate_pts, gate_feat, gate_valid)): the blob is
-    ``pack_window_params``'s, in mode 2 followed by W_img g_f per finger;
+    """(blob, contacts) of the tile kernels in ``mode`` (0 coords, 1 c_img
+    rows, 2 gated with ``gate`` = (gate_pts, gate_feat, gate_valid)): the
+    blob is ``pack_window_params``'s, in mode 2 followed by W_img g_f per
+    finger;
     the contacts (mode 2, else None) are the (F K, 4) rows (q, |q|²) in
     finger order, |q|² replaced by -1 on invalid rows."""
     blob, w_img = pack_window_params(tp, with_img=mode != 0, img_rows=mode == 1)
@@ -287,12 +272,12 @@ def _window_operands(tp, mode, gate=None):
 
 def window_gate_candidates(p_cn, gate_pts, gate_valid, radius=0.015,
                            tile=WINDOW_TILE):
-    """The contacts window.cu's K4 keeps for each tile of ``tile``
-    consecutive points, by the kernel's rule, in f32: the valid contacts q
-    whose squared distance to the box of the tile's points is at most
+    """The contacts the gated tile kernels (K1, K4) keep for each tile of
+    ``tile`` consecutive points, by their rule, in f32: the valid contacts
+    q whose squared distance to the box of the tile's points is at most
     r² + 2^-19 (|q|² + P² + r²), P² the largest |p|² of the box (the
-    margin covers the rounding of the expanded distance, csrc/window.cu).
-    A ragged last tile boxes its real points. p_cn (3, N), gate_pts
+    margin covers the rounding of the expanded distance: ``tile_gate`` in
+    csrc/tile_chain.cuh). A ragged last tile boxes its real points. p_cn (3, N), gate_pts
     (F, K, 3), gate_valid (F, K) → (n_tiles, F, K) bool."""
     n_f, K, _ = gate_pts.shape
     N = p_cn.shape[1]
@@ -320,7 +305,7 @@ def window_gate_candidates(p_cn, gate_pts, gate_valid, radius=0.015,
 def window_box_edge_contacts(p_cn, seed, n_fingers=5, K=128, radius=0.015,
                              tile=WINDOW_TILE):
     """(n_fingers, K, 3) f32 contacts on ``p_cn``'s device that probe the
-    culling's margin: each r (1 ± 1e-6) from the box of one of window.cu's
+    culling's margin: each r (1 ± 1e-6) from the box of one of the kernels'
     tiles of ``p_cn`` (its first tile when it holds fewer points), out from
     the middle of a face or out along the diagonal of a corner."""
     g = torch.Generator().manual_seed(seed)
@@ -394,17 +379,19 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
     else:
         n_fingers = K = 0
         mode = 0 if c_img_cn is None else 1
-    blob, contacts = _window_operands(
-        tp, mode, (gate_pts, gate_feat, gate_valid) if gated else None)
     if grid.shape != (reso,) * 3 + (grid.shape[-1],) or grid.dtype != torch.float32:
         raise ValueError(f"grid must be ({reso},)*3 + (C,) float32, got "
                          f"{tuple(grid.shape)} {grid.dtype}")
     if p_cn.dtype != torch.float32:
         raise ValueError(f"coords must be float32, got {p_cn.dtype}")
     C = grid.shape[-1]
-    N = _check(tp, p_cn, C, blob, *([] if c_img_cn is None else [c_img_cn]))
-    if grid.device != p_cn.device or (gated and contacts.device != p_cn.device):
+    N = _check(tp, p_cn, C, *([] if c_img_cn is None else [c_img_cn]))
+    if grid.device != p_cn.device or (gated and gate_pts.device != p_cn.device):
         raise ValueError("coords, grid and contacts must share one device")
+    blob, contacts = _window_operands(
+        tp, mode, (gate_pts, gate_feat, gate_valid) if gated else None)
+    lib = _window_lib()
+    _check_smem(lib.window_smem_bytes, blob)
     x = p_cn.contiguous()
     g = grid.contiguous()
     ci = None if c_img_cn is None else _streamed(c_img_cn, None)
@@ -414,13 +401,9 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
             or keys.device != p_cn.device or not keys.is_contiguous()):
         raise ValueError("keys_out must be a contiguous (N,) int32 tensor on "
                          "the coords' device")
-    smem = _window_lib().window_smem_bytes(blob.numel())
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"the window kernel needs {smem} B of shared memory, "
-                         f"more than a block has ({SMEM_LIMIT})")
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
     n1 = -(-(reso - 1) // L)
-    rc = _window_lib().window_cn_launch(
+    rc = lib.window_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
         float(radius) * float(radius), mode,
         None if contacts is None else contacts.data_ptr(), x.data_ptr(),
