@@ -51,6 +51,25 @@ ends:
      K2 launch, the window kernels do not). Median of three warm calls per
      set and mode, a stage breakdown of the window route, and the logits
      against the plain route on the same points.
+  7. train: the port's synthetic set at full size (4 models, 100,000
+     query points, 320x240 tactile images) and VTacO_YCB at full width,
+     initialized from a seed. train.loop.train takes TRAIN_LOOP_ITERS
+     steps of the t2d_img loss with validation and a checkpoint (the
+     CLI's path). Then the warm step time at each of TRAIN_PRECISIONS
+     (the config's training.matmul_precision, 'default', lets cuBLAS and
+     cuDNN run in TF32 as the CLI does; 'highest' is full float32), the
+     steps alternating between them: median, least and most of
+     TRAIN_TIMED steps each, CUDA-synchronized, after TRAIN_WARM warm-up
+     steps each, with the breakdown by CUDA events at the trainer's stage
+     marks; the peak memory; the kernels' device time and busy share over
+     TRAIN_PROFILED steps at the config's precision under torch.profiler
+     (with the kernels that take most of it), and one validation's time;
+     one train step at 'highest' held against the same step on the CPU
+     from the same weights, batch and contact draws (loss scalars within
+     TRAIN_RTOL relative, each module's gradient cosine >= GRAD_COS); and
+     a mesh reconstructed in contact mode from the saved
+     checkpoint, for which K1's launch counter, zeroed just before, must
+     rise.
 Then one JSON line describing the kernels, and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no such line. It needs CUDA and the rest of the
@@ -59,6 +78,7 @@ repository; it never falls back to the CPU.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -66,12 +86,18 @@ import time
 import numpy as np
 import torch
 
-from vtaco_tpu_torch.core.config import get_generator, get_model, load_config
+from vtaco_tpu_torch.core.checkpoint import CheckpointIO
+from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
+from vtaco_tpu_torch.data import synthetic
+from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.cuda import build
 from vtaco_tpu_torch.ops.cuda import decode as K
+from vtaco_tpu_torch.train import contact as C
+from vtaco_tpu_torch.train import loop
+from vtaco_tpu_torch.train.trainer import Trainer
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
     dense_query_grid_cn,
@@ -101,6 +127,11 @@ LATTICE_NX = 128
 # holds the port's plans for (a), (b) and (d) against the JAX package's.
 ROUTES = {"a": "window", "b": "gather", "d": "window", "c": "gather"}
 DEVICE_STAGES = ("encode_s", "gates_s", "dense_features_s", "trunk_s", "transfer_s")
+# train phase: loop.train's steps (validated and checkpointed at the last),
+# warm-up and timed steps, and the card-against-CPU bars of one step
+TRAIN_LOOP_ITERS, TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 4, 2, 10, 2
+TRAIN_PRECISIONS = ("default", "highest")
+TRAIN_RTOL, GRAD_COS = 1e-4, 0.999
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
 # two operations), TF32 on the tensor cores, and HBM bandwidth, by the
@@ -872,6 +903,201 @@ def eval_points_phase(dev, model, batch, gens):
     return launches
 
 
+def train_config(root):
+    """VTacO_YCB with its data on the port's synthetic set at full size
+    (made here from seed 0: 4 models, three in the train split so that a
+    batch of 3 fits), its run directory under ``root``, and the mesh check's
+    'mean' iso level (a field trained a few steps can miss the midpoint)."""
+    cfg = load_config(os.path.join(REPO, "configs/VTacO/VTacO_YCB.yaml"),
+                      os.path.join(REPO, "configs/default.yaml"))
+    data_root, mesh_root = synthetic.generate(
+        os.path.join(root, "data"), n_models=4, n_query=cfg["data"]["points_subsample"],
+        n_surface=20_000, img_h=320, img_w=240, seed=0,
+        splits=(("train", 0.75), ("val", 0.25), ("test", 0.25)))
+    cfg["data"].update(path=data_root, mesh_dir=os.path.join(mesh_root, "mesh_obj"),
+                       depth_origin=os.path.join(mesh_root, "depth_origin.txt"))
+    cfg["training"].update(out_dir=os.path.join(root, "run"), print_every=1,
+                           validate_every=TRAIN_LOOP_ITERS,
+                           checkpoint_every=TRAIN_LOOP_ITERS, backup_every=-1,
+                           n_workers=4, n_workers_val=2)
+    cfg["generation"]["mc_level"] = "mean"
+    return cfg
+
+
+def step_against_cpu(cfg, trainer, batch):
+    """One train step on the card and the same step on the CPU, from the
+    same weights, batch and contact draws: the loss scalars' relative
+    errors and each module's gradient cosine and norm ratio. The card runs
+    the step in full float32 ('highest')."""
+    cpu_model = get_model(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.detach().cpu() for k, v in
+                               trainer.model.state_dict().items()})
+    cpu = Trainer.from_config(cpu_model, cfg, mesh_bank=loop.build_mesh_bank(cfg, "cpu"))
+    trainer = Trainer.from_config(trainer.model, cfg, mesh_bank=trainer.mesh_bank,
+                                  matmul_precision="highest")
+    a = trainer.prepare_batch(batch)
+    H, W = a["imgs"].shape[2:4]
+    draws = C.contact_draws(a["depths"], a["touch_success"],
+                            trainer._depth_origin_for(H * W), a["points"].shape[1],
+                            trainer.num_sample, trainer.contact_per_finger,
+                            trainer.generator)
+    got = trainer.train_step(batch, draws)
+    t0 = time.perf_counter()
+    want = cpu.train_step(batch, {k: v.cpu() for k, v in draws.items()})
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    cos, ratio = {}, {}
+    cpu_params = dict(cpu_model.named_parameters())
+    for mod in dict(trainer.model.named_children()):
+        pairs = [(p.grad, cpu_params[n].grad)
+                 for n, p in trainer.model.named_parameters() if n.split(".")[0] == mod]
+        if all(g is None and w is None for g, w in pairs):
+            continue   # the shipped path's t2d: no gradient on either side
+        if any((g is None) != (w is None) for g, w in pairs):
+            raise AssertionError(f"train: {mod} has gradients on one side only")
+        g = torch.cat([x.flatten().double().cpu() for x, _ in pairs if x is not None])
+        w = torch.cat([y.flatten().double() for _, y in pairs if y is not None])
+        cos[mod] = float(g @ w / (g.norm() * w.norm()))
+        ratio[mod] = float(g.norm() / w.norm())
+    return rel, cos, ratio, cpu_s
+
+
+def timed_steps(trainer, batches):
+    """Train steps cycling through TRAIN_PRECISIONS: for each precision
+    the wall times of the steps after its TRAIN_WARM warm-up steps and
+    their breakdowns by the trainer's CUDA-event stage marks."""
+    own = trainer.matmul_precision
+    out = {p: ([], []) for p in TRAIN_PRECISIONS}
+    for i, batch in enumerate(batches):
+        prec = trainer.matmul_precision = TRAIN_PRECISIONS[i % len(TRAIN_PRECISIONS)]
+        warm = i >= TRAIN_WARM * len(TRAIN_PRECISIONS)
+        trainer.stage_events = [] if warm else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scalars = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not all(np.isfinite(v) for v in scalars.values()):
+            raise AssertionError(f"train: non-finite scalars at {prec}: {scalars}")
+        if not warm:
+            continue
+        ev = trainer.stage_events
+        st = {f"{name}_s": ev[j - 1][1].elapsed_time(e) / 1e3
+              for j, (name, e) in enumerate(ev) if j > 0}
+        st["host_outside_marks_s"] = dt - ev[0][1].elapsed_time(ev[-1][1]) / 1e3
+        out[prec][0].append(dt)
+        out[prec][1].append(st)
+    trainer.stage_events, trainer.matmul_precision = None, own
+    return out, scalars
+
+
+def profile_steps(trainer, batches):
+    """Train steps under torch.profiler: the wall time, the kernels' summed
+    device time, kernel launches per step, and the kernels that take the
+    most device time (name, ms per step, launches per step). Annotated
+    ranges on the device's timeline (the optimizer's step) are left out:
+    their kernels are counted already."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    n = len(batches)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return (wall, sum(e.self_device_time_total for e in kernels) / 1e6,
+            sum(e.count for e in kernels) / n,
+            [(e.key[:90], e.self_device_time_total / 1e3 / n, e.count / n) for e in top])
+
+
+def train_phase():
+    root = os.path.join(REPO, "out", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    cfg = train_config(root)
+    log("train", config="configs/VTacO/VTacO_YCB.yaml", synthetic_s=time.perf_counter() - t0,
+        models=4, n_query=cfg["data"]["points_subsample"],
+        pointcloud_n=cfg["data"]["pointcloud_n"], num_sample=cfg["data"]["num_sample"],
+        batch_size=cfg["training"]["batch_size"], images="5x320x240")
+
+    # the CLI's path: steps, validation, model selection, checkpoint
+    t0 = time.perf_counter()
+    trainer, it = loop.train(cfg, max_iters=TRAIN_LOOP_ITERS, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    out_dir = cfg["training"]["out_dir"]
+    for f in ("model.ckpt", "model_best.ckpt"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"train: loop.train wrote no {f}")
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log("train", loop_iters=it, loop_s=time.perf_counter() - t0, params=n_params)
+
+    # warm steps at each precision: time, breakdown by the trainer's
+    # CUDA-event stage marks, peak memory
+    bs = cfg["training"]["batch_size"]
+    loader = BatchLoader(get_dataset("train", cfg), bs, num_workers=4, seed=1)
+    n_steps = (TRAIN_WARM + TRAIN_TIMED) * len(TRAIN_PRECISIONS)
+    batches = [b for _ in range(n_steps + 1) for b in loader]
+    torch.cuda.reset_peak_memory_stats()
+    runs, scalars = timed_steps(trainer, batches[:n_steps])
+    peak = torch.cuda.max_memory_allocated()
+    log("train", matmul_precision=trainer.matmul_precision, peak_mem_gib=peak / 2 ** 30,
+        batch_size=bs, warm_up_steps=TRAIN_WARM, **scalars)
+    for prec, (times, stages) in runs.items():
+        log("train", matmul_precision=prec, step_s=float(np.median(times)),
+            step_s_min=min(times), step_s_max=max(times), step_s_each=times)
+        for k in stages[0]:
+            col = [s[k] for s in stages]
+            log("train", matmul_precision=prec, stage=k, median=float(np.median(col)),
+                min=min(col), max=max(col))
+    wall, busy, launches_per_step, top = profile_steps(trainer, batches[:TRAIN_PROFILED])
+    log("train", profiled_steps=TRAIN_PROFILED, wall_s=wall, kernel_s=busy,
+        device_busy_share=busy / wall, kernel_launches_per_step=launches_per_step)
+    for name, ms, count in top:
+        print(f"[train] kernel ms_per_step={ms:.3f} launches_per_step={count} {name}")
+    t0 = time.perf_counter()
+    val = trainer.evaluate(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                       shuffle=False, num_workers=2))
+    torch.cuda.synchronize()
+    log("train", validation_s=time.perf_counter() - t0, **{f"val_{k}": v for k, v in val.items()})
+
+    # one step on the card against the CPU
+    rel, cos, ratio, cpu_s = step_against_cpu(cfg, trainer, batches[-1])
+    log("train", vs_cpu="loss_rel_err", cpu_step_s=cpu_s, **rel)
+    log("train", vs_cpu="grad_cosine", **cos)
+    log("train", vs_cpu="grad_norm_ratio", **ratio)
+    if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
+        raise AssertionError(f"train: card step differs from the CPU step: {rel} {cos}")
+    if not {"encoder", "encoder_hand", "encoder_img", "decoder"} <= set(cos):
+        raise AssertionError(f"train: modules without gradients: {sorted(cos)}")
+
+    # a mesh from the checkpoint, contact-gated (K1)
+    model = get_model(cfg)
+    CheckpointIO(out_dir, model=model).load("model.ckpt")
+    model.eval()
+    gen = get_generator(model, cfg)
+    batch = next(iter(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                  shuffle=False, num_workers=1)))
+    K.fused_trunk_gated_cn.launches = 0
+    t0 = time.perf_counter()
+    np.random.seed(0)
+    with torch.no_grad():
+        (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    launches = K.fused_trunk_gated_cn.launches
+    check_mesh("train", verts, faces, emd, cd, gen.resolution0 * 4)
+    log("train", mesh_from_checkpoint_s=time.perf_counter() - t0, verts=len(verts),
+        faces=len(faces), chamfer=cd, emd=emd, launches_fused_trunk_gated_cn=launches)
+    if launches < 1:
+        raise AssertionError("train: the checkpoint's mesh never launched K1")
+    shutil.rmtree(root)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible", file=sys.stderr)
@@ -906,6 +1132,8 @@ def main():
     cfg, model, batch, gens = build_model()
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
+    del model, gens
+    train_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
         "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),

@@ -1,6 +1,9 @@
 """The CUDA trunk kernels (K1, K2 in csrc/trunk.cu; K3, K4 in
 csrc/window.cu; all on the tile chain of csrc/tile_chain.cuh) against
-their plain PyTorch versions on the card.
+their plain PyTorch versions on the card, and the training path on the
+card: one VTacO_YCB train step against the same step on the CPU, and a
+mesh reconstructed through K1 from the checkpoint that train.loop.train
+writes (both at small widths on the port's synthetic set).
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -15,14 +18,24 @@ compares an expanded squared distance with r²; points within 1e-6 of r²
 for some valid contact may round to the other side and are left out.
 """
 
+import copy
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from vtaco_tpu_torch.core.checkpoint import CheckpointIO
+from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
+from vtaco_tpu_torch.data import synthetic
+from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.models.decoder import LocalDecoder
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import decode as K
 from vtaco_tpu_torch.ops.dense_decode import dense_query_grid_cn, supercell_keys
+from vtaco_tpu_torch.train import contact as C
+from vtaco_tpu_torch.train import loop
+from vtaco_tpu_torch.train.trainer import Trainer
 
 ATOL = 1e-4
 
@@ -300,3 +313,96 @@ def test_fused_trunk_window_cn_many_contacts(cuda):
     assert gated > 1000
     assert int(near.sum()) * 20 <= gated
     assert float(torch.max(torch.abs(got - want)[~near])) < ATOL
+
+
+@pytest.fixture(scope="module")
+def train_cfg(tmp_path_factory):
+    """VTacO_YCB at small widths on the port's synthetic set (32x24
+    images), three models in the train split, trained in full float32."""
+    out = tmp_path_factory.mktemp("train")
+    root, mesh = synthetic.generate(str(out / "data"), n_models=4, n_query=4000,
+                                    n_surface=2000, img_h=32, img_w=24, seed=3,
+                                    splits=(("train", 0.75), ("val", 0.25), ("test", 0.25)))
+    cfg = load_config("configs/VTacO/VTacO_YCB.yaml", "configs/default.yaml")
+    cfg["data"].update(path=root, points_subsample=2048, pointcloud_n=512, num_sample=512,
+                       mesh_dir=os.path.join(mesh, "mesh_obj"),
+                       depth_origin=os.path.join(mesh, "depth_origin.txt"))
+    m = cfg["model"]
+    m["encoder_kwargs"].update(hidden_dim=16, grid_resolution=16)
+    m["encoder_kwargs"]["unet3d_kwargs"].update(num_levels=2, f_maps=16)
+    for kw in (m["encoder_hand_kwargs"], m["encoder_t2d_kwargs"]["encoder_hand_kwargs"]):
+        kw.update(hidden_dim=16, plane_resolution=16)
+        kw["unet_kwargs"].update(depth=2, start_filts=16)
+    m["encoder_t2d_kwargs"]["encoder_img_kwargs"].update(depth=2, start_filts=16)
+    cfg["training"].update(out_dir=str(out / "run"), n_workers=1, n_workers_val=1,
+                           print_every=1, validate_every=2, checkpoint_every=2,
+                           backup_every=-1, matmul_precision="highest")
+    cfg["generation"].update(resolution_0=16, mc_level="mean")
+    return cfg
+
+
+@pytest.mark.cuda
+def test_train_step_card_matches_cpu(cuda, train_cfg):
+    """One t2d_img step from the same weights, batch and contact draws:
+    loss scalars within 1e-4 relative, each module's gradient cosine >=
+    0.999 with norms within 2 %, BatchNorm statistics within 1e-5
+    relative (the t2d U-Net's 1e-4: on images in [0, 1/255] the one-pass
+    batch variance cancels, see tests/test_torch_train.py)."""
+    torch.manual_seed(0)
+    cpu_model = get_model(train_cfg, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    bank = loop.build_mesh_bank(train_cfg, "cpu")
+    cpu = Trainer.from_config(cpu_model, train_cfg, mesh_bank=bank)
+    card = Trainer.from_config(card_model, train_cfg,
+                               mesh_bank=loop.build_mesh_bank(train_cfg, cuda))
+    batch = next(iter(BatchLoader(get_dataset("train", train_cfg), 3, num_workers=1,
+                                  seed=0)))
+    a = cpu.prepare_batch(batch)
+    H, W = a["imgs"].shape[2:4]
+    draws = C.contact_draws(a["depths"], a["touch_success"], cpu._depth_origin_for(H * W),
+                            a["points"].shape[1], cpu.num_sample, cpu.contact_per_finger,
+                            torch.Generator().manual_seed(1))
+    assert int(C.contact_mask(a["depths"], a["touch_success"],
+                              cpu._depth_origin_for(H * W)).sum()) > 0
+    want = cpu.train_step(batch, draws)
+    got = card.train_step(batch, {k: v.to(cuda) for k, v in draws.items()})
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    card_params = dict(card_model.named_parameters())
+    for mod in dict(cpu_model.named_children()):
+        names = [n for n, p in cpu_model.named_parameters()
+                 if n.split(".")[0] == mod and p.grad is not None]
+        if not names:
+            continue
+        g = torch.cat([card_params[n].grad.flatten().double().cpu() for n in names])
+        w = torch.cat([dict(cpu_model.named_parameters())[n].grad.flatten().double()
+                       for n in names])
+        assert float(g @ w / (g.norm() * w.norm())) >= 0.999, mod
+        assert 0.98 < float(g.norm() / w.norm()) < 1.02, mod
+    own = card_model.state_dict()
+    for k, v in cpu_model.state_dict().items():
+        if "running" in k:
+            bar = 1e-4 if k.startswith("encoder_t2d.encoder_img.") else 1e-5
+            err = float((own[k].cpu() - v).abs().max() / v.abs().max())
+            assert err < bar, (k, err)
+
+
+@pytest.mark.cuda
+def test_train_then_mesh(cuda, train_cfg):
+    """train.loop.train on the card writes a checkpoint; a model restored
+    from it reconstructs a mesh in contact mode through K1."""
+    cfg = copy.deepcopy(train_cfg)
+    _, it = loop.train(cfg, max_iters=2, device="cuda")
+    assert it == 2
+    model = get_model(cfg)
+    scalars = CheckpointIO(cfg["training"]["out_dir"], model=model).load("model.ckpt")
+    assert scalars["it"] == 2
+    model.eval()
+    batch = next(iter(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                  shuffle=False, num_workers=1)))
+    gen = get_generator(model, cfg)
+    K.fused_trunk_gated_cn.launches = 0
+    with torch.no_grad():
+        (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+    assert K.fused_trunk_gated_cn.launches >= 1
+    assert len(faces) > 0 and np.isfinite(verts).all() and np.isfinite(cd)

@@ -169,7 +169,8 @@ def test_get_generator_rejects_unported_modes(change):
 
 def test_full_width_model_loads_jax_tree():
     """VTacO_YCB at full width: a JAX tree of the flagship's shapes loads
-    strictly into the port's served submodules."""
+    strictly into the port, every submodule (the hand encoder and the
+    nested t2d model included) with nothing skipped."""
     from vtaco_tpu.core.config import get_model as jax_get_model
     from vtaco_tpu.core.config import load_config
     from vtaco_tpu_torch.core.config import get_model
@@ -180,9 +181,9 @@ def test_full_width_model_loads_jax_tree():
     params, stats = jax_variables(jmodel, cfg)
     tmodel = get_model(cfg, device="cpu")
     load_jax_params(tmodel, params, stats)
-    served = ("encoder", "encoder_img", "decoder")
-    n_jax = sum(int(np.prod(v.shape)) for k in served
-                for v in jax.tree_util.tree_leaves(params[k]))
+    assert set(params) == {"encoder", "encoder_hand", "encoder_img", "encoder_t2d",
+                           "decoder"}
+    n_jax = sum(int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(params))
     assert n_jax == sum(p.numel() for p in tmodel.parameters())
     w = params["decoder"]["block4"]["fc_1"]["kernel"]
     np.testing.assert_array_equal(

@@ -30,16 +30,16 @@ def test_translation_matches_jax_package(pair):
 
 
 def test_load_is_strict_apart_from_named_skips(pair):
-    """Every exported key outside encoder_hand/encoder_t2d lands in the
-    port, and the port has no parameter or buffer the tree did not fill
-    (BatchNorm's num_batches_tracked aside)."""
+    """The port builds every submodule of the config, so the load skips
+    nothing: every exported key, the hand encoder's and the nested t2d
+    model's included, lands in the port, and the port has no parameter or
+    buffer the tree did not fill (BatchNorm's num_batches_tracked aside)."""
     _, _, v, tmodel = pair
     sd = W.export_state_dict(v["params"], v["batch_stats"])
-    skipped = {k for k in sd if k.split(".")[0] in W.NOT_BUILT}
-    assert skipped and all(k.startswith(("encoder_hand.", "encoder_t2d."))
-                           for k in skipped)
     own = tmodel.state_dict()
-    loaded = set(sd) - skipped
+    loaded = set(sd)
+    assert {k.split(".")[0] for k in loaded} == {
+        "encoder", "encoder_hand", "encoder_img", "encoder_t2d", "decoder"}
     assert loaded == {k for k in own if not k.endswith("num_batches_tracked")}
     for k in loaded:
         np.testing.assert_array_equal(own[k].numpy(), sd[k], err_msg=k)
@@ -47,12 +47,11 @@ def test_load_is_strict_apart_from_named_skips(pair):
 
 def test_round_trip_is_exact(pair):
     """JAX tree → port → torch state_dict → the JAX package's importer
-    gives back the identical tree."""
+    gives back the identical tree, every submodule included."""
     _, _, v, tmodel = pair
-    sub = {k: v["params"][k] for k in ("encoder", "encoder_img", "decoder")}
-    sub_stats = {k: v["batch_stats"][k] for k in v["batch_stats"]
-                 if k not in W.NOT_BUILT}
-    sd = {k: t.numpy() for k, t in tmodel.state_dict().items()}
+    sub, sub_stats = v["params"], v["batch_stats"]
+    sd = {k: t.numpy() for k, t in tmodel.state_dict().items()
+          if not k.endswith("num_batches_tracked")}
     params, stats, report = TI.import_state_dict(sd, sub, sub_stats)
     assert not report["missing"], report["missing"][:5]
     assert not report["unused"], report["unused"][:5]
@@ -80,10 +79,20 @@ def test_unmatched_key_raises(pair, fault):
 
 
 def test_unbuilt_subtree_raises_when_not_skipped(pair):
+    """A JAX tree that lacks one leaf of the hand encoder fails the strict
+    load, naming the missing key; so does a tree without the whole hand
+    encoder, as the port builds it."""
     cfg, _, v, _ = pair
+    params = {k: dict(t) for k, t in v["params"].items()}
+    hand = params["encoder_hand"] = dict(params["encoder_hand"])
+    fc = hand["fc_mano"] = dict(hand["fc_mano"])
+    del fc["bias"]
+    with pytest.raises(RuntimeError, match="encoder_hand.fc_mano.bias"):
+        W.load_jax_params(get_model(cfg, device="cpu"), params, v["batch_stats"])
+    params = {k: t for k, t in v["params"].items() if k != "encoder_hand"}
+    stats = {k: t for k, t in v["batch_stats"].items() if k != "encoder_hand"}
     with pytest.raises(RuntimeError, match="encoder_hand"):
-        W.load_jax_params(get_model(cfg, device="cpu"), v["params"],
-                          v["batch_stats"], skip=("encoder_t2d",))
+        W.load_jax_params(get_model(cfg, device="cpu"), params, stats)
 
 
 def test_layouts(pair):

@@ -3,14 +3,23 @@
 The JAX package ``vtaco_tpu`` stays the reference; this package mirrors its
 layout so each module's counterpart is easy to find:
 
-  core/      config loading, model factory, weight carry-over from JAX trees
+  core/      config loading, model and generator factory, weight carry-over
+             from JAX trees, checkpoints
   ops/       geometry, scatter pooling, interpolation, dense decode, the
-             plain decoder trunk and metrics; ops/cuda/ holds the CUDA
-             kernels (sources in csrc/) with their ctypes wrappers
-  models/    nn.Modules: ResNet-18, UNet3D, LocalPoolPointnet, LocalDecoder
-             and the ConvOccupancyNetwork composite
-  train/     contact-point selection and depth back-projection
+             plain decoder trunk, winding numbers and metrics; ops/cuda/
+             holds the CUDA kernels (sources in csrc/) with their ctypes
+             wrappers
+  models/    nn.Modules: ResNet-18, the tactile depth U-Net, UNet2D,
+             UNet3D, LocalPoolPointnet (grid and planes, MANO head), the
+             MANO layer, LocalDecoder and the ConvOccupancyNetwork
+             composite with its hand encoder and nested t2d model
+  data/      npz fields, transforms, Shapes3dDataset, the batch loader and
+             the synthetic dataset generator
+  train/     contact sampling, the Trainer (t2d_img loss path) and the
+             training loop
   generate/  Generator3D (dense decode + marching cubes + metrics)
+  cli/       the train entry point (python -m vtaco_tpu_torch.cli.train)
+  utils/     mesh IO
 
 It imports torch, numpy and scipy, never jax and nothing of vtaco_tpu.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.

@@ -1,8 +1,9 @@
 """YAML configs with recursive ``inherit_from`` chaining and deep merge.
 
-Port of vtaco_tpu/core/config.py:25-69, so the repo's configs load
+Port of vtaco_tpu/core/config.py:25-98, so the repo's configs load
 unchanged. The factory surface (get_model / get_generator) lives in
-core/factory.py and is re-exported here as in the JAX package.
+core/factory.py and is re-exported here, with get_dataset, as in the JAX
+package; the trainer is built with train.trainer.Trainer.from_config.
 """
 
 from __future__ import annotations
@@ -13,6 +14,13 @@ from typing import Optional
 import yaml
 
 from vtaco_tpu_torch.core.factory import get_generator, get_model  # noqa: F401
+
+
+def get_dataset(mode, cfg, return_idx=False):
+    from vtaco_tpu_torch.data.core import get_dataset as _get_dataset
+
+    return _get_dataset(mode, cfg, return_idx=return_idx)
+
 
 def load_config(path: str, default_path: Optional[str] = None) -> dict:
     """Load a YAML config, following ``inherit_from`` chains."""

@@ -23,10 +23,6 @@ from typing import Tuple
 import numpy as np
 import torch
 
-# subtrees of a JAX tree whose modules this slice does not build yet
-NOT_BUILT = ("encoder_hand", "encoder_t2d")
-
-
 def _translate_path(path: Tuple[str, ...]) -> str:
     """flax parameter-tree path → torch dotted name prefix."""
     out = []
@@ -157,15 +153,10 @@ def export_state_dict(params, batch_stats):
     return sd
 
 
-def load_jax_params(model, params, batch_stats, skip=NOT_BUILT):
-    """Load JAX trees into ``model`` with ``strict=True``.
-
-    Only the top-level subtrees named in ``skip`` are dropped; every other
-    unmatched key, on either side, raises. BatchNorm's
-    ``num_batches_tracked`` counters have no JAX counterpart and keep the
-    model's own values."""
-    params = {k: v for k, v in params.items() if k not in skip}
-    batch_stats = {k: v for k, v in batch_stats.items() if k not in skip}
+def load_jax_params(model, params, batch_stats):
+    """Load JAX trees into ``model`` with ``strict=True``: every unmatched
+    key, on either side, raises. BatchNorm's ``num_batches_tracked``
+    counters have no JAX counterpart and keep the model's own values."""
     own = model.state_dict()
     sd = {}
     for name, v in export_state_dict(params, batch_stats).items():

@@ -1,0 +1,229 @@
+"""Dataset and host input pipeline (port of vtaco_tpu/data/core.py:29-384
+and the data-field factory of vtaco_tpu/core/factory.py:192-218).
+
+``Shapes3dDataset`` reads the reference's directory-per-category layout:
+model lists from ``<split>.lst``, an optional ``metadata.yaml``, and each
+sample as the flattened union of its fields' dicts; a sample whose field
+fails to load is dropped. ``BatchLoader`` is a shuffling batcher whose
+worker threads prefetch fixed-shape numpy batch dicts.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import yaml
+
+from vtaco_tpu_torch.data import fields as F
+from vtaco_tpu_torch.data.transforms import (
+    Compose,
+    PointcloudNoise,
+    SubsamplePointcloud,
+    SubsamplePoints,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class Shapes3dDataset:
+    def __init__(self, dataset_folder, fields, split=None, categories=None,
+                 no_except=True, transform=None):
+        self.dataset_folder = dataset_folder
+        self.fields = fields
+        self.no_except = no_except
+        self.transform = transform
+
+        if categories is None:
+            categories = [c for c in sorted(os.listdir(dataset_folder))
+                          if os.path.isdir(os.path.join(dataset_folder, c))]
+        metadata_file = os.path.join(dataset_folder, "metadata.yaml")
+        if os.path.exists(metadata_file):
+            with open(metadata_file) as f:
+                self.metadata = yaml.safe_load(f)
+        else:
+            self.metadata = {c: {"id": c, "name": "n/a"} for c in categories}
+        for c_idx, c in enumerate(categories):
+            self.metadata[c]["idx"] = c_idx
+
+        self.models = []
+        for c in categories:
+            subpath = os.path.join(dataset_folder, c)
+            if not os.path.isdir(subpath):
+                logger.warning("Category %s does not exist in dataset.", c)
+                continue
+            if split is None:
+                models_c = sorted(d for d in os.listdir(subpath)
+                                  if os.path.isdir(os.path.join(subpath, d)))
+            else:
+                with open(os.path.join(subpath, split + ".lst")) as f:
+                    models_c = [m for m in f.read().split("\n") if m]
+            self.models += [{"category": c, "model": m} for m in models_c]
+
+    def __len__(self):
+        return len(self.models)
+
+    def __getitem__(self, idx):
+        category = self.models[idx]["category"]
+        model = self.models[idx]["model"]
+        c_idx = self.metadata[category]["idx"]
+        model_path = os.path.join(self.dataset_folder, category, model)
+        data = {}
+        for field_name, field in self.fields.items():
+            try:
+                field_data = field.load(model_path, idx, c_idx)
+            except Exception:
+                if self.no_except:
+                    logger.warning("Error occurred when loading field %s of model %s",
+                                   field_name, model, exc_info=True)
+                    return None
+                raise
+            if isinstance(field_data, dict):
+                for k, v in field_data.items():
+                    if k is None:
+                        data[field_name] = np.asarray(v, np.float32)
+                    elif k == "name":
+                        data[f"{field_name}.{k}"] = v
+                    else:
+                        data[f"{field_name}.{k}"] = np.asarray(v, np.float32)
+            else:
+                data[field_name] = field_data
+        if self.transform is not None:
+            data = self.transform(data)
+        return data
+
+
+def collate_batch(samples):
+    """Stack sample dicts into one numpy batch dict, dropping None samples
+    (failed loads); strings become lists."""
+    samples = [s for s in samples if s is not None]
+    if not samples:
+        return None
+    out = {}
+    for k in samples[0]:
+        vals = [s[k] for s in samples]
+        out[k] = list(vals) if isinstance(vals[0], str) else np.stack(
+            [np.asarray(v) for v in vals])
+    return out
+
+
+class BatchLoader:
+    """Shuffling batch iterator; a producer thread fills a queue of
+    ``prefetch`` batches, loading each batch's samples on ``num_workers``
+    threads. drop_last (the default with shuffle) keeps every training
+    batch the same shape; validation uses batch_size 1."""
+
+    def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
+                 drop_last=None, seed=None, prefetch=2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.drop_last = shuffle if drop_last is None else drop_last
+        self.rng = np.random.default_rng(seed)
+        self.prefetch = prefetch
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        batches = [order[i:i + self.batch_size]
+                   for i in range(0, len(order), self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = object()
+        error = []
+        closed = threading.Event()  # the consumer abandoned the iterator
+
+        def put(item):
+            """q.put that gives up once the consumer is gone, so that an
+            abandoned iterator does not leave the producer blocked."""
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for idxs in batches:
+                        if not put(collate_batch(list(pool.map(
+                                self.dataset.__getitem__, idxs)))):
+                            return
+            except BaseException as e:  # surfaced in the consumer
+                error.append(e)
+            finally:
+                put(stop)
+
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    if error:
+                        raise error[0]
+                    break
+                if item is not None:
+                    yield item
+        finally:
+            closed.set()
+
+
+def get_data_fields(mode, cfg):
+    """The query-point fields of a split: points (subsampled to
+    data.points_subsample) and, for val/test, points_iou."""
+    if cfg["data"].get("voxels_file") is not None:
+        raise NotImplementedError("data.voxels_file (VoxelsField) is not ported "
+                                  "yet (ROADMAP.md)")
+    flds = {}
+    if cfg["data"].get("points_file") is not None:
+        flds["points"] = F.PointsField(
+            cfg["data"]["points_file"], SubsamplePoints(cfg["data"]["points_subsample"]),
+            unpackbits=cfg["data"]["points_unpackbits"],
+            multi_files=cfg["data"].get("multi_files"))
+    if mode in ("val", "test", "vis") and cfg["data"].get("points_iou_file") is not None:
+        flds["points_iou"] = F.PointsField(
+            cfg["data"]["points_iou_file"], unpackbits=cfg["data"]["points_unpackbits"],
+            multi_files=cfg["data"].get("multi_files"))
+    return flds
+
+
+def get_dataset(mode, cfg, return_idx=False):
+    """The dataset of split ``mode`` ('train', 'val' or 'test')."""
+    if cfg["data"]["dataset"] != "Shapes3D":
+        raise ValueError(f'Invalid dataset "{cfg["data"]["dataset"]}"')
+    split = cfg["data"][{"train": "train_split", "val": "val_split",
+                         "test": "test_split"}[mode]]
+    flds = get_data_fields(mode, cfg)
+    input_type = cfg["data"]["input_type"]
+    if input_type == "pointcloud":
+        flds["inputs"] = F.PointCloudField(
+            cfg["data"]["pointcloud_file"],
+            Compose([SubsamplePointcloud(cfg["data"]["pointcloud_n"]),
+                     PointcloudNoise(cfg["data"]["pointcloud_noise"])]),
+            multi_files=cfg["data"].get("multi_files"))
+    elif input_type == "idx":
+        flds["inputs"] = F.IndexField()
+    elif input_type is not None:
+        raise NotImplementedError(f"data.input_type {input_type!r} is not ported "
+                                  "yet (ROADMAP.md)")
+    if return_idx:
+        flds["idx"] = F.IndexField()
+    return Shapes3dDataset(cfg["data"]["path"], flds, split=split,
+                           categories=cfg["data"]["classes"])

@@ -1,8 +1,17 @@
-"""Building blocks (port of vtaco_tpu/models/layers.py:30-161): the
-fully-connected ResNet block and the from-scratch ResNet-18 tactile image
-encoder. Parameter names are the reference's torch names, so a JAX tree
-carried over by core/weights.py loads with ``strict=True``. BatchNorm runs
-with running statistics (the modules are used in eval mode).
+"""Building blocks (port of vtaco_tpu/models/layers.py:30-285): the
+fully-connected ResNet block, the from-scratch ResNet-18 tactile image
+encoder and the tactile depth U-Net. Parameter names are the reference's
+torch names, so a JAX tree carried over by core/weights.py loads with
+``strict=True``.
+
+BatchNorm is ``BatchNorm2d`` below: in train mode it computes the batch
+statistics, normalizes with them and moves its running statistics as
+flax's BatchNorm does: the biased variance in flax's one-pass form
+max(E[x²] - E[x]², 0) (torch.nn.BatchNorm2d normalizes with the two-pass
+variance and moves its running variance with the unbiased one), and
+momentum 0.1 in torch's convention, flax's 0.9. The one-pass form matters
+where the batch variance is small beside the squared mean, as for the
+tactile U-Net's first convolutions on images scaled to [0, 1/255].
 """
 
 from __future__ import annotations
@@ -10,6 +19,22 @@ from __future__ import annotations
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from vtaco_tpu_torch.models.unet2d import UpConv, check_unet_modes
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
 
 
 class ResnetBlockFC(nn.Module):
@@ -40,14 +65,14 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch, channels, stride=1, downsample=False):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, channels, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(channels)
+        self.bn1 = BatchNorm2d(channels)
         self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(channels)
+        self.bn2 = BatchNorm2d(channels)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
                 nn.Conv2d(in_ch, channels, 1, stride, bias=False),
-                nn.BatchNorm2d(channels))
+                BatchNorm2d(channels))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -64,7 +89,7 @@ class ResNet(nn.Module):
     def __init__(self, blocks_num, num_classes=2):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for stage, (ch, n_blocks) in enumerate(zip((64, 128, 256, 512),
                                                    blocks_num)):
@@ -87,3 +112,65 @@ class ResNet(nn.Module):
 
 def Resnet18(num_classes=32):
     return ResNet((2, 2, 2, 2), num_classes=num_classes)
+
+
+class TactileDownConv(nn.Module):
+    """Two 3x3 convs and an optional 2x2 max-pool, with the reference's
+    quirk that ONE BatchNorm normalizes both conv outputs: its scale, bias
+    and running statistics are shared, and in train mode the statistics
+    move twice per call."""
+
+    def __init__(self, in_ch, out_ch, pooling=True):
+        super().__init__()
+        self.pooling = pooling
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.bn = BatchNorm2d(out_ch)
+
+    def forward(self, x):
+        x = F.relu(self.bn(self.conv1(x)))
+        x = F.relu(self.bn(self.conv2(x)))
+        return (F.max_pool2d(x, 2) if self.pooling else x), x
+
+
+class TactileUpConv(UpConv):
+    """Transpose-conv upsample, skip merge, two 3x3 convs with one shared
+    BatchNorm."""
+
+    def __init__(self, in_ch, out_ch, merge_mode="concat"):
+        super().__init__(in_ch, out_ch, merge_mode)
+        self.bn = BatchNorm2d(out_ch)
+
+    def forward(self, from_down, from_up):
+        x = self.merge(from_down, from_up)
+        x = F.relu(self.bn(self.conv1(x)))
+        return F.relu(self.bn(self.conv2(x)))
+
+
+class TactileUNet(nn.Module):
+    """The tactile depth estimator (registry key ``UNet``): NCHW RGB in,
+    (B, num_classes, H, W) sigmoid depths in [0, 1] out."""
+
+    def __init__(self, num_classes=1, in_channels=3, depth=4, start_filts=32,
+                 up_mode="transpose", merge_mode="concat", **_ignored):
+        super().__init__()
+        check_unet_modes(up_mode, merge_mode)
+        self.down_convs = nn.ModuleList()
+        outs = in_channels
+        for i in range(depth):
+            ins, outs = outs, start_filts * 2 ** i
+            self.down_convs.append(TactileDownConv(ins, outs, pooling=i < depth - 1))
+        self.up_convs = nn.ModuleList()
+        for _ in range(depth - 1):
+            ins, outs = outs, outs // 2
+            self.up_convs.append(TactileUpConv(ins, outs, merge_mode))
+        self.conv_final = nn.Conv2d(outs, num_classes, 1)
+
+    def forward(self, x):
+        skips = []
+        for down in self.down_convs:
+            x, before_pool = down(x)
+            skips.append(before_pool)
+        for i, up in enumerate(self.up_convs):
+            x = up(skips[-(i + 2)], x)
+        return torch.sigmoid(self.conv_final(x))

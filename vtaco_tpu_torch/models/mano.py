@@ -1,0 +1,131 @@
+"""Differentiable MANO hand layer (port of vtaco_tpu/models/mano.py:39-191
+and the asset loading of models/mano_assets.py:77).
+
+Pose coefficients → per-joint rotations (axis-angle through quaternions)
+→ shape and pose blendshapes → forward kinematics over the 16-joint
+kintree → linear blend skinning: 778 vertices and 21 joints (16 MANO
+joints and 5 fingertip vertices, reordered wrist/thumb/index/middle/
+ring/pinky). The layer has no parameters: its constants are buffers that
+are not saved with the state_dict, read from the converted asset
+``vtaco_tpu/assets/mano_right.npz`` as a data file.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from vtaco_tpu_torch.ops.geometry import batch_rodrigues
+
+DEFAULT_NPZ = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "vtaco_tpu", "assets", "mano_right.npz")
+
+JOINT_REORDER = [0, 13, 14, 15, 16, 1, 2, 3, 17, 4, 5, 6, 18, 10, 11, 12, 19,
+                 7, 8, 9, 20]
+TIPS_RIGHT = [745, 317, 444, 556, 673]
+TIPS_LEFT = [745, 317, 445, 556, 673]
+
+
+def load_mano_assets(npz_path=None) -> dict:
+    """The converted MANO arrays (shapedirs, posedirs, v_template,
+    J_regressor, weights, betas, faces, hands_components, hands_mean,
+    kintree_parents)."""
+    with np.load(npz_path or DEFAULT_NPZ) as z:
+        return {k: z[k] for k in z.files}
+
+
+class ManoLayer(nn.Module):
+    def __init__(self, center_idx=None, flat_hand_mean=True, ncomps=6,
+                 side="right", mano_root=None, use_pca=True,
+                 root_rot_mode="axisang", joint_rot_mode="axisang",
+                 robust_rot=False, return_transf=False, return_full_pose=False,
+                 assets_npz=None):
+        super().__init__()
+        if root_rot_mode != "axisang" or joint_rot_mode != "axisang":
+            raise NotImplementedError("ManoLayer: only axis-angle rotations are "
+                                      "ported (ROADMAP.md)")
+        if return_transf:
+            raise NotImplementedError("ManoLayer(return_transf=True) is not "
+                                      "ported (ROADMAP.md)")
+        self.center_idx = center_idx
+        self.use_pca = use_pca
+        self.ncomps = ncomps if use_pca else 45
+        self.side = side
+        self.return_full_pose = return_full_pose
+        a = load_mano_assets(assets_npz)
+        hands_mean = np.zeros_like(a["hands_mean"]) if flat_hand_mean else a["hands_mean"]
+        consts = dict(shapedirs=a["shapedirs"], posedirs=a["posedirs"],
+                      v_template=a["v_template"], J_regressor=a["J_regressor"],
+                      weights=a["weights"], betas=a["betas"], hands_mean=hands_mean,
+                      selected_comps=a["hands_components"][: self.ncomps])
+        for k, v in consts.items():
+            self.register_buffer(k, torch.as_tensor(np.asarray(v, np.float32)),
+                                 persistent=False)
+        self.register_buffer("faces", torch.as_tensor(np.asarray(a["faces"], np.int64)),
+                             persistent=False)
+        self.kintree_parents = [int(p) for p in a["kintree_parents"]]
+
+    def forward(self, pose_coeffs, betas=None, trans=None):
+        """(B, 3 + ncomps) → (verts (B, 778, 3), joints (B, 21, 3)[, full
+        pose (B, 48)])."""
+        B = pose_coeffs.shape[0]
+        hand_pose = pose_coeffs[:, 3:3 + self.ncomps]
+        if self.use_pca:
+            hand_pose = hand_pose @ self.selected_comps
+        full_pose = torch.cat([pose_coeffs[:, :3], self.hands_mean + hand_pose], dim=1)
+        rots = batch_rodrigues(full_pose.reshape(B * 16, 3)).reshape(B, 16, 3, 3)
+        eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
+        pose_map = (rots[:, 1:] - eye).reshape(B, 15 * 9)
+
+        if betas is None:
+            v_shaped = (torch.einsum("vis,s->vi", self.shapedirs, self.betas)
+                        + self.v_template)[None]
+            j_rest = torch.einsum("jv,bvi->bji", self.J_regressor, v_shaped)
+            v_shaped = v_shaped.expand(B, 778, 3)
+            j_rest = j_rest.expand(B, 16, 3)
+        else:
+            v_shaped = torch.einsum("vis,bs->bvi", self.shapedirs, betas) + self.v_template
+            j_rest = torch.einsum("jv,bvi->bji", self.J_regressor, v_shaped)
+        v_posed = v_shaped + torch.einsum("vip,bp->bvi", self.posedirs, pose_map)
+
+        # forward kinematics over the kintree
+        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rots.dtype,
+                              device=rots.device).expand(B, 1, 4)
+        transforms = []
+        for j in range(16):
+            parent = self.kintree_parents[j]
+            rel_t = j_rest[:, 0] if j == 0 else j_rest[:, j] - j_rest[:, parent]
+            t_local = torch.cat([torch.cat([rots[:, j], rel_t[:, :, None]], dim=2),
+                                 bottom], dim=1)
+            transforms.append(t_local if j == 0 else transforms[parent] @ t_local)
+        G = torch.stack(transforms, dim=1)                       # (B, 16, 4, 4)
+
+        # remove the rest pose's joint translation
+        Rj = torch.einsum("bkij,bkj->bki", G[:, :, :3, :3], j_rest)
+        A = torch.cat([G[:, :, :, :3],
+                       torch.cat([G[:, :, :3, 3:] - Rj[..., None], G[:, :, 3:, 3:]],
+                                 dim=2)], dim=3)
+
+        # linear blend skinning
+        T = torch.einsum("bkij,vk->bvij", A, self.weights)       # (B, 778, 4, 4)
+        v_h = torch.cat([v_posed, v_posed.new_ones((B, 778, 1))], dim=-1)
+        verts = torch.einsum("bvij,bvj->bvi", T, v_h)[..., :3]
+
+        tips = verts[:, TIPS_RIGHT if self.side == "right" else TIPS_LEFT]
+        jtr = torch.cat([G[:, :, :3, 3], tips], dim=1)[:, JOINT_REORDER]
+
+        if trans is None:
+            if self.center_idx is not None:
+                center = jtr[:, self.center_idx:self.center_idx + 1]
+                jtr = jtr - center
+                verts = verts - center
+        else:
+            jtr = jtr + trans[:, None]
+            verts = verts + trans[:, None]
+        if self.return_full_pose:
+            return verts, jtr, full_pose
+        return verts, jtr

@@ -1,0 +1,79 @@
+"""Plain 2D U-Net that smooths the hand encoder's plane features (port of
+vtaco_tpu/models/unet2d.py:18-102): two ReLU 3x3 convs per level, 2x2
+max-pool down, 2x2 transpose-conv up with a concat (or add) merge, a 1x1
+final conv, no normalization and no output activation. Layout NCHW.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+
+class DownConv(nn.Module):
+    def __init__(self, in_ch, out_ch, pooling=True):
+        super().__init__()
+        self.pooling = pooling
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+
+    def forward(self, x):
+        x = F.relu(self.conv2(F.relu(self.conv1(x))))
+        return (F.max_pool2d(x, 2) if self.pooling else x), x
+
+
+class UpConv(nn.Module):
+    def __init__(self, in_ch, out_ch, merge_mode="concat"):
+        super().__init__()
+        self.merge_mode = merge_mode
+        self.upconv = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+        self.conv1 = nn.Conv2d(2 * out_ch if merge_mode == "concat" else out_ch,
+                               out_ch, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+
+    def merge(self, from_down, from_up):
+        from_up = self.upconv(from_up)
+        if self.merge_mode == "concat":
+            return torch.cat([from_up, from_down], dim=1)
+        return from_up + from_down
+
+    def forward(self, from_down, from_up):
+        x = self.merge(from_down, from_up)
+        return F.relu(self.conv2(F.relu(self.conv1(x))))
+
+
+def check_unet_modes(up_mode, merge_mode):
+    if up_mode != "transpose":
+        raise NotImplementedError(f"U-Net up_mode {up_mode!r}: only 'transpose' "
+                                  "is ported (ROADMAP.md)")
+    if merge_mode not in ("concat", "add"):
+        raise ValueError(f"U-Net merge_mode {merge_mode!r}")
+
+
+class UNet2D(nn.Module):
+    """``num_classes`` output channels (the encoder passes c_dim)."""
+
+    def __init__(self, num_classes, in_channels=3, depth=4, start_filts=32,
+                 up_mode="transpose", merge_mode="concat"):
+        super().__init__()
+        check_unet_modes(up_mode, merge_mode)
+        self.down_convs = nn.ModuleList()
+        outs = in_channels
+        for i in range(depth):
+            ins, outs = outs, start_filts * 2 ** i
+            self.down_convs.append(DownConv(ins, outs, pooling=i < depth - 1))
+        self.up_convs = nn.ModuleList()
+        for _ in range(depth - 1):
+            ins, outs = outs, outs // 2
+            self.up_convs.append(UpConv(ins, outs, merge_mode))
+        self.conv_final = nn.Conv2d(outs, num_classes, 1)
+
+    def forward(self, x):
+        skips = []
+        for down in self.down_convs:
+            x, before_pool = down(x)
+            skips.append(before_pool)
+        for i, up in enumerate(self.up_convs):
+            x = up(skips[-(i + 2)], x)
+        return self.conv_final(x)

@@ -1,13 +1,30 @@
 """Coordinate and camera geometry (port of vtaco_tpu/ops/geometry.py).
 
 Same contracts as the JAX functions, on torch tensors: the outlier-only
-remap of the normalizations, the ``x + R*(y + R*z)`` flat cell index, and
-the reference's bespoke camera extrinsics.
+remap of the normalizations, the ``x + R*(y + R*z)`` flat cell index, the
+reference's bespoke camera extrinsics, and the axis-angle rotations of the
+MANO layer.
 """
 
 from __future__ import annotations
 
 import torch
+
+# plane axis pairs of the tri-plane feature fields
+PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
+
+
+def normalize_coordinate(p, padding: float = 0.1, plane: str = "xz"):
+    """Project points onto a canonical plane and normalize to [0, 1):
+    divide by 1 + padding + 1e-5, shift by 0.5, then map values >= 1 to
+    1 - 1e-5 and values < 0 to 0 (values in [1 - 1e-5, 1) pass). The
+    divisor is a same-device tensor: CUDA divides by a host scalar as a
+    multiply by its reciprocal, which would move points across cells."""
+    a, b = PLANE_AXES[plane]
+    xy = torch.stack([p[..., a], p[..., b]], dim=-1)
+    xy = xy / torch.full((), 1 + padding + 10e-6, dtype=xy.dtype, device=xy.device) + 0.5
+    eps = torch.full_like(xy, 1 - 10e-6)
+    return torch.where(xy >= 1.0, eps, torch.clamp(xy, min=0.0))
 
 
 def normalize_3d_coordinate(p, padding: float = 0.1):
@@ -78,3 +95,27 @@ def pc_cam_to_world(pc, rot, trans):
     R = rot_z @ rot_x @ rot_y
     R_inv = torch.linalg.inv(R)
     return (R_inv @ pc.T).T + trans
+
+
+def quat2mat(quat):
+    """Quaternion (w, x, y, z) → rotation matrix, normalizing first."""
+    norm = quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
+    w, x, y, z = norm[..., 0], norm[..., 1], norm[..., 2], norm[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    m = torch.stack([
+        w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+    ], dim=-1)
+    return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+def batch_rodrigues(axisang):
+    """Axis-angle (N, 3) → rotation matrices (N, 3, 3) through quaternions,
+    with the +1e-8 inside the norm of manopth's rodrigues_layer."""
+    angle = torch.linalg.norm(axisang + 1e-8, dim=-1, keepdim=True)
+    axis = axisang / angle
+    half = angle * 0.5
+    return quat2mat(torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1))

@@ -1,7 +1,17 @@
-"""Tactile contact selection and depth back-projection (port of
-vtaco_tpu/train/contact.py:30-57)."""
+"""Tactile contact selection, depth back-projection and the contact
+sample of the t2d loss paths (port of vtaco_tpu/train/contact.py:30-142
+and :231-245).
+
+Shapes are fixed: each touching finger contributes at most
+``per_finger`` contact pixels, picked uniformly at random by a top-k over
+random keys, and every slot that holds no contact takes a random query
+point, so a sample always has ``num_sample`` points.
+"""
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -10,16 +20,17 @@ CAM_FOV = 60.0       # sensor camera field of view, degrees
 
 
 def random_topk_select(mask, k, generator=None, idx=None):
-    """Pick up to k uniformly random True positions of a 1-D bool mask.
+    """Pick up to k uniformly random True positions along the last axis of
+    a bool mask (..., M).
 
-    Returns (idx (k,), valid (k,)), valid False for slots beyond the number
-    of True entries. The draws come from ``generator`` (a torch.Generator
-    on the mask's device). ``idx`` gives the k positions explicitly
-    instead, since torch cannot replay the JAX package's jax.random draws:
-    the result is then (idx, mask[idx])."""
+    Returns (idx (..., k), valid (..., k)), valid False for slots beyond the
+    number of True entries. The draws come from ``generator`` (a
+    torch.Generator on the mask's device). ``idx`` gives the k positions
+    explicitly instead, since torch cannot replay the JAX package's
+    jax.random draws: the result is then (idx, mask[idx])."""
     if idx is not None:
         idx = torch.as_tensor(idx, dtype=torch.int64, device=mask.device)
-        return idx, mask[idx]
+        return idx, torch.gather(mask, -1, idx)
     r = torch.rand(mask.shape, generator=generator, device=mask.device)
     key = torch.where(mask, 1.0 + r, r)
     val, idx = torch.topk(key, k)
@@ -38,3 +49,122 @@ def backproject_depth(depth_hw, f, width, height):
     px = (xg - cx) * pz / f
     py = (yg - cy) * pz / f
     return torch.stack([pz, -px, -py], dim=-1).reshape(-1, 3)
+
+
+def cam_rotation_inv(rot):
+    """(..., 3) sensor rotations → (..., 3, 3) inverses of the reference's
+    extrinsic rotation rot_z @ rot_x @ rot_y (ops/geometry.pc_cam_to_world,
+    batched)."""
+    c, s = torch.cos(rot), torch.sin(rot)
+    z, o = torch.zeros_like(rot[..., 0]), torch.ones_like(rot[..., 0])
+    cx, cy, cz = c.unbind(-1)
+    sx, sy, sz = s.unbind(-1)
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    rot_x = mat([[cx, z, sx], [z, o, z], [-sx, z, cx]])
+    rot_y = mat([[cy, -sy, z], [sy, cy, z], [z, z, o]])
+    rot_z = mat([[z, z, o], [cz, sz, z], [-sz, cz, z]])
+    return torch.linalg.inv(rot_z @ rot_x @ rot_y)
+
+
+def contact_mask(depths, touch_success, depth_origin):
+    """(B, 5, H*W) True at the pixels of touching fingers whose depth
+    differs from the rest-gel reference by more than 1e-4."""
+    return (torch.abs(depths - depth_origin) > 0.0001) & touch_success[..., None]
+
+
+def contact_draws(depths, touch_success, depth_origin, n_query, num_sample,
+                  per_finger, generator=None):
+    """The random draws of t2d_contact_sample: {"contact_idx": (B, 5, k)
+    contact pixels per finger (k = min(per_finger, num_sample // 5)),
+    "rand_idx": (B, num_sample) query points}, from ``generator`` on the
+    tensors' device."""
+    per_finger = min(per_finger, num_sample // 5)
+    mask = contact_mask(depths, touch_success, depth_origin)
+    idx, _ = random_topk_select(mask, per_finger, generator)
+    rand_idx = torch.randint(0, n_query, (depths.shape[0], num_sample),
+                             generator=generator, device=depths.device)
+    return {"contact_idx": idx, "rand_idx": rand_idx}
+
+
+class ContactSample(NamedTuple):
+    points: torch.Tensor   # (B, num_sample, 3) decode sample
+    valid: torch.Tensor    # (B, num_sample) True where the slot holds a contact
+    finger: torch.Tensor   # (B, num_sample) finger id of the slot (-1: none)
+
+
+def t2d_contact_sample(depths, touch_success, cam_pos, cam_rot, pc_ply,
+                       query_points, depth_origin, cam_f, height, width,
+                       num_sample, per_finger, generator=None, draws=None):
+    """Back-projected contact points mixed into the decode sample.
+
+    For each touching finger, at most ``per_finger`` pixels whose depth
+    differs from the rest-gel reference by more than 1e-4 are
+    back-projected, rotated to the world frame with the sensor pose (plus
+    the [-π/2, 0, π/2] offset), normalized into the object frame by the
+    scan ``pc_ply``, and put in the sample's first slots, finger by
+    finger; every other slot, and every slot without a contact, takes a
+    random query point.
+
+    Args:
+      depths:        (B, 5, H*W) depth maps.
+      touch_success: (B, 5) bool.
+      cam_pos/cam_rot: (B, 5, 3) sensor poses (rot in radians).
+      pc_ply:        (B, P, 3) object scan.
+      query_points:  (B, N, 3) query points to fill the rest from.
+      depth_origin:  (H*W,) rest-gel depth reference.
+      generator:     torch.Generator on the tensors' device for the draws.
+      draws:         the draws given explicitly instead (contact_draws'
+                     dict), since torch cannot replay jax.random.
+    Returns:
+      ContactSample with points (B, num_sample, 3).
+    """
+    B, n_f = depths.shape[:2]
+    dev = depths.device
+    per_finger = min(per_finger, num_sample // 5)
+    n_slots = n_f * per_finger
+    if draws is None:
+        draws = contact_draws(depths, touch_success, depth_origin,
+                              query_points.shape[1], num_sample, per_finger, generator)
+    idx = torch.as_tensor(draws["contact_idx"], dtype=torch.int64, device=dev)
+    valid = torch.gather(contact_mask(depths, touch_success, depth_origin), 2, idx)
+    # back-projection of the picked pixels only (backproject_depth's
+    # arithmetic, pixel i = y * W + x)
+    d = torch.gather(depths, 2, idx)
+    xs = (idx % width).to(depths.dtype)
+    ys = torch.div(idx, width, rounding_mode="floor").to(depths.dtype)
+    pts_cam = torch.stack([d, -((xs - width / 2.0) * d / cam_f),
+                           -((ys - height / 2.0) * d / cam_f)], dim=-1)
+    rot_off = torch.tensor([-math.pi / 2, 0.0, math.pi / 2], dtype=cam_rot.dtype,
+                           device=dev)
+    R_inv = cam_rotation_inv(cam_rot + rot_off)                    # (B, 5, 3, 3)
+    world = (R_inv[:, :, None] @ pts_cam[..., None])[..., 0] + cam_pos[:, :, None]
+    # norm_pc_1 by each sample's scan
+    centroid = pc_ply.mean(dim=1)                                  # (B, 3)
+    m = torch.sqrt(((pc_ply - centroid[:, None]) ** 2).sum(-1)).amax(1)
+    contact = ((world - centroid[:, None, None]) / (2 * m)[:, None, None, None])
+    contact, valid = contact.reshape(B, n_slots, 3), valid.reshape(B, n_slots)
+
+    rand_idx = torch.as_tensor(draws["rand_idx"], dtype=torch.int64, device=dev)
+    filler = torch.gather(query_points, 1, rand_idx[..., None].expand(-1, -1, 3))
+    head = torch.where(valid[..., None], contact, filler[:, :n_slots])
+    points = torch.cat([head, filler[:, n_slots:]], dim=1)
+    finger_ids = torch.arange(n_f, device=dev).repeat_interleave(per_finger)
+    finger = torch.full((B, num_sample), -1, dtype=torch.int64, device=dev)
+    finger[:, :n_slots] = torch.where(valid, finger_ids, -1)
+    valid_all = torch.zeros((B, num_sample), dtype=torch.bool, device=dev)
+    valid_all[:, :n_slots] = valid
+    return ContactSample(points, valid_all, finger)
+
+
+def scatter_finger_features(c_img, sample: ContactSample, init: str = "zeros"):
+    """Per-point tactile features (B, num_sample, C) from the slots' finger
+    ids: a contact slot takes its finger's feature of c_img (B, 5, C), any
+    other slot zeros (init 'zeros', the img path) or ones (init 'ones', the
+    t2d_img path)."""
+    base = torch.zeros_like if init == "zeros" else torch.ones_like
+    f_safe = torch.clamp(sample.finger, 0, 4)
+    gathered = torch.gather(c_img, 1, f_safe[..., None].expand(-1, -1, c_img.shape[-1]))
+    return torch.where(sample.valid[..., None], gathered, base(gathered))

@@ -1,0 +1,200 @@
+"""Training loop with the reference's cadences (port of
+vtaco_tpu/train/loop.py:33-416, the host-loader path).
+
+An endless epoch loop with modulo-iteration triggers for print, validate,
+checkpoint and backup; model_best selection by the configured metric;
+and the ``exit_after`` preemption contract (save model.ckpt, exit with
+code 3). Metrics stream to stdout and to ``<out_dir>/logs/metrics.jsonl``.
+The pretrained tactile-to-depth weights are grafted from
+``encoder_t2d_kwargs.model_file`` before a resume, so a resumed
+checkpoint's own encoder_t2d wins.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from vtaco_tpu_torch.core.checkpoint import CheckpointIO
+from vtaco_tpu_torch.core.factory import get_model
+from vtaco_tpu_torch.data.core import BatchLoader, get_dataset
+from vtaco_tpu_torch.ops.winding import MeshBank
+from vtaco_tpu_torch.train.trainer import Trainer
+from vtaco_tpu_torch.utils import meshio
+
+
+class JsonlLogger:
+    """Scalar logger writing one JSON object per line."""
+
+    def __init__(self, path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        self.f = open(path, "a")
+
+    def add_scalar(self, tag, value, step):
+        self.f.write(json.dumps({"tag": tag, "value": float(value), "it": int(step)}) + "\n")
+        self.f.flush()
+
+    def close(self):
+        self.f.close()
+
+
+def build_mesh_bank(cfg, device="cuda") -> Optional[MeshBank]:
+    """Every ground-truth object mesh (.off, .obj) of data.mesh_dir in one
+    MeshBank on ``device``, or None without the directory."""
+    mesh_dir = cfg["data"].get("mesh_dir")
+    if not mesh_dir or not os.path.isdir(mesh_dir):
+        return None
+    meshes = {}
+    for path in sorted(glob.glob(os.path.join(mesh_dir, "*"))):
+        base, ext = os.path.splitext(os.path.basename(path))
+        if ext.lower() in (".off", ".obj") and base not in meshes:
+            meshes[base] = meshio.read_triangle_mesh(path)
+    return MeshBank(meshes, device=device) if meshes else None
+
+
+def graft_t2d(model, t2d_file, checkpoint_dir):
+    """Load encoder_t2d.{encoder_hand, encoder_img} from the encoder_hand
+    and encoder_img of a checkpoint's model (a tactile experiment's), the
+    file resolved against ``checkpoint_dir``. A missing file warns; a
+    structure that differs raises ValueError."""
+    try:
+        payload, _ = CheckpointIO(checkpoint_dir).load_raw(t2d_file)
+    except FileNotFoundError:
+        print(f"Warning: pretrained t2d checkpoint {t2d_file} not found")
+        return
+    src_sd = payload.get("model", {})
+    grafted = []
+    for sub in ("encoder_hand", "encoder_img"):
+        src = {k[len(sub) + 1:]: v for k, v in src_sd.items() if k.startswith(sub + ".")}
+        if not src:
+            continue
+        dst = getattr(model.encoder_t2d, sub)
+        want = {k: tuple(v.shape) for k, v in dst.state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in src.items()}
+        if want != got:
+            bad = [k for k in want.keys() | got.keys() if want.get(k) != got.get(k)][:4]
+            raise ValueError(f"t2d checkpoint {sub} does not match the model's "
+                             f"encoder_t2d.{sub} (config mismatch?): first differing "
+                             f"entries {bad}")
+        dst.load_state_dict(src)
+        grafted.append(sub)
+    print(f"=> loaded pretrained t2d weights from {t2d_file} ({', '.join(grafted)})")
+
+
+def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
+          device="cuda", seed=0):
+    """Run training per cfg on ``device``. Returns (trainer, it) on a normal
+    stop; raises SystemExit(3) after saving once ``exit_after`` seconds
+    have passed."""
+    tcfg = cfg["training"]
+    if cfg["data"].get("on_device"):
+        raise NotImplementedError("data.on_device (the device-resident dataset) "
+                                  "is not ported yet (ROADMAP.md)")
+    if int(tcfg.get("steps_per_dispatch", 1) or 1) > 1:
+        raise NotImplementedError("training.steps_per_dispatch > 1 (fused steps) "
+                                  "is not ported yet (ROADMAP.md)")
+    out_dir = tcfg["out_dir"]
+    batch_size = tcfg["batch_size"]
+    print_every, validate_every = tcfg["print_every"], tcfg["validate_every"]
+    checkpoint_every, backup_every = tcfg["checkpoint_every"], tcfg["backup_every"]
+    metric = tcfg["model_selection_metric"]
+    sign = {"maximize": 1, "minimize": -1}.get(tcfg["model_selection_mode"])
+    if sign is None:
+        raise ValueError("model_selection_mode must be maximize or minimize")
+    os.makedirs(out_dir, exist_ok=True)
+
+    train_dataset = get_dataset("train", cfg)
+    val_dataset = get_dataset("val", cfg, return_idx=True)
+    if len(train_dataset) == 0:
+        raise ValueError("train split %r of %s contains no models"
+                         % (cfg["data"]["train_split"], cfg["data"]["path"]))
+    if batch_size > len(train_dataset):
+        print("Warning: batch_size %d > train split size %d; clamping"
+              % (batch_size, len(train_dataset)))
+        batch_size = len(train_dataset)
+    train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
+                               num_workers=tcfg["n_workers"], seed=seed)
+
+    def val_loader():
+        return BatchLoader(val_dataset, 1, shuffle=False,
+                           num_workers=tcfg["n_workers_val"])
+
+    torch.manual_seed(seed)
+    model, aux = get_model(cfg, device=device, return_aux=True)
+    trainer = Trainer.from_config(model, cfg, mesh_bank=build_mesh_bank(cfg, device),
+                                  seed=seed)
+    if aux["t2d_pretrained_file"]:
+        graft_t2d(model, aux["t2d_pretrained_file"], out_dir)
+    ckpt = CheckpointIO(out_dir, model=model, optimizer=trainer.optimizer)
+    epoch_it, it = 0, 0
+    metric_val_best = -sign * np.inf
+    try:
+        scalars = ckpt.load(cfg["test"]["model_file"])
+        epoch_it = int(scalars.get("epoch_it", 0))
+        it = int(scalars.get("it", 0))
+        metric_val_best = float(scalars.get("loss_val_best", metric_val_best))
+        trainer.step = it
+        print(f"=> resumed at it={it} (best {metric}={metric_val_best:.6f})")
+    except FileNotFoundError:
+        pass
+    if not np.isfinite(metric_val_best):
+        metric_val_best = -sign * np.inf
+
+    print("Total number of parameters: %d" % sum(p.numel() for p in model.parameters()))
+    print("output path: ", out_dir)
+    logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"))
+    t0 = time.time()
+    t_last, it_last = t0, it
+
+    def save(filename):
+        ckpt.save(filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
+
+    stop = False
+    try:
+        while not stop:
+            epoch_it += 1
+            for batch in train_loader:
+                it += 1
+                scalars = trainer.train_step(batch)
+                for k, v in scalars.items():
+                    logger.add_scalar(f"train/{k}", v, it)
+                if print_every > 0 and it % print_every == 0:
+                    now = time.time()
+                    msg = ", ".join(f"{k}={v:.4f}" for k, v in scalars.items())
+                    print("[Epoch %02d] it=%03d, %s, %.2f it/s, time: %.2fs"
+                          % (epoch_it, it, msg, (it - it_last) / max(now - t_last, 1e-9),
+                             now - t0))
+                    t_last, it_last = now, it
+                if validate_every > 0 and it % validate_every == 0:
+                    eval_dict = trainer.evaluate(val_loader())
+                    metric_val = eval_dict[metric]
+                    print("Validation metric (%s): %.4f" % (metric, metric_val))
+                    for k, v in eval_dict.items():
+                        logger.add_scalar(f"val/{k}", v, it)
+                    if sign * (metric_val - metric_val_best) > 0:
+                        metric_val_best = metric_val
+                        print("New best model (%s %.4f)" % (metric, metric_val_best))
+                        save("model_best.ckpt")
+                if checkpoint_every > 0 and it % checkpoint_every == 0:
+                    print("Saving checkpoint at iteration: %d" % it)
+                    save("model.ckpt")
+                if backup_every > 0 and it % backup_every == 0:
+                    print("Backup checkpoint at iteration: %d" % it)
+                    save("model_%d.ckpt" % it)
+                if exit_after > 0 and (time.time() - t0) >= exit_after:
+                    print("Time limit reached. Exiting.")
+                    save("model.ckpt")
+                    raise SystemExit(3)
+                if max_iters is not None and it >= max_iters:
+                    stop = True
+                    break
+        save("model.ckpt")
+    finally:
+        logger.close()
+    return trainer, it
