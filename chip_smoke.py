@@ -51,31 +51,48 @@ ends:
      K2 launch, the window kernels do not). Median of three warm calls per
      set and mode, a stage breakdown of the window route, and the logits
      against the plain route on the same points.
-  7. train: the port's synthetic set at full size (4 models, 100,000
-     query points, 320x240 tactile images) and VTacO_YCB at full width,
-     initialized from a seed. train.loop.train takes TRAIN_LOOP_ITERS
-     steps of the t2d_img loss with validation and a checkpoint (the
-     CLI's path). Then the warm step time at each of TRAIN_PRECISIONS
-     (the config's training.matmul_precision, 'default', lets cuBLAS and
-     cuDNN run in TF32 as the CLI does; 'highest' is full float32), the
-     steps alternating between them: median, least and most of
-     TRAIN_TIMED steps each, CUDA-synchronized, after TRAIN_WARM warm-up
-     steps each, with the breakdown by CUDA events at the trainer's stage
-     marks; the peak memory; the kernels' device time and busy share over
-     TRAIN_PROFILED steps at the config's precision under torch.profiler
-     (with the kernels that take most of it), and one validation's time;
-     one train step at 'highest' held against the same step on the CPU
-     from the same weights, batch and contact draws (loss scalars within
-     TRAIN_RTOL relative, each module's gradient cosine >= GRAD_COS); and
-     a mesh reconstructed in contact mode from the saved
-     checkpoint, for which K1's launch counter, zeroed just before, must
-     rise.
+  7. pipeline: the paper's three stages through the port's entry points,
+     at full width on one synthetic set made from seed 0 (PIPELINE_MODELS
+     models: 12 in the train split, 2 val, 2 test; 100,000 query points,
+     320x240 tactile images), each model initialized from a seed:
+     (a) tactile: configs/tactile/tactile_test.yaml (the depth U-Net and
+     the sensor-pose head) at its batch of 12; train.loop.train takes
+     TRAIN_LOOP_ITERS steps with validation, a checkpoint and the CLI's
+     visualization hook; then the warm step time at each of
+     TRAIN_PRECISIONS ('default', the config's training.matmul_precision,
+     lets cuBLAS and cuDNN run in TF32 as the CLI does; 'highest' is full
+     float32), the steps alternating between them: median, least and most
+     of TRAIN_TIMED steps each, CUDA-synchronized, after TRAIN_WARM
+     warm-up steps each, with the breakdown by CUDA events at the
+     trainer's stage marks; the peak memory; one step at 'highest' held
+     against the same step on the CPU from the same weights and batch
+     (loss scalars within TRAIN_RTOL relative, each module's gradient
+     cosine >= GRAD_COS).
+     (b) train: VTacO_YCB with encoder_t2d_kwargs.model_file set to (a)'s
+     checkpoint as an absolute path (the "loaded pretrained t2d weights"
+     line must appear), the same loop, step times, peak memory and step
+     against the CPU (with the same contact draws), plus the kernels'
+     device time and busy share over TRAIN_PROFILED steps under
+     torch.profiler, one validation's time and a mesh reconstructed in
+     contact mode from the checkpoint, for which K1's launch counter,
+     zeroed just before, must rise.
+     (c) generate: python -m vtaco_tpu_torch.cli.generate (its main) on
+     VTacO_YCB's test split from (b)'s checkpoint at nx = 128: the last
+     JSON line (n >= 1, finite means), an object and a hand mesh per
+     object, K1 launched at least once per object (every counter zeroed
+     just before, read just after: these launches join K1's count), and
+     each object's wall time (mesh + hand mesh). (d) the same CLI on the
+     tactile config from (a)'s checkpoint: one cloud of 5 x 320 x 240
+     points per sample. (e) LoopGenerator.visualize called directly on
+     each checkpoint's model: its files must exist.
 Then one JSON line describing the kernels, and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no such line. It needs CUDA and the rest of the
 repository; it never falls back to the CPU.
 """
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -85,6 +102,7 @@ import time
 
 import numpy as np
 import torch
+import yaml
 
 from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
@@ -98,6 +116,9 @@ from vtaco_tpu_torch.ops.cuda import decode as K
 from vtaco_tpu_torch.train import contact as C
 from vtaco_tpu_torch.train import loop
 from vtaco_tpu_torch.train.trainer import Trainer
+from vtaco_tpu_torch.utils import meshio
+from vtaco_tpu_torch.cli import generate as generate_cli
+from vtaco_tpu_torch.generate.generator import make_loop_generator
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
     dense_query_grid_cn,
@@ -132,12 +153,31 @@ DEVICE_STAGES = ("encode_s", "gates_s", "dense_features_s", "trunk_s", "transfer
 TRAIN_LOOP_ITERS, TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 4, 2, 10, 2
 TRAIN_PRECISIONS = ("default", "highest")
 TRAIN_RTOL, GRAD_COS = 1e-4, 0.999
+# the CPU step the card's is held to: float32 on the t2d path; float64 for
+# the tactile depth stack, whose U-Net sees the loader's [0, 1/255] images:
+# its first conv's output is mostly its bias, and train-mode BatchNorm
+# magnifies the float32 rounding of the CPU's reductions over 4.6 million
+# positions per channel (the bias's gradient, exactly zero, among them), so
+# that the CPU's float32 step strays from the exact one by about as much as
+# the bar allows. The run logs that step's cosines to the float64 step too.
+TRAIN_REFERENCE = {"tactile": torch.float64, "train": torch.float32}
+# pipeline phase: models of its synthetic set (12 train, so that
+# tactile_test's batch of 12 fits; 2 val, 2 test), their query points
+# (both configs' points_subsample) and tactile images (H, W)
+PIPELINE_MODELS, PIPELINE_QUERY, PIPELINE_IMG = 16, 100_000, (320, 240)
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
 # two operations), TF32 on the tensor cores, and HBM bandwidth, by the
 # product name the card reports.
 PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417e12, 3.9e12),
          "SXM": (67e12, 495e12, 3.35e12)}
+
+
+# each kernel's launch counter: (wrapper, attribute)
+COUNTERS = {"fused_trunk_cn": (K.fused_trunk_cn, "launches"),
+            "fused_trunk_gated_cn": (K.fused_trunk_gated_cn, "launches"),
+            "fused_trunk_window_cn": (K.fused_trunk_window_cn, "launches"),
+            "fused_trunk_window_cn:gated": (K.fused_trunk_window_cn, "launches_gated")}
 
 
 def log(phase, **kw):
@@ -791,16 +831,13 @@ def eval_points_phase(dev, model, batch, gens):
     sets = {k: rng.uniform(-0.54, 0.54, (n, 3)).astype(np.float32)
             for k, n in N_EVAL.items()}
     sets["c"] = cube[rng.permutation(len(cube))]
-    counters = ((K.fused_trunk_window_cn, "launches"),
-                (K.fused_trunk_window_cn, "launches_gated"),
-                (K.fused_trunk_cn, "launches"), (K.fused_trunk_gated_cn, "launches"))
     names = ("fused_trunk_window_cn", "fused_trunk_window_cn:gated",
              "fused_trunk_cn", "fused_trunk_gated_cn")
 
     def read():
-        return {n: getattr(f, a) for n, (f, a) in zip(names, counters)}
+        return {n: getattr(*COUNTERS[n]) for n in names}
 
-    for f, a in counters:
+    for f, a in COUNTERS.values():
         setattr(f, a, 0)
     launches = {name: 0 for name in names}
     results = {}
@@ -903,63 +940,114 @@ def eval_points_phase(dev, model, batch, gens):
     return launches
 
 
-def train_config(root):
-    """VTacO_YCB with its data on the port's synthetic set at full size
-    (made here from seed 0: 4 models, three in the train split so that a
-    batch of 3 fits), its run directory under ``root``, and the mesh check's
-    'mean' iso level (a field trained a few steps can miss the midpoint)."""
-    cfg = load_config(os.path.join(REPO, "configs/VTacO/VTacO_YCB.yaml"),
-                      os.path.join(REPO, "configs/default.yaml"))
-    data_root, mesh_root = synthetic.generate(
-        os.path.join(root, "data"), n_models=4, n_query=cfg["data"]["points_subsample"],
-        n_surface=20_000, img_h=320, img_w=240, seed=0,
-        splits=(("train", 0.75), ("val", 0.25), ("test", 0.25)))
+def pipeline_config(path, root, data, run):
+    """A shipped config with its data on the pipeline's synthetic set
+    (``data``: the data and mesh roots), its run directory ``root/run``,
+    and the loop's cadences for a short run: validation and a checkpoint at
+    the last of TRAIN_LOOP_ITERS steps."""
+    cfg = load_config(os.path.join(REPO, path), os.path.join(REPO, "configs/default.yaml"))
+    data_root, mesh_root = data
     cfg["data"].update(path=data_root, mesh_dir=os.path.join(mesh_root, "mesh_obj"),
                        depth_origin=os.path.join(mesh_root, "depth_origin.txt"))
-    cfg["training"].update(out_dir=os.path.join(root, "run"), print_every=1,
+    cfg["training"].update(out_dir=os.path.join(root, run), print_every=1,
                            validate_every=TRAIN_LOOP_ITERS,
                            checkpoint_every=TRAIN_LOOP_ITERS, backup_every=-1,
                            n_workers=4, n_workers_val=2)
-    cfg["generation"]["mc_level"] = "mean"
     return cfg
 
 
-def step_against_cpu(cfg, trainer, batch):
-    """One train step on the card and the same step on the CPU, from the
-    same weights, batch and contact draws: the loss scalars' relative
-    errors and each module's gradient cosine and norm ratio. The card runs
-    the step in full float32 ('highest')."""
-    cpu_model = get_model(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.detach().cpu() for k, v in
-                               trainer.model.state_dict().items()})
-    cpu = Trainer.from_config(cpu_model, cfg, mesh_bank=loop.build_mesh_bank(cfg, "cpu"))
-    trainer = Trainer.from_config(trainer.model, cfg, mesh_bank=trainer.mesh_bank,
-                                  matmul_precision="highest")
-    a = trainer.prepare_batch(batch)
-    H, W = a["imgs"].shape[2:4]
-    draws = C.contact_draws(a["depths"], a["touch_success"],
-                            trainer._depth_origin_for(H * W), a["points"].shape[1],
-                            trainer.num_sample, trainer.contact_per_finger,
-                            trainer.generator)
-    got = trainer.train_step(batch, draws)
-    t0 = time.perf_counter()
-    want = cpu.train_step(batch, {k: v.cpu() for k, v in draws.items()})
-    cpu_s = time.perf_counter() - t0
-    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+def printed(fn, *args, **kw):
+    """(fn's result, what it printed); the output is printed here too."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args, **kw)
+    finally:
+        sys.stdout.write(buf.getvalue())
+        sys.stdout.flush()
+    return out, buf.getvalue()
+
+
+def take(loader, n):
+    """The first n batches of a loader's epochs, one epoch after another."""
+    out = []
+    while len(out) < n:
+        for b in loader:
+            out.append(b)
+            if len(out) == n:
+                break
+    return out
+
+
+def module_cosines(model, ref):
+    """Each top-level module's gradient cosine and norm ratio, ``model``'s
+    against ``ref``'s (same parameter names)."""
     cos, ratio = {}, {}
-    cpu_params = dict(cpu_model.named_parameters())
-    for mod in dict(trainer.model.named_children()):
-        pairs = [(p.grad, cpu_params[n].grad)
-                 for n, p in trainer.model.named_parameters() if n.split(".")[0] == mod]
+    ref_params = dict(ref.named_parameters())
+    for mod in dict(model.named_children()):
+        pairs = [(p.grad, ref_params[n].grad)
+                 for n, p in model.named_parameters() if n.split(".")[0] == mod]
         if all(g is None and w is None for g, w in pairs):
             continue   # the shipped path's t2d: no gradient on either side
         if any((g is None) != (w is None) for g, w in pairs):
-            raise AssertionError(f"train: {mod} has gradients on one side only")
+            raise AssertionError(f"{mod} has gradients on one side only")
         g = torch.cat([x.flatten().double().cpu() for x, _ in pairs if x is not None])
-        w = torch.cat([y.flatten().double() for _, y in pairs if y is not None])
+        w = torch.cat([y.flatten().double().cpu() for _, y in pairs if y is not None])
         cos[mod] = float(g @ w / (g.norm() * w.norm()))
         ratio[mod] = float(g.norm() / w.norm())
-    return rel, cos, ratio, cpu_s
+    return cos, ratio
+
+
+def step_against_cpu(cfg, trainer, batch, dtype):
+    """One train step on the card and the same step on the CPU in
+    ``dtype``, from the same weights, batch and (on the t2d path) contact
+    draws: the loss scalars' relative errors, each module's gradient cosine
+    and norm ratio, the CPU step's seconds, and, for a float64 CPU step
+    (the tactile path: the loss and its backward, without the optimizer's
+    update), the CPU's float32 step's cosines and ratios to it. The card
+    runs the step in full float32 ('highest')."""
+    state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
+
+    def cpu_trainer(dt):
+        model = get_model(cfg, device="cpu")
+        model.load_state_dict(state)
+        return Trainer.from_config(model.to(dt), cfg,
+                                   mesh_bank=loop.build_mesh_bank(cfg, "cpu"))
+
+    cpu = cpu_trainer(dtype)
+    trainer = Trainer.from_config(trainer.model, cfg, mesh_bank=trainer.mesh_bank,
+                                  matmul_precision="highest")
+    draws = cpu_draws = None
+    if not trainer.train_tactile:
+        a = trainer.prepare_batch(batch)
+        H, W = a["imgs"].shape[2:4]
+        draws = C.contact_draws(a["depths"], a["touch_success"],
+                                trainer._depth_origin_for(H * W), a["points"].shape[1],
+                                trainer.num_sample, trainer.contact_per_finger,
+                                trainer.generator)
+        cpu_draws = {k: v.cpu() for k, v in draws.items()}
+    got = trainer.train_step(batch, draws)
+    t0 = time.perf_counter()
+    cpu32 = None
+    if dtype == torch.float32:
+        want = cpu.train_step(batch, cpu_draws)
+    elif trainer.train_tactile:
+        a = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in cpu.prepare_batch(batch).items()}
+        cpu.model.train()
+        loss, scalars = cpu._compute_loss_tactile(a)
+        loss.backward()
+        want = cpu._host(scalars)
+    else:
+        raise ValueError(f"no {dtype} CPU step on the t2d path")
+    cpu_s = time.perf_counter() - t0
+    if dtype != torch.float32:
+        f32 = cpu_trainer(torch.float32)
+        f32.train_step(batch)
+        cpu32 = module_cosines(f32.model, cpu.model)
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+    cos, ratio = module_cosines(trainer.model, cpu.model)
+    return rel, cos, ratio, cpu_s, cpu32
 
 
 def timed_steps(trainer, batches):
@@ -978,7 +1066,7 @@ def timed_steps(trainer, batches):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if not all(np.isfinite(v) for v in scalars.values()):
-            raise AssertionError(f"train: non-finite scalars at {prec}: {scalars}")
+            raise AssertionError(f"non-finite scalars at {prec}: {scalars}")
         if not warm:
             continue
         ev = trainer.stage_events
@@ -1016,45 +1104,88 @@ def profile_steps(trainer, batches):
             [(e.key[:90], e.self_device_time_total / 1e3 / n, e.count / n) for e in top])
 
 
-def train_phase():
-    root = os.path.join(REPO, "out", "chip_smoke_train")
-    shutil.rmtree(root, ignore_errors=True)
+def train_stage(phase, cfg, modules):
+    """loop.train for TRAIN_LOOP_ITERS steps (the CLI's path: validation,
+    model selection, checkpoint, the visualization hook), then the warm
+    steps at each precision with their breakdowns and the peak memory,
+    and one 'highest' step against the CPU's in TRAIN_REFERENCE[phase],
+    whose gradients must reach ``modules``. Returns (trainer, the loop's
+    output, the timed batches)."""
     t0 = time.perf_counter()
-    cfg = train_config(root)
-    log("train", config="configs/VTacO/VTacO_YCB.yaml", synthetic_s=time.perf_counter() - t0,
-        models=4, n_query=cfg["data"]["points_subsample"],
-        pointcloud_n=cfg["data"]["pointcloud_n"], num_sample=cfg["data"]["num_sample"],
-        batch_size=cfg["training"]["batch_size"], images="5x320x240")
-
-    # the CLI's path: steps, validation, model selection, checkpoint
-    t0 = time.perf_counter()
-    trainer, it = loop.train(cfg, max_iters=TRAIN_LOOP_ITERS, device="cuda", seed=0)
+    (trainer, it), out = printed(loop.train, cfg, max_iters=TRAIN_LOOP_ITERS,
+                                 device="cuda", seed=0,
+                                 generator_factory=make_loop_generator)
     torch.cuda.synchronize()
     out_dir = cfg["training"]["out_dir"]
     for f in ("model.ckpt", "model_best.ckpt"):
         if not os.path.exists(os.path.join(out_dir, f)):
-            raise AssertionError(f"train: loop.train wrote no {f}")
+            raise AssertionError(f"{phase}: loop.train wrote no {f}")
     n_params = sum(p.numel() for p in trainer.model.parameters())
-    log("train", loop_iters=it, loop_s=time.perf_counter() - t0, params=n_params)
+    log(phase, loop_iters=it, loop_s=time.perf_counter() - t0, params=n_params)
 
-    # warm steps at each precision: time, breakdown by the trainer's
-    # CUDA-event stage marks, peak memory
     bs = cfg["training"]["batch_size"]
     loader = BatchLoader(get_dataset("train", cfg), bs, num_workers=4, seed=1)
     n_steps = (TRAIN_WARM + TRAIN_TIMED) * len(TRAIN_PRECISIONS)
-    batches = [b for _ in range(n_steps + 1) for b in loader]
+    batches = take(loader, n_steps + 1)
     torch.cuda.reset_peak_memory_stats()
     runs, scalars = timed_steps(trainer, batches[:n_steps])
     peak = torch.cuda.max_memory_allocated()
-    log("train", matmul_precision=trainer.matmul_precision, peak_mem_gib=peak / 2 ** 30,
+    log(phase, matmul_precision=trainer.matmul_precision, peak_mem_gib=peak / 2 ** 30,
         batch_size=bs, warm_up_steps=TRAIN_WARM, **scalars)
     for prec, (times, stages) in runs.items():
-        log("train", matmul_precision=prec, step_s=float(np.median(times)),
+        log(phase, matmul_precision=prec, step_s=float(np.median(times)),
             step_s_min=min(times), step_s_max=max(times), step_s_each=times)
         for k in stages[0]:
             col = [s[k] for s in stages]
-            log("train", matmul_precision=prec, stage=k, median=float(np.median(col)),
+            log(phase, matmul_precision=prec, stage=k, median=float(np.median(col)),
                 min=min(col), max=max(col))
+
+    dtype = TRAIN_REFERENCE[phase]
+    rel, cos, ratio, cpu_s, cpu32 = step_against_cpu(cfg, trainer, batches[-1], dtype)
+    log(phase, vs_cpu="loss_rel_err", cpu_dtype=str(dtype)[6:], cpu_step_s=cpu_s, **rel)
+    log(phase, vs_cpu="grad_cosine", **cos)
+    log(phase, vs_cpu="grad_norm_ratio", **ratio)
+    if cpu32 is not None:   # the CPU's own float32 step, logged, not held
+        log(phase, cpu_float32_vs_cpu="grad_cosine", **cpu32[0])
+        log(phase, cpu_float32_vs_cpu="grad_norm_ratio", **cpu32[1])
+    if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
+        raise AssertionError(f"{phase}: card step differs from the CPU step: {rel} {cos}")
+    if not set(modules) <= set(cos):
+        raise AssertionError(f"{phase}: modules without gradients: {sorted(cos)}")
+    return trainer, out, batches
+
+
+def tactile_stage(root, data):
+    """(a) Pretraining the tactile depth stack (tactile_test.yaml at full
+    width, its batch of 12). Returns (cfg, the checkpoint's absolute
+    path)."""
+    cfg = pipeline_config("configs/tactile/tactile_test.yaml", root, data, "tactile")
+    bs, n_train = cfg["training"]["batch_size"], len(get_dataset("train", cfg))
+    log("tactile", config="configs/tactile/tactile_test.yaml", batch_size=bs,
+        train_models=n_train, c_dim=cfg["model"]["c_dim"])
+    if bs > n_train:
+        raise AssertionError(f"tactile: the train split ({n_train}) cannot hold a batch")
+    train_stage("tactile", cfg, ("encoder_hand", "encoder_img"))
+    return cfg, os.path.abspath(os.path.join(cfg["training"]["out_dir"], "model.ckpt"))
+
+
+def vtaco_stage(root, data, t2d_ckpt):
+    """(b) VTacO_YCB at full width, its t2d stack grafted from (a)'s
+    checkpoint (``model_file`` as an absolute path), with the steps' time,
+    the profiler's view of them, a validation's time, the step against the
+    CPU and a mesh from the checkpoint (K1). Returns (cfg, the checkpoint's
+    absolute path)."""
+    cfg = pipeline_config("configs/VTacO/VTacO_YCB.yaml", root, data, "vtaco")
+    cfg["model"]["encoder_t2d_kwargs"]["model_file"] = t2d_ckpt
+    # a field trained a few steps can miss the midpoint level
+    cfg["generation"]["mc_level"] = "mean"
+    log("train", config="configs/VTacO/VTacO_YCB.yaml", t2d_model_file=t2d_ckpt,
+        n_query=cfg["data"]["points_subsample"], pointcloud_n=cfg["data"]["pointcloud_n"],
+        num_sample=cfg["data"]["num_sample"], batch_size=cfg["training"]["batch_size"])
+    trainer, out, batches = train_stage(
+        "train", cfg, ("encoder", "encoder_hand", "encoder_img", "decoder"))
+    if f"loaded pretrained t2d weights from {t2d_ckpt}" not in out:
+        raise AssertionError("train: the t2d stack was not grafted from the tactile run")
     wall, busy, launches_per_step, top = profile_steps(trainer, batches[:TRAIN_PROFILED])
     log("train", profiled_steps=TRAIN_PROFILED, wall_s=wall, kernel_s=busy,
         device_busy_share=busy / wall, kernel_launches_per_step=launches_per_step)
@@ -1066,19 +1197,10 @@ def train_phase():
     torch.cuda.synchronize()
     log("train", validation_s=time.perf_counter() - t0, **{f"val_{k}": v for k, v in val.items()})
 
-    # one step on the card against the CPU
-    rel, cos, ratio, cpu_s = step_against_cpu(cfg, trainer, batches[-1])
-    log("train", vs_cpu="loss_rel_err", cpu_step_s=cpu_s, **rel)
-    log("train", vs_cpu="grad_cosine", **cos)
-    log("train", vs_cpu="grad_norm_ratio", **ratio)
-    if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
-        raise AssertionError(f"train: card step differs from the CPU step: {rel} {cos}")
-    if not {"encoder", "encoder_hand", "encoder_img", "decoder"} <= set(cos):
-        raise AssertionError(f"train: modules without gradients: {sorted(cos)}")
-
     # a mesh from the checkpoint, contact-gated (K1)
+    ckpt = os.path.abspath(os.path.join(cfg["training"]["out_dir"], "model.ckpt"))
     model = get_model(cfg)
-    CheckpointIO(out_dir, model=model).load("model.ckpt")
+    CheckpointIO(cfg["training"]["out_dir"], model=model).load(ckpt)
     model.eval()
     gen = get_generator(model, cfg)
     batch = next(iter(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
@@ -1095,7 +1217,153 @@ def train_phase():
         faces=len(faces), chamfer=cd, emd=emd, launches_fused_trunk_gated_cn=launches)
     if launches < 1:
         raise AssertionError("train: the checkpoint's mesh never launched K1")
+    return cfg, ckpt
+
+
+@contextlib.contextmanager
+def timed_methods(cls, names):
+    """Wall time of every call of ``cls``'s methods ``names`` (synchronized
+    at its end), collected in the yielded {name: [seconds]}."""
+    times = {n: [] for n in names}
+    orig = {n: getattr(cls, n) for n in names}
+
+    def timed(n):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = orig[n](*args, **kw)
+            torch.cuda.synchronize()
+            times[n].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for n in names:
+        setattr(cls, n, timed(n))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(cls, n, orig[n])
+
+
+def cli_generate(root, cfg, ckpt, run):
+    """python -m vtaco_tpu_torch.cli.generate on cfg's test split from
+    ``ckpt``: (the last JSON line, what it wrote, the seconds it took)."""
+    path = os.path.join(root, f"{run}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    out_dir = os.path.join(root, run)
+    t0 = time.perf_counter()
+    _, out = printed(generate_cli.main, [path, "--checkpoint", ckpt, "--out-dir", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return json.loads(out.strip().splitlines()[-1]), sorted(os.listdir(out_dir)), seconds
+
+
+def read_ply_points(path):
+    """The (N, 3) points of an ASCII PLY written by meshio.write_ply."""
+    with open(path) as f:
+        header = [next(f).strip() for _ in range(8)]
+    n = int(header[3].split()[-1])
+    pts = np.loadtxt(path, skiprows=8, ndmin=2)
+    if header[-1] != "end_header" or pts.shape != (n, 3):
+        raise AssertionError(f"{path}: malformed PLY")
+    return pts
+
+
+def generate_stage(root, vt, tac):
+    """(c) cli.generate on VTacO_YCB's test split from (b)'s checkpoint at
+    nx = 128: its JSON line, an object and a hand mesh per object, K1 at
+    least once per object (counters zeroed just before, read just after),
+    each object's mesh and hand-mesh time. (d) cli.generate on the tactile
+    config from (a)'s checkpoint: one cloud of 5 H W points per sample.
+    Returns the CLI path's kernel launches."""
+    (vt_cfg, vt_ckpt), (tac_cfg, tac_ckpt) = vt, tac
+    from vtaco_tpu_torch.generate.generator import Generator3D
+
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "generate_hand_mesh")) as t:
+        line, files, seconds = cli_generate(root, vt_cfg, vt_ckpt, "generate_vtaco")
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+    n = line["n"]
+    mesh_s, hand_s = t["generate_obj_mesh_wnf"], t["generate_hand_mesh"]
+    per_object = [a + b for a, b in zip(mesh_s, hand_s)]
+    log("generate", config="configs/VTacO/VTacO_YCB.yaml", nx=128, cli_s=seconds,
+        object_s_median=float(np.median(per_object)), object_s_each=per_object,
+        mesh_s_each=mesh_s, hand_mesh_s_each=hand_s, **line,
+        **{f"launches_{k}": v for k, v in launches.items()})
+    if not (n >= 1 and np.isfinite(line["cd_mean"]) and np.isfinite(line["emd_mean"])):
+        raise AssertionError(f"generate: bad result line {line}")
+    for part in ("_obj.off", "_hand.off"):
+        got = [f for f in files if f.endswith(part)]
+        if len(got) != n:
+            raise AssertionError(f"generate: {len(got)} {part} files for {n} objects")
+        for f in got:
+            verts, faces = meshio.read_off(os.path.join(root, "generate_vtaco", f))
+            if len(faces) == 0 or not np.isfinite(verts).all():
+                raise AssertionError(f"generate: bad mesh {f}")
+    if launches["fused_trunk_gated_cn"] < n or len(per_object) != n:
+        raise AssertionError(f"generate: K1 launched {launches} for {n} objects")
+
+    line, files, seconds = cli_generate(root, tac_cfg, tac_ckpt, "generate_tactile")
+    n_pts = [len(read_ply_points(os.path.join(root, "generate_tactile", f))) for f in files]
+    log("generate", config="configs/tactile/tactile_test.yaml", cli_s=seconds,
+        points_each=n_pts, **line)
+    if line["n"] < 1 or len(files) != line["n"] or set(n_pts) != {5 * np.prod(PIPELINE_IMG)}:
+        raise AssertionError(f"generate: tactile clouds {files} of {n_pts} points")
+    return launches
+
+
+def visualize_stage(root, vt, tac):
+    """(e) LoopGenerator.visualize called directly (not through the loop,
+    whose guard would catch its failure) on each checkpoint's model in
+    train mode, as the loop hands it over: the validation split's meshes
+    (VTacO: every sample) or clouds (tactile: every vis_split-th)."""
+    for phase, (cfg, ckpt), want in (("vtaco", vt, ("_obj.off", "_hand.off")),
+                                     ("tactile", tac, ("_tactile.ply",))):
+        model = get_model(cfg)
+        CheckpointIO(cfg["training"]["out_dir"], model=model).load(ckpt)
+        model.train()
+        ds = get_dataset("val", cfg, return_idx=True)
+        out_dir = os.path.join(root, f"visualize_{phase}")
+        t0 = time.perf_counter()
+        _, out = printed(make_loop_generator(model, cfg).visualize, model,
+                         BatchLoader(ds, 1, shuffle=False, num_workers=1), out_dir, 7)
+        seconds = time.perf_counter() - t0
+        files = sorted(os.listdir(os.path.join(out_dir, "vis")))
+        g = cfg["generation"]
+        n = len(ds) if g["vis_all"] else len(range(0, len(ds), g["vis_split"]))
+        log("visualize", config=phase, seconds=seconds, samples=n, files=files)
+        if (not model.training or len(files) != n * len(want)
+                or not all(f.startswith("7_") for f in files)
+                or sorted(f[-len(w):] for f in files for w in want if f.endswith(w))
+                != sorted(want * n)):
+            raise AssertionError(f"visualize: {phase} wrote {files} for {n} samples")
+        if phase == "vtaco" and "Metrics CD:" not in out:
+            raise AssertionError("visualize: no metrics printed")
+
+
+def pipeline_phase():
+    """The paper's three stages through the port's entry points at full
+    width on one synthetic set: (a) pretrain the tactile depth stack,
+    (b) train VTacO_YCB with its graft, (c, d) reconstruct through the
+    generation CLI, (e) the loop's visualization. Returns the kernel
+    launches of the CLI's VTacO path."""
+    root = os.path.join(REPO, "out", "chip_smoke_pipeline")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    data = synthetic.generate(
+        os.path.join(root, "data"), n_models=PIPELINE_MODELS, n_query=PIPELINE_QUERY,
+        n_surface=20_000, img_h=PIPELINE_IMG[0], img_w=PIPELINE_IMG[1], seed=0,
+        splits=(("train", 0.75), ("val", 0.125), ("test", 0.125)))
+    log("pipeline", synthetic_s=time.perf_counter() - t0, models=PIPELINE_MODELS,
+        n_query=PIPELINE_QUERY, images="5x%dx%d" % PIPELINE_IMG)
+    tac = tactile_stage(root, data)
+    vt = vtaco_stage(root, data, tac[1])
+    launches = generate_stage(root, vt, tac)
+    visualize_stage(root, vt, tac)
     shutil.rmtree(root)
+    return launches
 
 
 def main():
@@ -1133,7 +1401,7 @@ def main():
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
     del model, gens
-    train_phase()
+    cli_launches = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
         "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),
@@ -1141,7 +1409,10 @@ def main():
         "fused_trunk_window_cn:gated": ("window.cu",
                                         "vtaco_tpu/ops/pallas/decode.py:406"),
     }
-    # K1/K2 launches from the mesh path, K3/K4 from the eval_points path
+    # K1/K2 launches from the mesh path, K3/K4 from the eval_points path,
+    # each with the generation CLI's (K1 on VTacO_YCB)
+    by_path = {k: {"mesh": launches.get(k, 0), "eval_points": eval_launches[k],
+                   "cli_generate": cli_launches[k]} for k in replaced}
     launches.update({k: eval_launches[k] for k in
                      ("fused_trunk_window_cn", "fused_trunk_window_cn:gated")})
     kernels = []
@@ -1150,7 +1421,8 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"vtaco_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": r["err"],
+            "launches": launches[kname] + cli_launches[kname],
+            "launches_by_path": by_path[kname], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "bound_f32_ms": r["bound_f32_ms"],
             "lattice_ms": r.get("lattice_ms"),

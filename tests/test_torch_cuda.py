@@ -1,9 +1,11 @@
 """The CUDA trunk kernels (K1, K2 in csrc/trunk.cu; K3, K4 in
 csrc/window.cu; all on the tile chain of csrc/tile_chain.cuh) against
 their plain PyTorch versions on the card, and the training path on the
-card: one VTacO_YCB train step against the same step on the CPU, and a
-mesh reconstructed through K1 from the checkpoint that train.loop.train
-writes (both at small widths on the port's synthetic set).
+card: one VTacO_YCB train step and one tactile depth-stack step against
+the same steps on the CPU, a mesh reconstructed through K1 from the
+checkpoint that train.loop.train writes, and the generation CLI on the
+card reconstructing a split through K1 (all at small widths on the port's
+synthetic set).
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -19,6 +21,7 @@ for some valid contact may round to the other side and are left out.
 """
 
 import copy
+import json
 import os
 
 import numpy as np
@@ -339,6 +342,78 @@ def train_cfg(tmp_path_factory):
                            backup_every=-1, matmul_precision="highest")
     cfg["generation"].update(resolution_0=16, mc_level="mean")
     return cfg
+
+
+@pytest.mark.cuda
+def _step_card_vs_cpu(cuda, cfg, batch_size):
+    """One train step from the same weights and batch on the CPU and on the
+    card: (scalars on the CPU, on the card, {module: (gradient cosine, norm
+    ratio)})."""
+    torch.manual_seed(0)
+    cpu_model = get_model(cfg, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    cpu = Trainer.from_config(cpu_model, cfg)
+    card = Trainer.from_config(card_model, cfg)
+    batch = next(iter(BatchLoader(get_dataset("train", cfg), batch_size, num_workers=1,
+                                  seed=0)))
+    want, got = cpu.train_step(batch), card.train_step(batch)
+    card_params = dict(card_model.named_parameters())
+    grads = {}
+    for mod in dict(cpu_model.named_children()):
+        named = [(n, p) for n, p in cpu_model.named_parameters()
+                 if n.split(".")[0] == mod and p.grad is not None]
+        if named:
+            g = torch.cat([card_params[n].grad.flatten().double().cpu() for n, _ in named])
+            w = torch.cat([p.grad.flatten().double() for _, p in named])
+            grads[mod] = (float(g @ w / (g.norm() * w.norm())), float(g.norm() / w.norm()))
+    return want, got, grads
+
+
+@pytest.mark.cuda
+def test_tactile_step_card_matches_cpu(cuda, train_cfg):
+    """One step of the tactile depth stack (configs/tactile/tactile_test.yaml
+    at small widths, full float32) from the same weights and batch: loss
+    scalars within 1e-4 relative, each module's gradient cosine >= 0.999
+    with norms within 2 %."""
+    cfg = load_config("configs/tactile/tactile_test.yaml", "configs/default.yaml")
+    cfg["data"].update({k: train_cfg["data"][k] for k in (
+        "path", "points_subsample", "pointcloud_n", "mesh_dir", "depth_origin")})
+    m = cfg["model"]
+    m["encoder_hand_kwargs"].update(hidden_dim=16, plane_resolution=16)
+    m["encoder_hand_kwargs"]["unet_kwargs"].update(depth=2, start_filts=16)
+    m["encoder_img_kwargs"].update(depth=2, start_filts=16)
+    cfg["training"]["matmul_precision"] = "highest"
+    want, got, grads = _step_card_vs_cpu(cuda, cfg, 3)
+    assert set(want) == {"loss", "loss_depth", "loss_digit"}
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    assert set(grads) == {"encoder_hand", "encoder_img"}
+    for mod, (cos, ratio) in grads.items():
+        assert cos >= 0.999 and 0.98 < ratio < 1.02, (mod, cos, ratio)
+
+
+@pytest.mark.cuda
+def test_generate_cli_on_card(cuda, train_cfg, tmp_path, capsys):
+    """cli.generate on the card from a checkpoint of train.loop.train: the
+    JSON line, an object and a hand mesh per sample, and K1's launch
+    counter rising by at least one per object."""
+    from vtaco_tpu_torch.cli.generate import main
+
+    import yaml
+
+    cfg = copy.deepcopy(train_cfg)
+    cfg["training"]["out_dir"] = str(tmp_path / "run")
+    loop.train(cfg, max_iters=1, device="cuda")
+    path = tmp_path / "cfg.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    capsys.readouterr()
+    K.fused_trunk_gated_cn.launches = 0
+    main([str(path), "--split", "val", "--checkpoint", "model.ckpt",
+          "--out-dir", str(tmp_path / "gen")])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["split"] == "val" and line["n"] >= 1 and np.isfinite(line["cd_mean"])
+    assert K.fused_trunk_gated_cn.launches >= line["n"]
+    assert len(os.listdir(tmp_path / "gen")) == 2 * line["n"]
 
 
 @pytest.mark.cuda

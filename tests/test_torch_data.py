@@ -1,7 +1,7 @@
 """The PyTorch port's data, checkpoint and train-loop surface against the
 JAX package: the synthetic generator, mesh IO, Shapes3dDataset items and
-loader order, the checkpoint round trip, the pretrained-t2d graft, the
-``exit_after`` contract and the train CLI on the CPU, then a mesh
+loader order, the checkpoint round trip, the pretrained-t2d graft (alone
+and against the JAX loop's), the ``exit_after`` contract and the train CLI on the CPU, then a mesh
 reconstructed from the checkpoint it wrote.
 
 Tolerances: the synthetic generator's hand vertices 1e-6 (the MANO layers
@@ -191,11 +191,15 @@ def test_checkpoint_round_trip(synth, tmp_path):
 
 
 def test_graft_t2d(synth, tmp_path, capsys):
-    """The pretrained t2d weights and statistics come from a tactile
-    experiment's encoder_hand and encoder_img; a missing file warns, a
-    structure that differs raises."""
+    """The pretrained t2d parameters come from a tactile experiment's
+    encoder_hand and encoder_img; the BatchNorm running statistics and
+    counters stay as built, as the JAX package grafts ``params`` only; a
+    missing file warns, a structure that differs raises."""
     cfg = small_cfg(synth)
     model = get_model(cfg, device="cpu")
+    before = copy.deepcopy(model.encoder_t2d.state_dict())
+    params = {n for n, _ in model.encoder_t2d.named_parameters()}
+    assert len(params) < len(before)          # the U-Net's statistics
     src = {f"{sub}.{k}": (v + 1.0 if v.is_floating_point() else v + 3)
            for sub in ("encoder_hand", "encoder_img")
            for k, v in getattr(model.encoder_t2d, sub).state_dict().items()}
@@ -211,7 +215,7 @@ def test_graft_t2d(synth, tmp_path, capsys):
     CheckpointIO(str(tmp_path), model=Holder(src)).save("t2d.ckpt")
     loop.graft_t2d(model, "t2d.ckpt", str(tmp_path))
     for k, v in model.encoder_t2d.state_dict().items():
-        assert torch.equal(v, src[k]), k
+        assert torch.equal(v, src[k] if k in params else before[k]), k
     assert "loaded pretrained t2d weights" in capsys.readouterr().out
 
     loop.graft_t2d(model, "absent.ckpt", str(tmp_path))
@@ -225,6 +229,73 @@ def test_graft_t2d(synth, tmp_path, capsys):
         CheckpointIO(str(tmp_path), model=Holder(bad)).save("t2d.ckpt")
         with pytest.raises(ValueError, match="conv_final.bias"):
             loop.graft_t2d(model, "t2d.ckpt", str(tmp_path))
+
+
+def test_graft_t2d_matches_jax(synth, tmp_path, monkeypatch, capsys):
+    """The JAX loop and the port's graft the same tactile run (random
+    weights, saved in each package's checkpoint format) into the same
+    VTacO weights: every encoder_t2d entry is equal afterwards, the
+    tactile parameters and VTacO's own running statistics. The JAX loop
+    is stopped at its first train step, where its state is taken."""
+    from vtaco_tpu.core import torch_import as TI
+    from vtaco_tpu.core.checkpoint import CheckpointIO as JaxCheckpointIO
+    from vtaco_tpu.core.config import get_model as jax_get_model
+    from vtaco_tpu.train import loop as jax_loop
+    from vtaco_tpu.train.trainer import Trainer as JaxTrainer
+    from vtaco_tpu_torch.core.weights import load_jax_params
+
+    from test_torch_setup import random_tree
+
+    def weights(cfg, seed):
+        jmodel, _ = jax_get_model(cfg)
+        batch = next(iter(JaxBatchLoader(jax_get_dataset("train", cfg), 2, num_workers=1)))
+        shapes = JaxTrainer.from_config(jmodel, cfg).init_state_abstract(batch)
+        rng = np.random.default_rng(seed)
+        return random_tree(shapes.params, rng), random_tree(shapes.batch_stats, rng)
+
+    tac_cfg = _small_cfg("configs/tactile/tactile_test.yaml", *synth)
+    tp, ts = weights(tac_cfg, 31)
+    JaxCheckpointIO(str(tmp_path / "jax"), state={"params": tp, "batch_stats": ts}).save(
+        "tac.ckpt")
+    tac_model = get_model(tac_cfg, device="cpu")
+    load_jax_params(tac_model, tp, ts)
+    CheckpointIO(str(tmp_path / "port"), model=tac_model).save("tac.ckpt")
+
+    cfg = small_cfg(synth, tmp_path / "jax")
+    cfg["model"]["encoder_t2d_kwargs"]["model_file"] = "tac.ckpt"
+    vp, vs = weights(cfg, 32)
+
+    class Stop(Exception):
+        pass
+
+    def first_step(self, state, batch):
+        raise Stop(state)
+
+    monkeypatch.setattr(JaxTrainer, "init_state", lambda self, batch, rng=None:
+                        self._state_from_variables({"params": vp, "batch_stats": vs}))
+    monkeypatch.setattr(JaxTrainer, "train_step", first_step)
+    with pytest.raises(Stop) as stop:
+        jax_loop.train(cfg, max_iters=1)
+    state = stop.value.args[0]
+    want = {k: v for k, v in TI.export_state_dict(state.params, state.batch_stats).items()
+            if k.startswith("encoder_t2d.")}
+
+    model = get_model(cfg, device="cpu")
+    load_jax_params(model, vp, vs)
+    loop.graft_t2d(model, "tac.ckpt", str(tmp_path / "port"))
+    out = capsys.readouterr().out
+    assert out.count("loaded pretrained t2d weights") == 2
+    got = {f"encoder_t2d.{k}": v for k, v in model.encoder_t2d.state_dict().items()}
+    assert set(got) == set(want) | {k for k in got if k.endswith("num_batches_tracked")}
+    tactile = TI.export_state_dict(tp, ts)
+    own = TI.export_state_dict(vp, vs)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+        # parameters from the tactile run, statistics VTacO's own
+        src = own[k] if "running" in k else tactile[k[len("encoder_t2d."):]]
+        np.testing.assert_array_equal(v, src, err_msg=k)
+    assert any("running" in k for k in want)
+    assert all(int(v) == 0 for k, v in got.items() if k.endswith("num_batches_tracked"))
 
 
 def test_exit_after_preemption(synth, tmp_path):

@@ -119,8 +119,9 @@ def make_batch(rng, n_touch=CONTACTS_PER_FINGER):
 
 
 def test_import_guard():
-    """Every module of the port, and chip_smoke.py, import without jax and
-    without vtaco_tpu."""
+    """Every module of the port (the generation CLI and the Inferencer
+    among them), and chip_smoke.py, import without jax and without
+    vtaco_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vtaco_tpu_torch\n"
@@ -129,6 +130,7 @@ def test_import_guard():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vtaco_tpu')]\n"
         "assert not bad, bad\n"
+        "assert {'vtaco_tpu_torch.cli.generate', 'vtaco_tpu_torch.generate.inferencer'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('vtaco_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -3,7 +3,9 @@ package on the same weights, batches and random draws: the MANO layer,
 the plane encoder with its MANO head, UNet2D, TactileUNet (forward and
 train-mode BatchNorm statistics), winding numbers, the t2d contact
 sample, IoU, one full VTacO_YCB train step (loss scalars, gradients,
-BatchNorm statistics), the optimizers' updates and one eval step.
+BatchNorm statistics), the optimizers' updates and one eval step; and the
+tactile depth-stack pretraining of configs/tactile/tactile_test.yaml (the
+tree that loads strictly, one train step and one eval step).
 
 torch cannot replay jax.random, so the contact sample's draws are computed
 here with jax.random from the keys the JAX trainer uses and handed to the
@@ -16,7 +18,10 @@ t2d depth map in train mode 2e-5); winding numbers 1e-5 away from the
 surfaces; contact points
 1e-6; the train step's loss scalars 5e-4 relative and per-module gradient
 cosine >= 0.999 with norms within 2 % (the bars of
-tests/test_grad_parity.py); updates 1e-7; IoU 1e-6.
+tests/test_grad_parity.py); updates 1e-7; IoU 1e-6; the tactile step's
+loss scalars 1e-5 relative (in train mode by assert_batch_stat's rule:
+its loss_depth normalizes with the U-Net's batch statistics), its
+gradients and statistics as the VTacO step's.
 """
 
 import copy
@@ -563,3 +568,97 @@ def test_eval_step_matches_jax(setup):
         assert abs(got[k] - want[k]) <= 1e-6, (k, got[k], want[k])
     for k in ("loss", "loss_l1", "loss_mano", "loss_pc"):
         assert got[k] == pytest.approx(want[k], rel=5e-4, abs=5e-5), k
+
+
+# ---------------------------------------------------------------------------
+# the tactile depth stack (configs/tactile/tactile_test.yaml)
+
+@pytest.fixture(scope="module")
+def tactile_setup(synth):
+    """The tactile config at small widths, the JAX trainer and random
+    weights for it (every leaf nonzero), and one train batch of two."""
+    root, mesh_root = synth
+    cfg = _small_cfg("configs/tactile/tactile_test.yaml", root, mesh_root)
+    cfg["training"]["matmul_precision"] = "highest"
+    jmodel, _ = jax_get_model(cfg)
+    jtr = JaxTrainer.from_config(jmodel, cfg)
+    np.random.seed(0)   # the items' subsampling and noise draw from it
+    batch = next(iter(JaxBatchLoader(jax_get_dataset("train", cfg), batch_size=2,
+                                     num_workers=1, seed=0)))
+    shapes = jtr.init_state_abstract(batch)
+    rng = np.random.default_rng(13)
+    return cfg, jtr, batch, random_tree(shapes.params, rng), random_tree(
+        shapes.batch_stats, rng)
+
+
+def test_tactile_tree_loads_strict(tactile_setup):
+    """No object encoder and no decoder (``encoder: false``, ``decoder:
+    false``); the plane hand encoder (c_dim 512 from the defaults, shrunk
+    here) and the depth U-Net take the whole JAX tree with strict=True and
+    nothing skipped."""
+    from vtaco_tpu_torch.models.layers import TactileUNet
+
+    cfg, _, _, params, stats = tactile_setup
+    model = get_model(cfg, device="cpu")
+    assert model.encoder is None and model.decoder is None and model.encoder_t2d is None
+    assert isinstance(model.encoder_img, TactileUNet) and model.hand_out_dim == 30
+    load_jax_params(model, params, stats)
+    assert set(params) == {"encoder_hand", "encoder_img"}
+    n_jax = sum(int(np.prod(v.shape)) for v in jax.tree_util.tree_leaves(params))
+    assert n_jax == sum(p.numel() for p in model.parameters())
+    for k, v in TI.export_state_dict(params, stats).items():
+        np.testing.assert_array_equal(model.state_dict()[k].numpy(), v, err_msg=k)
+
+
+@pytest.mark.parametrize("step", ["train", "eval"])
+def test_tactile_step_matches_jax(tactile_setup, step):
+    """The tactile loss: L1 of the predicted depth maps to the min-max
+    normalized depths plus the sensor-pose MSE. Eval (running
+    statistics): the loss scalars only, as the JAX eval step reports them,
+    within 1e-5 relative. Train: the loss scalars, each module's gradient
+    and the BatchNorm statistics after the step. In train mode the depth
+    U-Net normalizes the loader's images (in [0, 1/255]) with their batch
+    statistics, whose one-pass variance cancels, so the loss scalars and
+    the statistics are held to the JAX values, or, where those are farther
+    than 1e-5 from the same step evaluated by the port in float64, four
+    times closer to the float64 values (assert_batch_stat; measured on a
+    batch of this set: JAX's loss_depth 7.2e-6 from float64, the port's
+    6.2e-7)."""
+    cfg, jtr, batch, params, stats = tactile_setup
+    state = jtr._state_from_variables({"params": params, "batch_stats": stats})
+    tr = port_trainer(cfg, params, stats)
+    if step == "eval":
+        want, got = jtr.eval_step(state, batch), tr.eval_step(batch)
+        assert set(got) == set(want) == {"loss", "loss_depth", "loss_digit"}
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-5), (k, got[k], want[k])
+        return
+    want, jgrads, new_state, _, _ = jax_step(jtr, state, batch)
+    got = tr.train_step(batch)
+    # the same train-mode forward in float64
+    model = get_model(cfg, device="cpu")
+    load_jax_params(model, params, stats)
+    tr64 = Trainer(model.double().train(), train_tactile=True)
+    a = {k: v.double() if v.is_floating_point() else v
+         for k, v in tr64.prepare_batch(batch).items()}
+    with torch.no_grad():
+        exact = {k: float(v) for k, v in tr64._compute_loss_tactile(a)[1].items()}
+    f64 = {k: v.numpy() for k, v in model.state_dict().items()}
+    assert set(got) == set(want) == {"loss", "loss_depth", "loss_digit"}
+    for k in want:
+        assert_batch_stat(k, got[k], want[k], exact[k])
+
+    jg = TI.export_state_dict(jgrads, {})
+    for mod, grads in module_grads(tr.model).items():
+        ours = np.concatenate([g.numpy().ravel() for g in grads.values()]).astype(np.float64)
+        ref = np.concatenate([jg[k].ravel() for k in grads]).astype(np.float64)
+        no, nr = np.linalg.norm(ours), np.linalg.norm(ref)
+        cos = float(ours @ ref / (no * nr))
+        assert cos >= 0.999 and 0.98 < no / nr < 1.02, (mod, cos, no, nr)
+    assert set(module_grads(tr.model)) == {"encoder_hand", "encoder_img"}
+
+    sd_want = TI.export_state_dict({}, new_state.batch_stats)
+    own = tr.model.state_dict()
+    assert len(sd_want) == 6   # three U-Net blocks at depth 2: mean and variance
+    for k, v in sd_want.items():
+        assert_batch_stat(k, own[k].numpy(), v, f64[k])

@@ -15,10 +15,13 @@ layout so each module's counterpart is easy to find:
              composite with its hand encoder and nested t2d model
   data/      npz fields, transforms, Shapes3dDataset, the batch loader and
              the synthetic dataset generator
-  train/     contact sampling, the Trainer (t2d_img loss path) and the
-             training loop
-  generate/  Generator3D (dense decode + marching cubes + metrics)
-  cli/       the train entry point (python -m vtaco_tpu_torch.cli.train)
+  train/     contact sampling, the Trainer (the t2d_img and tactile loss
+             paths) and the training loop
+  generate/  Generator3D (dense decode + marching cubes + metrics, hand
+             meshes, predicted tactile clouds), the loop's visualization
+             (LoopGenerator) and the Inferencer, which reconstructs a split
+  cli/       the entry points: python -m vtaco_tpu_torch.cli.train and
+             python -m vtaco_tpu_torch.cli.generate
   utils/     mesh IO
 
 It imports torch, numpy and scipy, never jax and nothing of vtaco_tpu.

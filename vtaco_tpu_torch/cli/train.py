@@ -5,8 +5,12 @@
 
 Trains on the first CUDA device unless ``--cpu`` is given. ``--exit-after
 S`` saves a checkpoint and exits with code 3 after S seconds (the
-reference's preemption contract). The JAX package's ``--on-device`` and
-``--steps-per-dispatch`` (> 1) are not ported yet and raise.
+reference's preemption contract). Every ``training.visualize_every``
+iterations the loop writes the validation split's meshes (or, for a
+tactile depth stack, its predicted sensor clouds) under
+``<out_dir>/vis`` (generate.generator.LoopGenerator). The JAX package's
+``--on-device`` and ``--steps-per-dispatch`` (> 1) are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import os
 import shutil
 
 from vtaco_tpu_torch.core.config import load_config
+from vtaco_tpu_torch.generate.generator import make_loop_generator
 from vtaco_tpu_torch.train.loop import train
 
 DEFAULT_CFG = os.path.join(
@@ -63,7 +68,7 @@ def main(argv=None):
     os.makedirs(out_dir, exist_ok=True)
     shutil.copyfile(args.config, os.path.join(out_dir, "config.yaml"))
     train(cfg, exit_after=args.exit_after, max_iters=args.max_iters,
-          device="cpu" if args.cpu else "cuda")
+          device="cpu" if args.cpu else "cuda", generator_factory=make_loop_generator)
 
 
 if __name__ == "__main__":

@@ -3,9 +3,11 @@
 Builds every submodule of the VTacO configs: the object ``encoder``
 (pointnet_local_pool, grid field), the hand ``encoder_hand``
 (pointnet_local_pool on planes, with its MANO head) and ``mano_layer``,
-the tactile ``encoder_img`` (Resnet18), the nested tactile-to-depth model
-``encoder_t2d`` (a hand encoder and the depth U-Net) and the ``decoder``
-(simple_local).
+the tactile ``encoder_img`` (Resnet18, or the depth U-Net of the tactile
+configs), the nested tactile-to-depth model ``encoder_t2d`` (a hand
+encoder and the depth U-Net) and the ``decoder`` (simple_local). An
+``encoder`` or ``decoder`` set to false (or null) is not built, as in the
+tactile depth-stack configs.
 """
 
 from __future__ import annotations
@@ -63,13 +65,16 @@ def get_model(cfg, device="cuda", return_aux=False):
     dim, c_dim = cfg["data"]["dim"], mcfg["c_dim"]
     padding = cfg["data"]["padding"]
 
-    kw = dict(mcfg.get("decoder_kwargs") or {})
-    kw.update(dim=dim, c_dim=c_dim, padding=padding)
-    decoder = _lookup(decoder_dict, mcfg["decoder"], "decoder")(**kw)
+    decoder = encoder = None
+    if mcfg.get("decoder") not in (False, None):
+        kw = dict(mcfg.get("decoder_kwargs") or {})
+        kw.update(dim=dim, c_dim=c_dim, padding=padding)
+        decoder = _lookup(decoder_dict, mcfg["decoder"], "decoder")(**kw)
 
-    kw = dict(mcfg.get("encoder_kwargs") or {})
-    kw.update(dim=dim, c_dim=c_dim, padding=padding)
-    encoder = _build_encoder(mcfg["encoder"], kw, "encoder")
+    if mcfg.get("encoder") not in (False, None):
+        kw = dict(mcfg.get("encoder_kwargs") or {})
+        kw.update(dim=dim, c_dim=c_dim, padding=padding)
+        encoder = _build_encoder(mcfg["encoder"], kw, "encoder")
 
     encoder_hand, mano_layer, hand_out_dim = None, None, 0
     if mcfg.get("encoder_hand") not in (False, None):

@@ -5,8 +5,10 @@ vtaco_tpu/generate/generator.py: ``from_config`` :249-314,
 :637-699, ``_trunk_fast`` :701-749, ``eval_points_dense`` :751, query-set
 detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
 :1288-1478, ``eval_points`` :1480-1533, ``_prep_contact_gates``
-:1597-1629, ``_build_gates`` :2175-2210 and ``generate_obj_mesh_wnf``
-:2212-2293 through its full-volume branch).
+:1597-1629, ``_build_gates`` :2175-2210, ``generate_obj_mesh_wnf``
+:2212-2293 through its full-volume branch, ``generate_hand_mesh``
+:2374-2405, ``generate_tactile_pc`` :2408-2450, ``LoopGenerator`` and
+``make_loop_generator`` :2453-2512).
 
 The dense decode runs the decoder trunk as one CUDA kernel over all nx³
 query points: K1 (``fused_trunk_gated_cn``) with contact gating, K2
@@ -16,6 +18,11 @@ to the dense decode, a lattice to the corner gather + K1/K2, any other
 set to the sorted window route, whose kernel (``fused_trunk_window_cn``:
 K3, or K4 with contact gating) interpolates and decodes in one pass. On
 CPU tensors the same wrappers run their plain PyTorch versions.
+
+The hand mesh is the MANO prediction moved from the canonical wrist frame
+into the object's normalized frame; the tactile clouds back-project the
+depth U-Net's predicted maps through each sensor's camera. LoopGenerator
+is the training loop's periodic visualization.
 """
 
 from __future__ import annotations
@@ -43,17 +50,27 @@ from vtaco_tpu_torch.ops.dense_decode import (
     window_blocks,
     window_overflow,
 )
-from vtaco_tpu_torch.ops.geometry import norm_pc_1, pc_cam_to_world
+from vtaco_tpu_torch.ops.geometry import (
+    R_from_PYR,
+    axisang_to_euler_xyz,
+    norm_pc_1,
+    pc_cam_to_world,
+)
 from vtaco_tpu_torch.train.contact import (
     CAM_FOV,
     DEPTH_REST,
     backproject_depth,
     random_topk_select,
 )
+from vtaco_tpu_torch.utils import meshio
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
 _FIELDS = ("grid", "xz", "xy", "yz")
+_NO_TIPS = ("fingertip gating (with_img without encoder_t2d, VTacOH) is not "
+            "ported yet (ROADMAP.md, item 3)")
+_NO_PLANES = ("plane feature fields in the decode are not ported yet "
+              "(ROADMAP.md, item 8)")
 
 
 def _transfer(td):
@@ -100,13 +117,15 @@ class Generator3D:
         if band_transfer is True:
             raise NotImplementedError("band_transfer (generate/band.py) is not "
                                       "ported yet (ROADMAP.md)")
-        if with_img and not encode_t2d:
-            raise NotImplementedError("fingertip gating needs the hand encoder, "
-                                      "which is not ported yet (ROADMAP.md)")
-        if with_img and not legacy_gt_depth:
-            raise NotImplementedError("legacy_gt_depth: false needs the "
-                                      "tactile-to-depth model, which is not "
-                                      "ported yet (ROADMAP.md)")
+        # a model without a decoder (the tactile depth stack) decodes no
+        # occupancy, so it gates nothing
+        decodes = getattr(model, "decoder", None) is not None
+        if decodes and with_img and not encode_t2d:
+            raise NotImplementedError(_NO_TIPS)
+        if decodes and with_img and not legacy_gt_depth:
+            raise NotImplementedError("predicted-depth gates (legacy_gt_depth: "
+                                      "false) are not ported yet (ROADMAP.md, "
+                                      "item 3)")
         self.model = model
         self.resolution0 = resolution0
         self.padding = padding
@@ -167,8 +186,7 @@ class Generator3D:
         gating, K2 without; the plain trunk only for leaky decoders (the
         kernels hardcode ReLU), as the JAX package routes them."""
         if gating == "tips":
-            raise NotImplementedError("fingertip gating needs the hand encoder, "
-                                      "which is not ported yet (ROADMAP.md)")
+            raise NotImplementedError(_NO_TIPS)
         store = dtype if dtype != torch.float32 else None
         if not leaky:
             if gating == "contact":
@@ -323,8 +341,7 @@ class Generator3D:
         """The gather route: corner-gather features at the (3, N) world
         coords, then the trunk of the dense path (K1/K2)."""
         if set(c) & set(_FIELDS) != {"grid"}:
-            raise NotImplementedError(
-                "plane feature fields are not ported yet (ROADMAP.md)")
+            raise NotImplementedError(_NO_PLANES)
         g = c["grid"]
         g = g[0] if g.ndim == 5 else g
         feats = scattered_grid_features_cn(g, p_cn, self.padding, dtype)
@@ -607,3 +624,121 @@ class Generator3D:
             torch.as_tensor(vert_sample[None], device=dev))[0])
         emd = metrics.earth_mover_distance(points_obj[0], vert_sample)
         return (verts, faces), emd, cd
+
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def generate_hand_mesh(self, model, data):
+        """The hand encoder's MANO prediction for a B=1 batch as a mesh in
+        the object's normalized frame: the canonical-frame vertices less
+        the (0.11, 0.005, 0) offset, un-rotated by the canonical and then
+        the predicted wrist rotation (its axis-angle as XYZ Euler angles
+        through R_from_PYR), moved by the predicted wrist position, then
+        normalized by the object scan (norm_pc_1). Returns host (verts
+        (778, 3) float32, faces (1538, 3))."""
+        dev = next(model.parameters()).device
+        inputs = torch.as_tensor(np.asarray(data["inputs"]), dtype=torch.float32,
+                                 device=dev)
+        c_hand = model.encode_hand_inputs(inputs)
+        mano_param = c_hand["mano_param"][0].float().cpu()
+        verts = c_hand["mano_verts"][0].float().cpu()
+        faces = c_hand["mano_faces"].cpu().numpy()
+        pc_ply = torch.as_tensor(np.asarray(data["inputs.pc_ply"])[0],
+                                 dtype=torch.float32)
+        wrist_pos, wrist_rotvec = mano_param[:3], mano_param[3:6]
+        offset = torch.tensor([0.11, 0.005, 0.0])
+        R_canon_inv = torch.linalg.inv(R_from_PYR(torch.tensor(
+            [-math.pi / 2, math.pi / 2, 0.0])))
+        R_wrist_inv = torch.linalg.inv(R_from_PYR(axisang_to_euler_xyz(wrist_rotvec)))
+        x = R_wrist_inv @ (R_canon_inv @ (verts - offset).T)
+        return norm_pc_1(x.T + wrist_pos, pc_ply).numpy(), faces
+
+    @torch.inference_mode()
+    def generate_tactile_pc(self, model, data):
+        """The depth U-Net's predicted maps (denormalized: × 0.005 + 0.019)
+        back-projected through each sensor's camera into the world, then
+        normalized by the object scan. Returns host (B, 5, H*W, 3)
+        float32. Raises ValueError when ``encoder_img`` emits features,
+        not depth maps."""
+        dev = next(model.parameters()).device
+
+        def get(key):
+            return torch.as_tensor(np.asarray(data[key]), dtype=torch.float32,
+                                   device=dev)
+
+        imgs, pc_ply = get("inputs.img"), get("inputs.pc_ply")
+        cam_pos = np.asarray(data["points.cam_pos"], np.float32)
+        cam_rot = np.asarray(data["points.cam_rot"], np.float32)
+        B, F5, H, W, _ = imgs.shape
+        pred_depth = model.encode_img_inputs(imgs)                # (B, 5, H*W)
+        if pred_depth.shape[-1] != H * W:
+            raise ValueError(
+                "generate_tactile_pc needs a depth-map image encoder (the "
+                "tactile U-Net); this model's encoder_img emits "
+                f"{pred_depth.shape[-1]}-d features, not {H}x{W} depth maps")
+        f = H / (2 * math.tan(math.radians(CAM_FOV / 2)))
+        rot_off = np.array([-np.pi / 2, 0, np.pi / 2])
+        out = torch.empty((B, F5, H * W, 3), device=dev)
+        for b in range(B):
+            for t in range(F5):
+                depth = pred_depth[b, t].float().reshape(H, W) * 0.005 + 0.019
+                cloud = backproject_depth(depth, f, W, H)
+                rot = torch.as_tensor((cam_rot[b, t] + rot_off).astype(np.float32),
+                                      device=dev)
+                world = pc_cam_to_world(cloud, rot, torch.as_tensor(cam_pos[b, t],
+                                                                    device=dev))
+                out[b, t] = norm_pc_1(world, pc_ply[b])
+        return out.cpu().numpy()
+
+
+class LoopGenerator:
+    """The training loop's periodic visualization: for the validation
+    split, every sample with ``vis_all`` (VTacO's setting), else every
+    ``vis_split``-th, writes ``<out_dir>/vis/{it}_{name}_obj.off`` and
+    ``_hand.off`` and prints the mean EMD and chamfer, or, for a tactile
+    depth stack, ``{it}_{name}_tactile.ply``. The model runs in eval mode
+    and gets its own mode back."""
+
+    def __init__(self, generator, train_tactile=False, vis_all=True, vis_split=1):
+        self.generator = generator
+        self.train_tactile = train_tactile
+        self.vis_all = vis_all
+        self.vis_split = max(1, int(vis_split))
+
+    def visualize(self, model, val_loader, out_dir, it):
+        vis_dir = os.path.join(out_dir, "vis")
+        os.makedirs(vis_dir, exist_ok=True)
+        emd_total, cd_total = [], []
+        was_training = model.training
+        model.eval()
+        try:
+            for i, batch in enumerate(val_loader):
+                if not self.vis_all and i % self.vis_split != 0:
+                    continue
+                name = batch["points.name"][0]
+                if self.train_tactile:
+                    pcs = self.generator.generate_tactile_pc(model, batch)
+                    meshio.write_ply(os.path.join(vis_dir, f"{it}_{name}_tactile.ply"),
+                                     pcs[0].reshape(-1, 3))
+                    continue
+                hand_verts, hand_faces = self.generator.generate_hand_mesh(model, batch)
+                (verts, faces), emd, cd = self.generator.generate_obj_mesh_wnf(model, batch)
+                emd_total.append(emd)
+                cd_total.append(cd)
+                meshio.write_off(os.path.join(vis_dir, f"{it}_{name}_hand.off"),
+                                 hand_verts, hand_faces)
+                meshio.write_off(os.path.join(vis_dir, f"{it}_{name}_obj.off"),
+                                 verts, faces)
+        finally:
+            model.train(was_training)
+        if emd_total:
+            print("Metrics EMD: {}".format(np.mean(emd_total)))
+            print("Metrics CD: {}".format(np.mean(cd_total)))
+
+
+def make_loop_generator(model, cfg, bank=None):
+    """The training loop's visualization hook for cfg (``bank``, the
+    loop's MeshBank, is not used)."""
+    g = cfg.get("generation", {})
+    return LoopGenerator(Generator3D.from_config(model, cfg),
+                         train_tactile=cfg["model"]["train_tactile"],
+                         vis_all=g.get("vis_all", True), vis_split=g.get("vis_split", 1))

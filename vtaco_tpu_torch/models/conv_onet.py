@@ -6,9 +6,10 @@ Submodules keep the reference's names: the object ``encoder``, the hand
 encoder ``encoder_hand`` (with the parameter-free ``mano_layer``), the
 tactile ``encoder_img``, the nested tactile-to-depth model
 ``encoder_t2d`` (itself a ConvOccupancyNetwork with a hand encoder and a
-depth U-Net) and the ``decoder``. Images enter in the JAX package's
-(B, F, H, W, C) layout. Train and eval behaviour follow the module's
-train()/eval() mode.
+depth U-Net) and the ``decoder``; any of them may be None (the tactile
+depth stack has no object encoder and no decoder). Images enter in the
+JAX package's (B, F, H, W, C) layout. Train and eval behaviour follow the
+module's train()/eval() mode.
 """
 
 from __future__ import annotations

@@ -50,8 +50,8 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
     extra = set(c_planes) - {"grid"}
     if extra:
         raise NotImplementedError(
-            f"plane feature fields {sorted(extra)} are not ported yet "
-            "(the hand-encoder slice; see ROADMAP.md)")
+            f"plane feature fields {sorted(extra)} in the decode are not "
+            "ported yet (ROADMAP.md, item 8)")
     g = c_planes["grid"]
     if g.ndim == 5:
         g = g[0]

@@ -119,3 +119,15 @@ def batch_rodrigues(axisang):
     axis = axisang / angle
     half = angle * 0.5
     return quat2mat(torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1))
+
+
+def axisang_to_euler_xyz(rotvec):
+    """Axis-angle (3,) → intrinsic XYZ Euler angles (a, b, c) with
+    R = Rx(a) @ Ry(b) @ Rz(c): scipy's ``from_rotvec(v).as_euler('XYZ')``
+    away from gimbal lock, through batch_rodrigues as the JAX function
+    computes it."""
+    R = batch_rodrigues(rotvec.reshape(1, 3))[0]
+    b = torch.arcsin(torch.clamp(R[0, 2], -1.0, 1.0))
+    a = torch.atan2(-R[1, 2], R[2, 2])
+    c = torch.atan2(-R[0, 1], R[0, 0])
+    return torch.stack([a, b, c])

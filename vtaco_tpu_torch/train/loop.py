@@ -2,12 +2,16 @@
 vtaco_tpu/train/loop.py:33-416, the host-loader path).
 
 An endless epoch loop with modulo-iteration triggers for print, validate,
-checkpoint and backup; model_best selection by the configured metric;
-and the ``exit_after`` preemption contract (save model.ckpt, exit with
-code 3). Metrics stream to stdout and to ``<out_dir>/logs/metrics.jsonl``.
-The pretrained tactile-to-depth weights are grafted from
-``encoder_t2d_kwargs.model_file`` before a resume, so a resumed
-checkpoint's own encoder_t2d wins.
+checkpoint, backup and visualize (through the ``generator_factory``'s
+hook, generate.generator.make_loop_generator in the CLI; a failed
+visualization is printed and training goes on); model_best selection by
+the configured metric; and the ``exit_after`` preemption contract (save
+model.ckpt, exit with code 3). Metrics stream to stdout and to
+``<out_dir>/logs/metrics.jsonl``. The pretrained tactile-to-depth
+parameters are grafted from ``encoder_t2d_kwargs.model_file`` before a
+resume, so a resumed checkpoint's own encoder_t2d wins. TensorBoard
+events, ``profile_dir`` traces and ``debug_nans`` are not ported and
+raise.
 """
 
 from __future__ import annotations
@@ -59,9 +63,11 @@ def build_mesh_bank(cfg, device="cuda") -> Optional[MeshBank]:
 
 
 def graft_t2d(model, t2d_file, checkpoint_dir):
-    """Load encoder_t2d.{encoder_hand, encoder_img} from the encoder_hand
-    and encoder_img of a checkpoint's model (a tactile experiment's), the
-    file resolved against ``checkpoint_dir``. A missing file warns; a
+    """Copy the parameters of encoder_t2d.{encoder_hand, encoder_img} from
+    the encoder_hand and encoder_img of a checkpoint's model (a tactile
+    experiment's), the file resolved against ``checkpoint_dir``. Parameters
+    only, as the JAX package grafts its ``params``: the BatchNorm running
+    statistics and counters stay as built. A missing file warns; a
     structure that differs raises ValueError."""
     try:
         payload, _ = CheckpointIO(checkpoint_dir).load_raw(t2d_file)
@@ -75,24 +81,35 @@ def graft_t2d(model, t2d_file, checkpoint_dir):
         if not src:
             continue
         dst = getattr(model.encoder_t2d, sub)
-        want = {k: tuple(v.shape) for k, v in dst.state_dict().items()}
+        params = dict(dst.named_parameters())
+        buffers = set(dict(dst.named_buffers()))
+        src = {k: v for k, v in src.items() if k not in buffers}
+        want = {k: tuple(v.shape) for k, v in params.items()}
         got = {k: tuple(v.shape) for k, v in src.items()}
         if want != got:
             bad = [k for k in want.keys() | got.keys() if want.get(k) != got.get(k)][:4]
             raise ValueError(f"t2d checkpoint {sub} does not match the model's "
                              f"encoder_t2d.{sub} (config mismatch?): first differing "
                              f"entries {bad}")
-        dst.load_state_dict(src)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(src[k])
         grafted.append(sub)
     print(f"=> loaded pretrained t2d weights from {t2d_file} ({', '.join(grafted)})")
 
 
 def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
-          device="cuda", seed=0):
-    """Run training per cfg on ``device``. Returns (trainer, it) on a normal
-    stop; raises SystemExit(3) after saving once ``exit_after`` seconds
-    have passed."""
+          device="cuda", seed=0, generator_factory=None):
+    """Run training per cfg on ``device``. ``generator_factory(model, cfg,
+    mesh_bank)`` makes the hook whose ``visualize(model, val_loader,
+    out_dir, it)`` runs every ``training.visualize_every`` iterations.
+    Returns (trainer, it) on a normal stop; raises SystemExit(3) after
+    saving once ``exit_after`` seconds have passed."""
     tcfg = cfg["training"]
+    for key in ("tensorboard", "profile_dir", "debug_nans"):
+        if tcfg.get(key):
+            raise NotImplementedError(f"training.{key} is not ported yet "
+                                      "(ROADMAP.md, item 13)")
     if cfg["data"].get("on_device"):
         raise NotImplementedError("data.on_device (the device-resident dataset) "
                                   "is not ported yet (ROADMAP.md)")
@@ -102,6 +119,7 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     out_dir = tcfg["out_dir"]
     batch_size = tcfg["batch_size"]
     print_every, validate_every = tcfg["print_every"], tcfg["validate_every"]
+    visualize_every = tcfg["visualize_every"]
     checkpoint_every, backup_every = tcfg["checkpoint_every"], tcfg["backup_every"]
     metric = tcfg["model_selection_metric"]
     sign = {"maximize": 1, "minimize": -1}.get(tcfg["model_selection_mode"])
@@ -127,8 +145,8 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
 
     torch.manual_seed(seed)
     model, aux = get_model(cfg, device=device, return_aux=True)
-    trainer = Trainer.from_config(model, cfg, mesh_bank=build_mesh_bank(cfg, device),
-                                  seed=seed)
+    bank = build_mesh_bank(cfg, device)
+    trainer = Trainer.from_config(model, cfg, mesh_bank=bank, seed=seed)
     if aux["t2d_pretrained_file"]:
         graft_t2d(model, aux["t2d_pretrained_file"], out_dir)
     ckpt = CheckpointIO(out_dir, model=model, optimizer=trainer.optimizer)
@@ -149,6 +167,7 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     print("Total number of parameters: %d" % sum(p.numel() for p in model.parameters()))
     print("output path: ", out_dir)
     logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"))
+    generator = generator_factory(model, cfg, bank) if generator_factory else None
     t0 = time.time()
     t_last, it_last = t0, it
 
@@ -187,6 +206,12 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                 if backup_every > 0 and it % backup_every == 0:
                     print("Backup checkpoint at iteration: %d" % it)
                     save("model_%d.ckpt" % it)
+                if (generator is not None and visualize_every > 0
+                        and it % visualize_every == 0):
+                    try:
+                        generator.visualize(model, val_loader(), out_dir, it)
+                    except Exception as e:   # visualization must not stop training
+                        print("visualize failed:", e)
                 if exit_after > 0 and (time.time() - t0) >= exit_after:
                     print("Time limit reached. Exiting.")
                     save("model.ckpt")

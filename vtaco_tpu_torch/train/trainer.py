@@ -1,5 +1,14 @@
-"""Trainer: the train and eval steps of the VTacO t2d_img loss path (port
-of vtaco_tpu/train/trainer.py:71-860, ``compute_loss_t2d_img``).
+"""Trainer: the train and eval steps of the VTacO t2d_img loss path and of
+the tactile depth-stack pretraining (port of
+vtaco_tpu/train/trainer.py:71-860, ``compute_loss_t2d_img`` and
+``compute_loss_tactile``).
+
+The tactile path (``model.train_tactile``, configs/tactile/) trains the
+depth U-Net and the sensor-pose head alone: the L1 distance of the
+predicted depth maps to the batch's min-max normalized ground-truth
+depths, plus the MSE of the hand encoder's parameters against the
+concatenated sensor positions and rotations. It needs no ground-truth
+meshes, and its eval step reports the loss scalars only.
 
 One step: the nested tactile-to-depth model runs (with a pretrained t2d
 and ground-truth depths, the defaults, its outputs reach no loss: it runs
@@ -17,7 +26,7 @@ maps its precision names on a GPU: 'default' and 'high' (the config
 default is 'default') allow TF32, 'highest' runs full float32.
 
 The JAX package's other loss paths (plain, contact, img, t2d without
-images, tactile), mixed precision, rematerialization and its
+images), mixed precision, rematerialization and its
 device-resident fused steps are not ported yet (ROADMAP.md).
 """
 
@@ -84,11 +93,9 @@ class Trainer:
         if matmul_precision not in TF32:
             raise ValueError(f"training.matmul_precision {matmul_precision!r} is "
                              f"none of {sorted(TF32)}")
-        if train_tactile:
-            _not_ported("The tactile loss path (model.train_tactile)")
-        if not (encode_t2d and with_img):
-            _not_ported("Only the t2d_img loss path is ported; the plain, "
-                        "contact, img and t2d-without-images paths")
+        if not (train_tactile or (encode_t2d and with_img)):
+            _not_ported("Only the t2d_img and tactile loss paths are ported; "
+                        "the plain, contact, img and t2d-without-images paths")
         if compute_dtype is not None:
             _not_ported("training.compute_dtype")
         if remat:
@@ -102,6 +109,7 @@ class Trainer:
         self.optimizer = optimizer
         self.num_sample = num_sample
         self.threshold = threshold
+        self.train_tactile = train_tactile
         self.pretrained_t2d = pretrained_t2d
         self.mesh_bank = mesh_bank
         self.depth_origin = (None if depth_origin is None
@@ -165,6 +173,8 @@ class Trainer:
         a["touch_success"] = put("inputs.touch_success") > 0.5
         if "points_iou" in batch:
             a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
+        if self.train_tactile:
+            return a
         if self.mesh_bank is None:
             raise ValueError("the t2d loss paths need ground-truth meshes "
                              "(data.mesh_dir, a MeshBank)")
@@ -192,6 +202,27 @@ class Trainer:
             H / (2 * math.tan(math.radians(CAM_FOV / 2))), H, W, self.num_sample,
             self.contact_per_finger, generator, draws)
         return sample, winding_number_batch(a["mesh_verts"], a["mesh_faces"], sample.points)
+
+    def _compute_loss_tactile(self, a):
+        """The tactile depth-stack loss at the model's train/eval mode:
+        (loss, {name: scalar})."""
+        m = self.model
+        self._mark("start")
+        pred_depth = m.encode_img_inputs(a["imgs"])
+        loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"])))
+        loss, scalars = loss_depth, {"loss_depth": loss_depth}
+        self._mark("depth_unet")
+        if m.encoder_hand is not None:
+            B = a["cam_pos"].shape[0]
+            c_hand = m.encode_hand_inputs(a["inputs"])
+            cam_info = torch.cat([a["cam_pos"].reshape(B, -1),
+                                  a["cam_rot"].reshape(B, -1)], 1)
+            loss_digit = torch.mean((c_hand["mano_param"] - cam_info) ** 2)
+            loss = loss + loss_digit
+            scalars["loss_digit"] = loss_digit
+        scalars["loss"] = loss
+        self._mark("pose_head")
+        return loss, scalars
 
     def _compute_loss(self, a, draws=None, generator=None):
         """The t2d_img loss at the model's train/eval mode: (loss,
@@ -249,7 +280,10 @@ class Trainer:
         a = self.prepare_batch(batch)
         self.model.train()
         with matmul_precision(self.matmul_precision):
-            loss, scalars, _ = self._compute_loss(a, draws)
+            if self.train_tactile:
+                loss, scalars = self._compute_loss_tactile(a)
+            else:
+                loss, scalars, _ = self._compute_loss(a, draws)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             self._mark("backward")
@@ -266,9 +300,13 @@ class Trainer:
         with the reference's mean threshold, ``iou_fixed`` at the value
         threshold. The draws come from a generator seeded by the trainer's
         seed and step, so one validation sees the same samples for every
-        batch; ``draws`` and ``iou_draws`` give them explicitly."""
+        batch; ``draws`` and ``iou_draws`` give them explicitly. On the
+        tactile path: the loss scalars only."""
         a = self.prepare_batch(batch)
         self.model.eval()
+        if self.train_tactile:
+            with matmul_precision(self.matmul_precision):
+                return self._host(self._compute_loss_tactile(a)[1])
         gen = torch.Generator(device=self.device).manual_seed(
             12345 + 1_000_003 * self.step + self.seed)
         with matmul_precision(self.matmul_precision):

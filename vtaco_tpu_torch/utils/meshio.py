@@ -1,6 +1,6 @@
 """Triangle mesh IO and procedural meshes (a copy of the JAX-free parts of
-vtaco_tpu/utils/meshio.py: read_off, write_off, read_obj, icosphere, box;
-read_triangle_mesh parses in numpy).
+vtaco_tpu/utils/meshio.py: read_off, write_off, write_ply, read_obj,
+icosphere, box; read_triangle_mesh parses in numpy).
 """
 
 from __future__ import annotations
@@ -43,6 +43,17 @@ def write_off(path, verts, faces):
             f.write("%.6f %.6f %.6f\n" % (v[0], v[1], v[2]))
         for face in faces:
             f.write("3 %d %d %d\n" % (face[0], face[1], face[2]))
+
+
+def write_ply(path, points):
+    """ASCII point-cloud PLY, one ``%.6f %.6f %.6f`` line per point."""
+    points = np.asarray(points).reshape(-1, 3)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\ncomment vertices\n")
+        f.write("element vertex %d\n" % len(points))
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("end_header\n")
+        np.savetxt(f, points, fmt="%.6f")
 
 
 def read_obj(path):
