@@ -51,7 +51,22 @@ ends:
      K2 launch, the window kernels do not). Median of three warm calls per
      set and mode, a stage breakdown of the window route, and the logits
      against the plain route on the same points.
-  7. pipeline: the paper's three stages through the port's entry points,
+  7. vtacoh: VTacOH_YCB (fingertip gating) at full width, random weights
+     from seed 0, the synthetic batch from seed 0 with the ground-truth
+     wrist set so that the fingertips land around the object (aim_hand).
+     The scan is rescaled so that the random hand's tips span 0.6 of the
+     box. (a) generate_obj_mesh_wnf at nx = 128: one cold and three warm meshes
+     (K2 launched on the c_img rows of gate_tips_cn, counters zeroed just
+     before), a breakdown by stage with tips_gates_s (ResNet-18, the hand
+     encoder, the tips in the object frame, gate_tips_cn), K2's logits on
+     those rows against trunk_cn, each point's gate against a float64
+     gate_tips_cn (points within 1e-6 of r² = 0.0025 or of a tie counted and
+     left out), the share gated and the touching fingers, then K2's and
+     gate_tips_cn's time on the lattice. (b) eval_points with the fingertip
+     gates on sets (a) and (d): the window route (K3 on c_img rows only),
+     K3's logits against window_trunk_plain with the same rows, call_s,
+     and K3's time in its c_img mode.
+  8. pipeline: the paper's three stages through the port's entry points,
      at full width on one synthetic set made from seed 0 (PIPELINE_MODELS
      models: 12 in the train split, 2 val, 2 test; 100,000 query points,
      320x240 tactile images), each model initialized from a seed:
@@ -76,16 +91,22 @@ ends:
      torch.profiler, one validation's time and a mesh reconstructed in
      contact mode from the checkpoint, for which K1's launch counter,
      zeroed just before, must rise.
-     (c) generate: python -m vtaco_tpu_torch.cli.generate (its main) on
-     VTacO_YCB's test split from (b)'s checkpoint at nx = 128: the last
-     JSON line (n >= 1, finite means), an object and a hand mesh per
-     object, K1 launched at least once per object (every counter zeroed
-     just before, read just after: these launches join K1's count), and
-     each object's wall time (mesh + hand mesh). (d) the same CLI on the
-     tactile config from (a)'s checkpoint: one cloud of 5 x 320 x 240
-     points per sample. (e) LoopGenerator.visualize called directly on
-     each checkpoint's model: its files must exist.
-Then one JSON line describing the kernels, and last the line
+     (c) vtacoh: VTacOH_YCB at its batch of 6 (no t2d stack, the img loss
+     path with its fingertip sample), the same loop (validation on the
+     IoU of points_iou), step times, peak memory, the profiler's view and
+     the step against the CPU (float32, with the same fingertip draws).
+     (d) generate: python -m vtaco_tpu_torch.cli.generate (its main) on
+     VTacO_YCB's test split from (b)'s checkpoint and on VTacOH_YCB's from
+     (c)'s at nx = 128: the last JSON line (n >= 1, finite means), an
+     object and a hand mesh per object, K1 (VTacO) or K2 on fingertip rows
+     (VTacOH) launched once per object and nothing else (every counter
+     zeroed just before, read just after: these launches join the
+     kernel's count), and each object's wall time (mesh + hand mesh).
+     (e) the same CLI on the tactile config from (a)'s checkpoint: one
+     cloud of 5 x 320 x 240 points per sample. (f) LoopGenerator.visualize
+     called directly on each checkpoint's model: its files must exist.
+Then one JSON line describing the kernels (K2's and K3's launches by
+mode, and their c_img mode's reading), and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no such line. It needs CUDA and the rest of the
 repository; it never falls back to the CPU.
@@ -160,7 +181,8 @@ TRAIN_RTOL, GRAD_COS = 1e-4, 0.999
 # positions per channel (the bias's gradient, exactly zero, among them), so
 # that the CPU's float32 step strays from the exact one by about as much as
 # the bar allows. The run logs that step's cosines to the float64 step too.
-TRAIN_REFERENCE = {"tactile": torch.float64, "train": torch.float32}
+TRAIN_REFERENCE = {"tactile": torch.float64, "train": torch.float32,
+                   "vtacoh": torch.float32}
 # pipeline phase: models of its synthetic set (12 train, so that
 # tactile_test's batch of 12 fits; 2 val, 2 test), their query points
 # (both configs' points_subsample) and tactile images (H, W)
@@ -940,6 +962,264 @@ def eval_points_phase(dev, model, batch, gens):
     return launches
 
 
+def aim_hand(model, batch, dev, target=(0.15, 0.0, 0.0), span=0.6):
+    """``batch`` with its object scan (``inputs.pc_ply``) rescaled about its
+    centroid so that the model's fingertips span ``span`` of the normalized
+    object frame, and its ground-truth wrist position (``points.mano[:3]``)
+    set so that their mean lands at ``target``. At random weights the hand
+    encoder's pose is arbitrary: with the batch's own scan and a zero wrist
+    the tips lie far outside the box, and no query point would be gated."""
+    get = batch_tensors(batch, dev)
+    with torch.no_grad():
+        joints = model.encode_hand_inputs(get("inputs"))["mano_joints"]
+        zero = torch.zeros((1, 3), device=dev)
+        tips = C.tips_in_object_frame(joints, zero, zero, get("inputs.pc_ply"))[0]
+    ply = batch["inputs.pc_ply"][0].astype(np.float64)
+    centroid = ply.mean(0)
+    scale = 2 * np.sqrt(((ply - centroid) ** 2).sum(1)).max()
+    world = tips.double().cpu().numpy() * scale + centroid      # before norm_pc_1
+    spread = max(np.linalg.norm(a - b) for a in world for b in world)
+    new_scale = spread / span
+    out = dict(batch, **{"points.mano": batch["points.mano"].copy()})
+    out["inputs.pc_ply"] = ((ply - centroid) * (new_scale / scale)
+                            + centroid)[None].astype(np.float32)
+    out["points.mano"][0, :3] = (np.asarray(target) * new_scale
+                                 - (world.mean(0) - centroid)).astype(np.float32)
+    return out
+
+
+def tip_shell(p, tips):
+    """(N,) True for points farther than NEAR from r² = TIP_RADIUS² for
+    every tip and from a tie of the two nearest tips (squared distances
+    in float64): there the float32 gates cannot round either way."""
+    r2 = C.TIP_RADIUS ** 2
+    d2 = ((p.double().T[:, None] - tips.double()[None]) ** 2).sum(-1)   # (N, 5)
+    two = torch.sort(d2, dim=1).values[:, :2]
+    return ~(torch.any(torch.abs(d2 - r2) < NEAR, dim=1) | (two[:, 1] - two[:, 0] < NEAR))
+
+
+def row_fingers(rows, feat):
+    """The finger whose feature each (C, N) row holds, -1 for zeros."""
+    hit = torch.all(rows.T[:, None, :] == feat[None], dim=-1)     # (N, 5)
+    return torch.where(hit.any(1), hit.to(torch.uint8).argmax(1), -1)
+
+
+def build_vtacoh():
+    """VTacOH_YCB at full width with random weights from seed 0, the
+    synthetic batch from seed 0 with the hand aimed at the object, and its
+    generator (fingertip gating)."""
+    cfg = load_config(os.path.join(REPO, "configs/VTacOH/VTacOH_YCB.yaml"),
+                      os.path.join(REPO, "configs/default.yaml"))
+    model = get_model(cfg)
+    randomize(model, seed=0)
+    batch = aim_hand(model, make_batch(np.random.default_rng(0), cfg), torch.device("cuda"))
+    return cfg, model, batch, get_generator(model, cfg)
+
+
+def vtacoh_mesh_phase(dev, peak, cfg, model, batch, gen):
+    """(a) VTacOH meshes: one cold and MESH_REPS warm generate_obj_mesh_wnf
+    (K2 with the fingertip rows, counters zeroed just before), a breakdown
+    by stage with tips_gates_s (ResNet-18, the hand encoder, the tips in the
+    object frame and gate_tips_cn), K2's logits on those rows against
+    trunk_cn, the gate decisions against a float64 gate_tips_cn, and K2's
+    time in its c_img mode beside gate_tips_cn's. Returns (launches, the
+    K2 c_img row)."""
+    nx = gen.resolution0 * 4
+    log("vtacoh", config="configs/VTacOH/VTacOH_YCB.yaml", nx=nx,
+        params=sum(p.numel() for p in model.parameters()),
+        wrist=batch["points.mano"][0, :3].tolist())
+    t0 = time.perf_counter()
+    gen.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    for f, a in COUNTERS.values():
+        setattr(f, a, 0)
+    K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
+    runs = []
+    for _ in range(MESH_REPS):
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        check_mesh("vtacoh", verts, faces, emd, cd, nx)
+    launches = read_counters()
+    log("vtacoh", verts=len(verts), faces=len(faces), chamfer=cd, emd=emd,
+        mesh_s=float(np.median(runs)), mesh_s_each=runs, first_mesh_s=cold,
+        **{f"launches_{k}": v for k, v in launches.items()})
+    if launches["fused_trunk_cn:c_img"] != MESH_REPS or sum(launches.values()) != MESH_REPS:
+        raise AssertionError(f"vtacoh: the meshes did not run K2 on c_img rows: {launches}")
+
+    get = batch_tensors(batch, dev)
+    box = 1 + gen.padding
+
+    def stages():
+        t, mark = timer()
+        c = model.encode_inputs(get("inputs"))
+        mark("encode_s")
+        p_cn = dense_query_grid_cn(nx, box, device=dev)
+        gating, tips, feat, valid = gen._build_gates(
+            model, get("inputs.img"), get("inputs.depth"),
+            get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
+            get("points.cam_pos"), get("points.cam_rot"), inputs=get("inputs"),
+            mano_gt=get("points.mano"), wrist=get("points.wrist"))
+        rows = FT.gate_tips_cn(p_cn, tips, feat, valid)
+        mark("tips_gates_s")
+        feats = dense_feature_volume_cn(c, nx, box, gen.padding)
+        mark("dense_features_s")
+        tp = FT.extract_trunk_params(model.decoder, with_img=True)
+        logits = K.fused_trunk_cn(tp, p_cn, feats, rows)
+        mark("trunk_s")
+        host = logits.reshape(nx, nx, nx).permute(2, 1, 0).cpu().numpy()
+        mark("transfer_s")
+        verts, _ = marching_cubes(host)
+        mark("marching_cubes_s")
+        verts = (verts - nx / 2) * box / nx
+        np.random.seed(0)
+        np.random.shuffle(verts)
+        sample = np.ascontiguousarray(verts[:2048])
+        metrics.chamfer_distance(get("points.points_obj"),
+                                 torch.as_tensor(sample, device=dev)[None])
+        mark("chamfer_s")
+        metrics.earth_mover_distance(batch["points.points_obj"][0], sample)
+        mark("emd_s")
+        if gating != "tips":
+            raise AssertionError(f"vtacoh: gating {gating}")
+        return t, (tp, p_cn, feats, tips, feat, valid, rows, logits)
+
+    with torch.no_grad():
+        rs = [stages() for _ in range(MESH_REPS)]
+        t = {k: float(np.median([r[0][k] for r in rs])) for k in rs[0][0]}
+        dev_stages = ("encode_s", "tips_gates_s", "dense_features_s", "trunk_s", "transfer_s")
+        device_s = sum(t[k] for k in dev_stages)
+        log("vtacoh", breakdown="median", **t, device_stages_s=device_s,
+            device_share=device_s / sum(t.values()))
+        tp, p_cn, feats, tips, feat, valid, rows, logits = rs[-1][1]
+        want = FT.trunk_cn(tp, p_cn, feats, rows)
+        err = max_err(logits, want)
+        exact = row_fingers(FT.gate_tips_cn(p_cn.double(), tips.double(), feat.double(),
+                                            valid), feat.double())
+        keep = tip_shell(p_cn, tips)
+        got = row_fingers(rows, feat)
+        flips = int((got != exact)[keep].sum())
+        n = p_cn.shape[1]
+        gated = int((got >= 0).sum())
+        log("vtacoh", k2_cimg_vs_plain=err, gated_points=gated, gated_share=gated / n,
+            touching_fingers=valid.nonzero().flatten().tolist(),
+            tips=[[round(float(x), 4) for x in q] for q in tips],
+            near_shell=int((~keep).sum()), decisions_vs_float64_flipped=flips)
+        if flips or gated == 0 or int((~keep).sum()) * 20 > max(gated, 1):
+            raise AssertionError(f"vtacoh: fingertip gates: {gated} gated, {flips} "
+                                 f"flipped, {int((~keep).sum())} near the radius")
+
+        # K2 in its c_img mode on these rows, gate_tips_cn, and the plain trunk
+        g = torch.Generator(device=dev).manual_seed(11)
+        sets = [(p_cn, feats, rows)] + [
+            (p_cn, torch.randn(feats.shape, generator=g, device=dev), rows)
+            for _ in range(2)]
+        ms = cuda_ms(lambda a, b, c: K.fused_trunk_cn(tp, a, b, c), sets, 30)
+        plain_ms = cuda_ms(lambda a, b, c: FT.trunk_cn(tp, a, b, c), sets, 6)
+        gate_ms = cuda_ms(lambda a, b, c: FT.gate_tips_cn(a, tips, feat, valid), sets, 30)
+        row = kernel_row(err, ms, plain_ms, trunk_work(n, False, c_img=True), peak)
+        row["gate_tips_ms"] = gate_ms
+        log("kernels", kernel="fused_trunk_cn", mode="c_img", order="lattice", N=n,
+            ms=ms, plain_ms=plain_ms, bound_ms=row["bound_ms"], gate_tips_cn_ms=gate_ms)
+    return launches, row
+
+
+def read_counters():
+    """Every launch counter, K2's and K3's c_img launches apart from their
+    others."""
+    out = {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+    for k, fn in (("fused_trunk_cn", K.fused_trunk_cn),
+                  ("fused_trunk_window_cn", K.fused_trunk_window_cn)):
+        out[f"{k}:c_img"] = fn.launches_cimg
+        out[k] -= fn.launches_cimg
+    return out
+
+
+def vtacoh_query_phase(dev, peak, model, batch, gen):
+    """(b) eval_points with fingertip gates on sets (a) and (d): the window
+    route (K3 with c_img rows), as the JAX plan routes them; K3's logits
+    against window_trunk_plain with the same rows; call_s per set; K3's
+    time in its c_img mode. Returns (launches, the K3 c_img row)."""
+    get = batch_tensors(batch, dev)
+    with torch.no_grad():
+        c = model.encode_inputs(get("inputs"))
+        gating, tips, feat, valid = gen._build_gates(
+            model, get("inputs.img"), get("inputs.depth"),
+            get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
+            get("points.cam_pos"), get("points.cam_rot"), inputs=get("inputs"),
+            mano_gt=get("points.mano"), wrist=get("points.wrist"))
+    grid = c["grid"][0]
+    rng = np.random.default_rng(7)        # eval_points_phase's sets
+    sets = {k: rng.uniform(-0.54, 0.54, (n, 3)).astype(np.float32)
+            for k, n in N_EVAL.items()}
+    tp = FT.extract_trunk_params(model.decoder, with_img=True)
+    total = {}
+    row = None
+    for name in ("a", "d"):
+        pts = sets[name]
+        for f, a in COUNTERS.values():
+            setattr(f, a, 0)
+        K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
+        times, outs = [], []
+        for _ in range(1 + 3):
+            t0 = time.perf_counter()
+            outs.append(gen.eval_points(model, pts, c, gating, tips, feat, valid,
+                                        transfer_dtype=torch.float32))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = read_counters()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        route = "window" if launches["fused_trunk_window_cn:c_img"] == 4 and sum(
+            launches.values()) == 4 else "other"
+        with torch.no_grad():
+            p = torch.as_tensor(np.ascontiguousarray(pts.T), device=dev)
+            L, tile, order = gen._window_plan(p, grid.shape[0])
+            rows = FT.gate_tips_cn(p, tips, feat, valid)
+            want, _ = K.window_trunk_plain(tp, grid, p, c_img_cn=rows, reso=grid.shape[0],
+                                           padding=gen.padding, L=L, S=gen.window_S,
+                                           tile=tile)
+            keep = tip_shell(p, tips)
+            err = max_err(torch.as_tensor(outs[-1], device=dev), want, keep)
+        gated = int((rows.abs().sum(0) > 0).sum())
+        log("vtacoh", set=name, n=len(pts), route=route, plan=(L, tile),
+            call_s=float(np.median(times[1:])), call_s_each=times[1:],
+            first_call_s=times[0], k3_cimg_vs_plain=err, gated_points=gated,
+            near_shell=int((~keep).sum()), **{f"launches_{k}": v for k, v in launches.items()})
+        if route != "window" or any(not np.array_equal(o, outs[-1]) for o in outs):
+            raise AssertionError(f"vtacoh set {name}: route {route}, launches {launches}")
+        if gated == 0:
+            raise AssertionError(f"vtacoh set {name}: no point gated")
+        if name == "a":   # K3 in its c_img mode on the sorted points and their rows
+            with torch.no_grad():
+                kw = dict(reso=grid.shape[0], padding=gen.padding, L=L, S=gen.window_S,
+                          tile=tile)
+                ps = p[:, order].contiguous()
+                rs = FT.gate_tips_cn(ps, tips, feat, valid)
+                g = torch.Generator(device=dev).manual_seed(12)
+                arg_sets = [(grid, ps, rs)] + [
+                    (torch.randn(grid.shape, generator=g, device=dev), ps, rs)
+                    for _ in range(2)]
+                ms = cuda_ms(lambda a, b, r: K.fused_trunk_window_cn(
+                    tp, a, b, c_img_cn=r, **kw), arg_sets, 30)
+                plain_ms = cuda_ms(lambda a, b, r: K.window_trunk_plain(
+                    tp, a, b, c_img_cn=r, **kw), arg_sets, 6)
+                gate_ms = cuda_ms(lambda a, b, r: FT.gate_tips_cn(b, tips, feat, valid),
+                                  arg_sets, 30)
+            n = ps.shape[1]
+            work = trunk_work(n, False, c_img=True)
+            work[1] += interp_work(n)
+            work[2] += grid.numel() * 4 - n * WIDTH * 4
+            row = kernel_row(err, ms, plain_ms, work, peak)
+            row["gate_tips_ms"] = gate_ms
+            log("kernels", kernel="fused_trunk_window_cn", mode="c_img", N=n, ms=ms,
+                plain_ms=plain_ms, bound_ms=row["bound_ms"], gate_tips_cn_ms=gate_ms)
+    return total, row
+
+
 def pipeline_config(path, root, data, run):
     """A shipped config with its data on the pipeline's synthetic set
     (``data``: the data and mesh roots), its run directory ``root/run``,
@@ -1020,22 +1300,36 @@ def step_against_cpu(cfg, trainer, batch, dtype):
     draws = cpu_draws = None
     if not trainer.train_tactile:
         a = trainer.prepare_batch(batch)
-        H, W = a["imgs"].shape[2:4]
-        draws = C.contact_draws(a["depths"], a["touch_success"],
-                                trainer._depth_origin_for(H * W), a["points"].shape[1],
-                                trainer.num_sample, trainer.contact_per_finger,
-                                trainer.generator)
+        if trainer.encode_t2d:
+            H, W = a["imgs"].shape[2:4]
+            draws = C.contact_draws(a["depths"], a["touch_success"],
+                                    trainer._depth_origin_for(H * W), a["points"].shape[1],
+                                    trainer.num_sample, trainer.contact_per_finger,
+                                    trainer.generator)
+        else:   # the img path: the fingertip sample's draws, from the card's tips
+            with torch.no_grad():
+                joints = trainer.model.encode_hand_inputs(a["inputs"])["mano_joints"]
+            tips = C.tips_in_object_frame(joints, a["mano"][:, :3], a["wrist"], a["pc_ply"])
+            draws = C.tips_draws(C.tips_mask(a["points"], tips, a["touch_success"]),
+                                 trainer.num_sample, trainer.tips_per_finger,
+                                 trainer.generator)
+            log("vtacoh", fingertip_slots_filled=int(
+                torch.gather(C.tips_mask(a["points"], tips, a["touch_success"]), 2,
+                             draws["contact_idx"]).sum()))
         cpu_draws = {k: v.cpu() for k, v in draws.items()}
     got = trainer.train_step(batch, draws)
     t0 = time.perf_counter()
     cpu32 = None
     if dtype == torch.float32:
         want = cpu.train_step(batch, cpu_draws)
-    elif trainer.train_tactile:
+    elif trainer.train_tactile or not trainer.encode_t2d:
         a = {k: v.to(dtype) if v.is_floating_point() else v
              for k, v in cpu.prepare_batch(batch).items()}
         cpu.model.train()
-        loss, scalars = cpu._compute_loss_tactile(a)
+        if trainer.train_tactile:
+            loss, scalars = cpu._compute_loss_tactile(a)
+        else:
+            loss, scalars, _ = cpu._compute_loss_img(a, cpu_draws)
         loss.backward()
         want = cpu._host(scalars)
     else:
@@ -1043,7 +1337,7 @@ def step_against_cpu(cfg, trainer, batch, dtype):
     cpu_s = time.perf_counter() - t0
     if dtype != torch.float32:
         f32 = cpu_trainer(torch.float32)
-        f32.train_step(batch)
+        f32.train_step(batch, cpu_draws)
         cpu32 = module_cosines(f32.model, cpu.model)
     rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
     cos, ratio = module_cosines(trainer.model, cpu.model)
@@ -1220,6 +1514,40 @@ def vtaco_stage(root, data, t2d_ckpt):
     return cfg, ckpt
 
 
+def vtacoh_stage(root, data):
+    """(c) VTacOH_YCB at full width (no t2d stack, fingertip gating) at its
+    batch of 6: the loop with validation (IoU on points_iou) and a
+    checkpoint, the steps' time and the profiler's view of them, a
+    validation's time and the step against the CPU. Returns (cfg, the
+    checkpoint's absolute path)."""
+    cfg = pipeline_config("configs/VTacOH/VTacOH_YCB.yaml", root, data, "vtacoh")
+    cfg["generation"]["mc_level"] = "mean"
+    bs, n_train = cfg["training"]["batch_size"], len(get_dataset("train", cfg))
+    log("vtacoh", config="configs/VTacOH/VTacOH_YCB.yaml", batch_size=bs,
+        train_models=n_train, n_query=cfg["data"]["points_subsample"],
+        num_sample=cfg["data"]["num_sample"])
+    if bs > n_train:
+        raise AssertionError(f"vtacoh: the train split ({n_train}) cannot hold a batch")
+    trainer, out, batches = train_stage(
+        "vtacoh", cfg, ("encoder", "encoder_hand", "encoder_img", "decoder"))
+    if "loaded pretrained t2d" in out or "Validation metric (iou)" not in out:
+        raise AssertionError("vtacoh: the loop grafted a t2d stack or validated no IoU")
+    wall, busy, launches_per_step, top = profile_steps(trainer, batches[:TRAIN_PROFILED])
+    log("vtacoh", profiled_steps=TRAIN_PROFILED, wall_s=wall, kernel_s=busy,
+        device_busy_share=busy / wall, kernel_launches_per_step=launches_per_step)
+    for name, ms, count in top:
+        print(f"[vtacoh] kernel ms_per_step={ms:.3f} launches_per_step={count} {name}")
+    t0 = time.perf_counter()
+    val = trainer.evaluate(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                       shuffle=False, num_workers=2))
+    torch.cuda.synchronize()
+    log("vtacoh", validation_s=time.perf_counter() - t0,
+        **{f"val_{k}": v for k, v in val.items()})
+    if not np.isfinite(val["iou"]):
+        raise AssertionError(f"vtacoh: validation IoU {val}")
+    return cfg, os.path.abspath(os.path.join(cfg["training"]["out_dir"], "model.ckpt"))
+
+
 @contextlib.contextmanager
 def timed_methods(cls, names):
     """Wall time of every call of ``cls``'s methods ``names`` (synchronized
@@ -1270,25 +1598,25 @@ def read_ply_points(path):
     return pts
 
 
-def generate_stage(root, vt, tac):
-    """(c) cli.generate on VTacO_YCB's test split from (b)'s checkpoint at
-    nx = 128: its JSON line, an object and a hand mesh per object, K1 at
-    least once per object (counters zeroed just before, read just after),
-    each object's mesh and hand-mesh time. (d) cli.generate on the tactile
-    config from (a)'s checkpoint: one cloud of 5 H W points per sample.
-    Returns the CLI path's kernel launches."""
-    (vt_cfg, vt_ckpt), (tac_cfg, tac_ckpt) = vt, tac
+def generate_meshes(root, cfg_ckpt, config, run, kernel):
+    """cli.generate on a config's test split from a checkpoint at nx =
+    128: its JSON line, an object and a hand mesh per object, ``kernel``
+    (read_counters' name) launched once per object and nothing else
+    (counters zeroed just before, read just after), each object's mesh and
+    hand-mesh time. Returns the launches."""
     from vtaco_tpu_torch.generate.generator import Generator3D
 
+    cfg, ckpt = cfg_ckpt
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
+    K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
     with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "generate_hand_mesh")) as t:
-        line, files, seconds = cli_generate(root, vt_cfg, vt_ckpt, "generate_vtaco")
-    launches = {k: getattr(fn, attr) for k, (fn, attr) in COUNTERS.items()}
+        line, files, seconds = cli_generate(root, cfg, ckpt, run)
+    launches = read_counters()
     n = line["n"]
     mesh_s, hand_s = t["generate_obj_mesh_wnf"], t["generate_hand_mesh"]
     per_object = [a + b for a, b in zip(mesh_s, hand_s)]
-    log("generate", config="configs/VTacO/VTacO_YCB.yaml", nx=128, cli_s=seconds,
+    log("generate", config=config, nx=128, cli_s=seconds,
         object_s_median=float(np.median(per_object)), object_s_each=per_object,
         mesh_s_each=mesh_s, hand_mesh_s_each=hand_s, **line,
         **{f"launches_{k}": v for k, v in launches.items()})
@@ -1299,27 +1627,42 @@ def generate_stage(root, vt, tac):
         if len(got) != n:
             raise AssertionError(f"generate: {len(got)} {part} files for {n} objects")
         for f in got:
-            verts, faces = meshio.read_off(os.path.join(root, "generate_vtaco", f))
+            verts, faces = meshio.read_off(os.path.join(root, run, f))
             if len(faces) == 0 or not np.isfinite(verts).all():
                 raise AssertionError(f"generate: bad mesh {f}")
-    if launches["fused_trunk_gated_cn"] < n or len(per_object) != n:
-        raise AssertionError(f"generate: K1 launched {launches} for {n} objects")
+    if launches[kernel] != n or sum(launches.values()) != n or len(per_object) != n:
+        raise AssertionError(f"generate: {config} launched {launches} for {n} objects")
+    return launches
 
+
+def generate_stage(root, vt, tac, vh):
+    """(d) cli.generate on VTacO_YCB's test split from (b)'s checkpoint (K1
+    once per object) and on VTacOH_YCB's from (c)'s (K2 on fingertip rows
+    once per object); (e) on the tactile config from (a)'s checkpoint: one
+    cloud of 5 H W points per sample. Returns the launches of both mesh
+    paths."""
+    launches = generate_meshes(root, vt, "configs/VTacO/VTacO_YCB.yaml", "generate_vtaco",
+                               "fused_trunk_gated_cn")
+    vh_launches = generate_meshes(root, vh, "configs/VTacOH/VTacOH_YCB.yaml",
+                                  "generate_vtacoh", "fused_trunk_cn:c_img")
+    tac_cfg, tac_ckpt = tac
     line, files, seconds = cli_generate(root, tac_cfg, tac_ckpt, "generate_tactile")
     n_pts = [len(read_ply_points(os.path.join(root, "generate_tactile", f))) for f in files]
     log("generate", config="configs/tactile/tactile_test.yaml", cli_s=seconds,
         points_each=n_pts, **line)
     if line["n"] < 1 or len(files) != line["n"] or set(n_pts) != {5 * np.prod(PIPELINE_IMG)}:
         raise AssertionError(f"generate: tactile clouds {files} of {n_pts} points")
-    return launches
+    return launches, vh_launches
 
 
-def visualize_stage(root, vt, tac):
-    """(e) LoopGenerator.visualize called directly (not through the loop,
+def visualize_stage(root, vt, tac, vh):
+    """(f) LoopGenerator.visualize called directly (not through the loop,
     whose guard would catch its failure) on each checkpoint's model in
     train mode, as the loop hands it over: the validation split's meshes
-    (VTacO: every sample) or clouds (tactile: every vis_split-th)."""
+    (VTacO, VTacOH: every sample) or clouds (tactile: every
+    vis_split-th)."""
     for phase, (cfg, ckpt), want in (("vtaco", vt, ("_obj.off", "_hand.off")),
+                                     ("vtacoh", vh, ("_obj.off", "_hand.off")),
                                      ("tactile", tac, ("_tactile.ply",))):
         model = get_model(cfg)
         CheckpointIO(cfg["training"]["out_dir"], model=model).load(ckpt)
@@ -1339,16 +1682,16 @@ def visualize_stage(root, vt, tac):
                 or sorted(f[-len(w):] for f in files for w in want if f.endswith(w))
                 != sorted(want * n)):
             raise AssertionError(f"visualize: {phase} wrote {files} for {n} samples")
-        if phase == "vtaco" and "Metrics CD:" not in out:
+        if phase != "tactile" and "Metrics CD:" not in out:
             raise AssertionError("visualize: no metrics printed")
 
 
 def pipeline_phase():
     """The paper's three stages through the port's entry points at full
     width on one synthetic set: (a) pretrain the tactile depth stack,
-    (b) train VTacO_YCB with its graft, (c, d) reconstruct through the
-    generation CLI, (e) the loop's visualization. Returns the kernel
-    launches of the CLI's VTacO path."""
+    (b) train VTacO_YCB with its graft, (c) train VTacOH_YCB, (d, e)
+    reconstruct through the generation CLI, (f) the loop's visualization.
+    Returns the kernel launches of the CLI's VTacO and VTacOH paths."""
     root = os.path.join(REPO, "out", "chip_smoke_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1360,8 +1703,9 @@ def pipeline_phase():
         n_query=PIPELINE_QUERY, images="5x%dx%d" % PIPELINE_IMG)
     tac = tactile_stage(root, data)
     vt = vtaco_stage(root, data, tac[1])
-    launches = generate_stage(root, vt, tac)
-    visualize_stage(root, vt, tac)
+    vh = vtacoh_stage(root, data)
+    launches = generate_stage(root, vt, tac, vh)
+    visualize_stage(root, vt, tac, vh)
     shutil.rmtree(root)
     return launches
 
@@ -1401,7 +1745,12 @@ def main():
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
     del model, gens
-    cli_launches = pipeline_phase()
+    h_cfg, h_model, h_batch, h_gen = build_vtacoh()
+    h_mesh, cimg_rows = vtacoh_mesh_phase(dev, peak, h_cfg, h_model, h_batch, h_gen)
+    h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
+    cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
+    del h_model, h_gen
+    cli_launches, h_cli = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
         "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),
@@ -1409,25 +1758,37 @@ def main():
         "fused_trunk_window_cn:gated": ("window.cu",
                                         "vtaco_tpu/ops/pallas/decode.py:406"),
     }
-    # K1/K2 launches from the mesh path, K3/K4 from the eval_points path,
-    # each with the generation CLI's (K1 on VTacO_YCB)
-    by_path = {k: {"mesh": launches.get(k, 0), "eval_points": eval_launches[k],
-                   "cli_generate": cli_launches[k]} for k in replaced}
-    launches.update({k: eval_launches[k] for k in
-                     ("fused_trunk_window_cn", "fused_trunk_window_cn:gated")})
+    # each kernel's launches on every path: VTacO's mesh (K1/K2) and
+    # eval_points (K3/K4) paths, VTacOH's (K2 and K3 on fingertip rows,
+    # counted apart as ':c_img') and both generation CLIs
+    paths = {"mesh": launches, "eval_points": eval_launches, "vtacoh_mesh": h_mesh,
+             "vtacoh_eval_points": h_eval, "cli_generate": cli_launches,
+             "vtacoh_cli_generate": h_cli}
     kernels = []
     for kname, (source, replaces) in replaced.items():
         r = rows[kname]
-        kernels.append({
+        modes = [kname] + ([f"{kname}:c_img"] if kname in cimg_rows else [])
+        by_path = {path: sum(counts.get(m, 0) for m in modes)
+                   for path, counts in paths.items()}
+        entry = {
             "name": kname, "route": "cuda",
             "source": f"vtaco_tpu_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[kname] + cli_launches[kname],
-            "launches_by_path": by_path[kname], "max_abs_err": r["err"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["err"], cimg_rows[kname]["err"]) if kname in cimg_rows
+            else r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "bound_f32_ms": r["bound_f32_ms"],
             "lattice_ms": r.get("lattice_ms"),
             "lattice_bound_ms": r.get("lattice_bound_ms"), "library_ms": None,
-        })
+        }
+        if kname in cimg_rows:   # the modes launched, and the c_img mode's reading
+            c = cimg_rows[kname]
+            entry["modes_launched"] = {
+                "coords": sum(counts.get(kname, 0) for counts in paths.values()),
+                "c_img": sum(counts.get(f"{kname}:c_img", 0) for counts in paths.values())}
+            entry["c_img"] = {k: c[k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "gate_tips_ms")}
+        kernels.append(entry)
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -270,6 +270,75 @@ def _check_window(cuda, variant, grid, p, L, S):
     assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
 
 
+def _tip_gates(p, seed=9):
+    """Five fingertips among the points (a point plus up to 0.03 per
+    axis), finger 2 not touching, and their (5, 32) features."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, p.shape[1], (5,), generator=g)
+    tips = p[:, idx.to(p.device)].T + (torch.rand((5, 3), generator=g) * 0.06
+                                      - 0.03).to(p.device)
+    feat = torch.randn((5, 32), generator=g).to(p.device)
+    valid = torch.tensor([True, True, False, True, True], device=p.device)
+    return tips.contiguous(), feat, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["random", "lattice"])
+def test_fused_trunk_cn_tip_rows(cuda, order):
+    """K2 in its c_img mode on the rows of fingertip gating (gate_tips_cn,
+    as VTacOH's mesh and gather route make them) against trunk_cn on the
+    same rows; and the card's rows equal the CPU's outside the 1e-6 shell
+    around r² = 0.0025 and around ties between two tips."""
+    if order == "random":
+        p, f = _inputs(cuda, 100_003)
+    else:
+        p = dense_query_grid_cn(64, 1.1, device=cuda)
+        f = torch.randn((32, p.shape[1]), device=cuda)
+    tips, feat, valid = _tip_gates(p)
+    dec = random_decoder(cuda)
+    tp = FT.extract_trunk_params(dec, with_img=True)
+    with torch.no_grad():
+        rows = FT.gate_tips_cn(p, tips, feat, valid)
+        before = K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_cimg
+        got = K.fused_trunk_cn(tp, p, f, rows)
+        assert (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_cimg) == (
+            before[0] + 1, before[1] + 1)
+        want = FT.trunk_cn(tp, p, f, rows)
+        cpu_rows = FT.gate_tips_cn(p.cpu(), tips.cpu(), feat.cpu(), valid.cpu())
+    gated = rows.abs().sum(0) > 0
+    assert int(gated.sum()) > 20
+    assert float(torch.max(torch.abs(got - want))) < ATOL
+    d2 = ((p.double().T[:, None] - tips.double()[None]) ** 2).sum(-1)    # (N, 5)
+    two = torch.sort(d2, dim=1).values[:, :2]
+    keep = ~(torch.any(torch.abs(d2 - 0.0025) < 1e-6, dim=1)
+             | (two[:, 1] - two[:, 0] < 1e-6))
+    assert torch.equal(rows.cpu()[:, keep.cpu()], cpu_rows[:, keep.cpu()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2])
+def test_fused_trunk_window_cn_tip_rows(cuda, L):
+    """K3 in its c_img mode on the fingertip rows of points sorted by
+    super-cell (VTacOH's window route) against window_trunk_plain with the
+    same rows."""
+    grid, p = _window_inputs(cuda, 100_003, L)
+    tips, feat, valid = _tip_gates(p)
+    dec = random_decoder(cuda)
+    tp = FT.extract_trunk_params(dec, with_img=True)
+    kw = dict(reso=64, padding=0.1, L=L, S=128, tile=256)
+    with torch.no_grad():
+        rows = FT.gate_tips_cn(p, tips, feat, valid)
+        before = (K.fused_trunk_window_cn.launches,
+                  K.fused_trunk_window_cn.launches_cimg)
+        got, n_over = K.fused_trunk_window_cn(tp, grid, p, c_img_cn=rows, **kw)
+        assert (K.fused_trunk_window_cn.launches,
+                K.fused_trunk_window_cn.launches_cimg) == (before[0] + 1, before[1] + 1)
+        want, want_over = K.window_trunk_plain(tp, grid, p, c_img_cn=rows, **kw)
+    assert int((rows.abs().sum(0) > 0).sum()) > 20
+    assert int(n_over) == int(want_over)
+    assert float(torch.max(torch.abs(got - want))) < ATOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["coords", "invalid_rows"])
 def test_fused_trunk_window_cn_inference_tensors(cuda, variant):

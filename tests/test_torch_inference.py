@@ -348,31 +348,26 @@ def test_unported_options_raise(synth, tmp_path, what):
             loop.train(cfg, max_iters=1, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["tips", "tips_trunk", "predicted_depth", "planes_dense",
-                                  "planes_gather"])
+@pytest.mark.parametrize("case", ["planes_dense", "planes_gather", "trainer_no_img"])
 def test_unported_messages_name_the_missing_piece(case):
-    """Each decode path that is not ported names what is missing and its
-    ROADMAP item: fingertip gating and predicted-depth gates (item 3),
-    plane fields in the decode (item 8)."""
+    """Each path that is not ported names what is missing and its ROADMAP
+    item: plane fields in the decode (item 8); the loss paths without
+    images (plain, contact, t2d without images: items 5 and 7)."""
     from vtaco_tpu_torch.ops.dense_decode import dense_feature_volume_cn
+    from vtaco_tpu_torch.train.trainer import Trainer
 
     cfg = port_cfg()
-    if case == "tips":
-        cfg["model"]["encoder_t2d"] = False
-    if case == "predicted_depth":
-        cfg["training"]["legacy_gt_depth"] = False
+    cfg["model"]["with_img"] = case != "trainer_no_img"
     model = get_model(cfg, device="cpu")
-    want = {"planes_dense": "plane feature fields.*item 8",
-            "planes_gather": "plane feature fields.*item 8",
-            "predicted_depth": "predicted-depth gates.*item 3"}.get(case,
-                                                                 "fingertip gating.*item 3")
+    want = {"trainer_no_img": "plain, contact and t2d-without-images.*items 5 and 7"}.get(
+        case, "plane feature fields.*item 8")
     with pytest.raises(NotImplementedError, match=want):
-        gen = get_generator(model, cfg)
         planes = {"grid": torch.zeros(1, 4, 4, 4, 8), "xz": torch.zeros(1, 4, 4, 8)}
-        if case == "tips_trunk":
-            gen._trunk_fast(None, None, None, None, None, None, "tips", torch.float32, False)
+        if case == "trainer_no_img":
+            Trainer.from_config(model, cfg)
         elif case == "planes_dense":
             dense_feature_volume_cn(planes, 8, 1.1, 0.1)
-        elif case == "planes_gather":
+        else:
+            gen = get_generator(model, cfg)
             gen._decode_scatter_fast_impl(None, torch.zeros(3, 4), planes, None, None,
                                           None, "none", torch.float32, False)

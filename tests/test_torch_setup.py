@@ -153,17 +153,12 @@ def test_load_config_matches_jax(path):
         path, "configs/default.yaml")
 
 
-@pytest.mark.parametrize("change", ["tips", "predicted_depth", "band"])
+@pytest.mark.parametrize("change", ["band"])
 def test_get_generator_rejects_unported_modes(change):
     from vtaco_tpu_torch.core.config import get_generator, get_model
 
     cfg = port_cfg()
-    if change == "tips":
-        cfg["model"]["encoder_t2d"] = False
-    elif change == "predicted_depth":
-        cfg["training"]["legacy_gt_depth"] = False
-    else:
-        cfg["generation"]["band_transfer"] = True
+    cfg["generation"]["band_transfer"] = True
     model = get_model(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_generator(model, cfg)

@@ -395,9 +395,6 @@ def test_eval_points_empty_and_unported(gens):
     pts = np.zeros((10, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgen.eval_points(tmodel, pts, tc, fast=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.eval_points(tmodel, pts, tc, "tips", T(np.zeros((5, 3))),
-                         T(np.zeros((5, C))), T(np.ones(5, bool)))
 
 
 def test_coord_quant_config():

@@ -10,14 +10,20 @@ detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
 :2374-2405, ``generate_tactile_pc`` :2408-2450, ``LoopGenerator`` and
 ``make_loop_generator`` :2453-2512).
 
-The dense decode runs the decoder trunk as one CUDA kernel over all nx³
-query points: K1 (``fused_trunk_gated_cn``) with contact gating, K2
-(``fused_trunk_cn``) without. ``eval_points`` routes an arbitrary query
-set as the JAX package does with its Pallas kernels on: a complete cube
-to the dense decode, a lattice to the corner gather + K1/K2, any other
-set to the sorted window route, whose kernel (``fused_trunk_window_cn``:
-K3, or K4 with contact gating) interpolates and decodes in one pass. On
-CPU tensors the same wrappers run their plain PyTorch versions.
+The tactile gates come in two kinds, as in the JAX package: contact
+gating (VTacO: contact points back-projected from the ground-truth or the
+predicted depth maps) and fingertip gating (VTacOH: the MANO fingertips
+moved into the object frame; ``gate_tips_cn`` turns them into per-point
+c_img rows in plain PyTorch, outside the kernels). The dense decode runs
+the decoder trunk as one CUDA kernel over all nx³ query points: K1
+(``fused_trunk_gated_cn``) with contact gating, K2 (``fused_trunk_cn``)
+without, or with the fingertip rows. ``eval_points`` routes an arbitrary
+query set as the JAX package does with its Pallas kernels on: a complete
+cube to the dense decode, a lattice to the corner gather + K1/K2, any
+other set to the sorted window route, whose kernel
+(``fused_trunk_window_cn``: K3, with the fingertip rows or none, or K4
+with contact gating) interpolates and decodes in one pass. On CPU tensors
+the same wrappers run their plain PyTorch versions.
 
 The hand mesh is the MANO prediction moved from the canonical wrist frame
 into the object's normalized frame; the tactile clouds back-project the
@@ -61,14 +67,13 @@ from vtaco_tpu_torch.train.contact import (
     DEPTH_REST,
     backproject_depth,
     random_topk_select,
+    tips_in_object_frame,
 )
 from vtaco_tpu_torch.utils import meshio
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
 _FIELDS = ("grid", "xz", "xy", "yz")
-_NO_TIPS = ("fingertip gating (with_img without encoder_t2d, VTacOH) is not "
-            "ported yet (ROADMAP.md, item 3)")
 _NO_PLANES = ("plane feature fields in the decode are not ported yet "
               "(ROADMAP.md, item 8)")
 
@@ -117,19 +122,11 @@ class Generator3D:
         if band_transfer is True:
             raise NotImplementedError("band_transfer (generate/band.py) is not "
                                       "ported yet (ROADMAP.md)")
-        # a model without a decoder (the tactile depth stack) decodes no
-        # occupancy, so it gates nothing
-        decodes = getattr(model, "decoder", None) is not None
-        if decodes and with_img and not encode_t2d:
-            raise NotImplementedError(_NO_TIPS)
-        if decodes and with_img and not legacy_gt_depth:
-            raise NotImplementedError("predicted-depth gates (legacy_gt_depth: "
-                                      "false) are not ported yet (ROADMAP.md, "
-                                      "item 3)")
         self.model = model
         self.resolution0 = resolution0
         self.padding = padding
         self.with_img = with_img
+        self.encode_t2d = encode_t2d
         self.contact_per_finger = contact_per_finger
         self.depth_origin = depth_origin
         self.legacy_gt_depth = legacy_gt_depth
@@ -183,18 +180,20 @@ class Generator3D:
     def _trunk_fast(self, tp, p_cn, feats, gate_pts, gate_feat, gate_valid,
                     gating, dtype, leaky):
         """(3, N) coords + (C, N) features → (N,) logits. K1 for contact
-        gating, K2 without; the plain trunk only for leaky decoders (the
-        kernels hardcode ReLU), as the JAX package routes them."""
-        if gating == "tips":
-            raise NotImplementedError(_NO_TIPS)
+        gating; K2 without, or with the (C, N) c_img rows of fingertip
+        gating (``gate_tips_cn``, computed first); the plain trunk only for
+        leaky decoders (the kernels hardcode ReLU), as the JAX package
+        routes them."""
         store = dtype if dtype != torch.float32 else None
+        c_img = None
+        if gating == "tips":
+            c_img = FT.gate_tips_cn(p_cn, gate_pts, gate_feat, gate_valid)
         if not leaky:
             if gating == "contact":
                 return fused_trunk_gated_cn(tp, p_cn, feats, gate_pts,
                                             gate_feat, gate_valid,
                                             store_dtype=store)
-            return fused_trunk_cn(tp, p_cn, feats, store_dtype=store)
-        c_img = None
+            return fused_trunk_cn(tp, p_cn, feats, c_img, store_dtype=store)
         if gating == "contact":
             c_img = FT.gate_contact_cn(p_cn, gate_pts, gate_feat, gate_valid)
         return FT.trunk_cn(tp, p_cn, feats, c_img, dtype=dtype, leaky=True)
@@ -369,13 +368,18 @@ class Generator3D:
     def _decode_scatter_window_impl(self, tp, p_sorted, grid, gate_pts,
                                     gate_feat, gate_valid, gating, S, tile, L):
         """The window kernel over points in super-cell order: K4 with
-        contact gating, K3 without. Returns (logits, n_overflow)."""
+        contact gating, K3 without, or with the c_img rows of fingertip
+        gating (``gate_tips_cn`` on the sorted points). Returns (logits,
+        n_overflow)."""
         kw = dict(reso=grid.shape[0], padding=self.padding, L=L, S=S,
                   tile=tile)
         if gating == "contact":
             return fused_trunk_window_cn(tp, grid, p_sorted, gate_pts=gate_pts,
                                          gate_feat=gate_feat,
                                          gate_valid=gate_valid, **kw)
+        if gating == "tips":
+            c_img = FT.gate_tips_cn(p_sorted, gate_pts, gate_feat, gate_valid)
+            return fused_trunk_window_cn(tp, grid, p_sorted, c_img_cn=c_img, **kw)
         return fused_trunk_window_cn(tp, grid, p_sorted, **kw)
 
     def _try_window_scatter(self, tp, p_cn, c, gating, gate_pts, gate_feat,
@@ -386,7 +390,7 @@ class Generator3D:
         route: a leaky decoder (the kernels hardcode ReLU), plane features,
         a non-cubic or tiny grid, NaN coords, no plan that fits, or a
         nonzero overflow count from the kernel's keys."""
-        if leaky or gating not in ("none", "contact"):
+        if leaky or gating not in ("none", "tips", "contact"):
             return None
         if set(c) & set(_FIELDS) != {"grid"}:
             return None
@@ -554,20 +558,35 @@ class Generator3D:
         return torch.stack(pts_f), torch.stack(val_f)
 
     def _build_gates(self, model, imgs, depths, touch, pc_ply, cam_pos,
-                     cam_rot, seed=0):
-        """Contact gates for a B=1 sample, or none without images. The
-        tactile-to-depth forward is skipped: with legacy_gt_depth its
-        prediction never reaches the gates."""
+                     cam_rot, seed=0, *, inputs=None, mano_gt=None, wrist=None):
+        """The tactile gates of a B=1 sample, as ``(gating, gate_pts,
+        gate_feat, gate_valid)``: none without images; with a
+        tactile-to-depth model, contact gates from the ground-truth depths
+        (legacy_gt_depth: the t2d forward is skipped, its prediction would
+        never reach the gates) or from the t2d model's predicted depths
+        (its forward on the object cloud ``inputs`` and the images, in the
+        model's mode); without one (VTacOH), fingertip gates: the hand
+        encoder's MANO fingertips moved into the object frame by the
+        ground-truth wrist position ``mano_gt[:, :3]`` and Euler angles
+        ``wrist``, with the touch flags as their validity."""
         if not self.with_img:
             return "none", None, None, None
         c_img = model.encode_img_inputs(imgs)                     # (1, 5, C)
+        if not self.encode_t2d:
+            c_hand = model.encode_hand_inputs(inputs)
+            tips = tips_in_object_frame(c_hand["mano_joints"], mano_gt[:, :3],
+                                        wrist, pc_ply)[0]
+            return "tips", tips, c_img[0], touch[0]
         H, W = imgs.shape[2], imgs.shape[3]
         if self.depth_origin is not None and len(self.depth_origin) == H * W:
             d_origin = torch.as_tensor(self.depth_origin, device=depths.device)
         else:
             d_origin = torch.full((H * W,), DEPTH_REST, device=depths.device)
+        pred_depth = None
+        if not self.legacy_gt_depth:
+            pred_depth = model.encode_t2d(inputs, imgs)[0][0]     # (5, H*W)
         gate_pts, gate_valid = self._prep_contact_gates(
-            depths[0], None, d_origin, touch[0], cam_rot[0], cam_pos[0],
+            depths[0], pred_depth, d_origin, touch[0], cam_rot[0], cam_pos[0],
             pc_ply[0], H, W, seed=seed)
         return "contact", gate_pts, c_img[0], gate_valid
 
@@ -577,7 +596,8 @@ class Generator3D:
 
         ``data`` holds the JAX loader's keys and layouts (``inputs``,
         ``inputs.img`` (B, 5, H, W, 3), ``inputs.depth``,
-        ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``). It runs
+        ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``: fingertip
+        gating reads ``points.mano`` and ``points.wrist``). It runs
         on the device that holds ``model``'s parameters.
         Returns ((verts, faces), emd, chamfer)."""
         dev = next(model.parameters()).device
@@ -593,11 +613,14 @@ class Generator3D:
         touch = (get("inputs.touch_success") > 0.5
                  if "inputs.touch_success" in data else None)
         points_obj = np.asarray(data["points.points_obj"])
+        hand = {k: get(f"points.{k}") for k in ("mano", "wrist")
+                if f"points.{k}" in data}
 
         c = model.encode_inputs(inputs)
         gating, gate_pts, gate_feat, gate_valid = self._build_gates(
             model, imgs, depths, touch, get("inputs.pc_ply"),
-            get("points.cam_pos"), get("points.cam_rot"), seed)
+            get("points.cam_pos"), get("points.cam_rot"), seed, inputs=inputs,
+            mano_gt=hand.get("mano"), wrist=hand.get("wrist"))
         values = self.eval_points_dense(
             model, nx, c, gating, gate_pts, gate_feat, gate_valid,
             transfer_dtype=self.transfer_dtype)

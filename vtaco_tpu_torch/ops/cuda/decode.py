@@ -18,7 +18,9 @@ ops/fast_trunk.py (the function the kernel computes); CUDA tensors launch
 the kernel or raise — nothing falls back. Each wrapper counts its launches
 in ``<wrapper>.launches``, incremented only where the kernel is launched
 (``fused_trunk_window_cn`` counts its gated branch, K4, in
-``.launches_gated``).
+``.launches_gated``); ``fused_trunk_cn`` and ``fused_trunk_window_cn``
+also count, in ``.launches_cimg``, those of their launches that took c_img
+rows (MODE_CIMG, VTacOH's fingertip rows).
 ``store_dtype=torch.bfloat16`` stores the streamed per-point operands as
 bf16 (coords, features, c_img) while all math stays f32; the plain path
 rounds the same operands the same way.
@@ -211,10 +213,12 @@ def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
         torch.cuda.current_stream(p_cn.device).cuda_stream)
     _raise_on(rc, "trunk_cn_launch")
     fused_trunk_cn.launches += 1
+    fused_trunk_cn.launches_cimg += c_img_cn is not None
     return out
 
 
 fused_trunk_cn.launches = 0
+fused_trunk_cn.launches_cimg = 0
 
 
 def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
@@ -416,8 +420,10 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
         fused_trunk_window_cn.launches_gated += 1
     else:
         fused_trunk_window_cn.launches += 1
+        fused_trunk_window_cn.launches_cimg += c_img_cn is not None
     return out, window_overflow(keys, tile, S, window_blocks(reso, L, S))
 
 
 fused_trunk_window_cn.launches = 0
 fused_trunk_window_cn.launches_gated = 0
+fused_trunk_window_cn.launches_cimg = 0

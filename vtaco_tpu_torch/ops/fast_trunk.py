@@ -1,6 +1,6 @@
 """The decoder trunk in channels-first layout: the plain PyTorch versions
-of the CUDA kernels in ops/cuda/decode.py
-(port of vtaco_tpu/ops/fast_trunk.py:24-110).
+of the CUDA kernels in ops/cuda/decode.py, and the fingertip gates that
+feed them c_img rows (port of vtaco_tpu/ops/fast_trunk.py:24-130).
 
 Activations are (C, N) with points on the last axis; every Linear layer
 becomes ``W @ X + b``. ``extract_trunk_params`` reads the weights straight
@@ -86,3 +86,22 @@ def gate_contact_cn(p_cn, gate_pts, gate_feat, gate_valid, radius=0.015):
     last_f = (F5 - 1) - torch.argmax(within_f.flip(0).to(torch.uint8), dim=0)
     feat = gate_feat.T[:, last_f]                                # (C, N)
     return torch.where(any_f[None, :], feat, torch.zeros_like(feat))
+
+
+def gate_tips_cn(p_cn, tips, tip_feat, tip_valid, radius=0.05):
+    """Per-point tactile features (C, N) by fingertip proximity (VTacOH).
+
+    p_cn (3, N); tips (5, 3); tip_valid (5,) bool (the touching fingers);
+    tip_feat (5, C). Each point takes the feature of its nearest fingertip
+    when that tip is within ``radius`` and touching, else zeros. The
+    squared distances use the expanded form ``|q|² + |p|² - 2 q·p``, as the
+    JAX package does; they round differently from ``(p - q)²`` at the
+    radius."""
+    q = tips.to(p_cn.dtype)
+    d2 = (torch.sum(q * q, dim=1)[:, None] + torch.sum(p_cn * p_cn, dim=0)[None, :]
+          - 2.0 * (q @ p_cn))                                      # (5, N)
+    near = torch.amin(d2, dim=0) < radius * radius
+    assign = torch.argmin(d2, dim=0)
+    valid = tip_valid[assign] & near
+    feat = tip_feat.T[:, assign]                                   # (C, N), a copy
+    return feat.masked_fill_(~valid[None, :], 0.0)

@@ -1,11 +1,12 @@
-"""Tactile contact selection, depth back-projection and the contact
-sample of the t2d loss paths (port of vtaco_tpu/train/contact.py:30-142
-and :231-245).
+"""Tactile contact selection, depth back-projection, the contact sample
+of the t2d loss paths, and the fingertip sample and features of the img
+path (VTacOH) (port of vtaco_tpu/train/contact.py:30-263).
 
 Shapes are fixed: each touching finger contributes at most
-``per_finger`` contact pixels, picked uniformly at random by a top-k over
-random keys, and every slot that holds no contact takes a random query
-point, so a sample always has ``num_sample`` points.
+``per_finger`` contact pixels (or query points near its fingertip),
+picked uniformly at random by a top-k over random keys, and every slot
+that holds no contact takes a random query point, so a sample always has
+``num_sample`` points.
 """
 
 from __future__ import annotations
@@ -15,8 +16,12 @@ from typing import NamedTuple
 
 import torch
 
+from vtaco_tpu_torch.ops.geometry import R_from_PYR, norm_pc_1
+
 DEPTH_REST = 0.0215  # gel at rest: the value depth_origin stores
 CAM_FOV = 60.0       # sensor camera field of view, degrees
+TIP_RADIUS = 0.05    # fingertip neighbourhood of the img path and VTacOH's gates
+TIP_JOINTS = (4, 8, 12, 16, 20)   # MANO's fingertip joints, thumb first
 
 
 def random_topk_select(mask, k, generator=None, idx=None):
@@ -168,3 +173,102 @@ def scatter_finger_features(c_img, sample: ContactSample, init: str = "zeros"):
     f_safe = torch.clamp(sample.finger, 0, 4)
     gathered = torch.gather(c_img, 1, f_safe[..., None].expand(-1, -1, c_img.shape[-1]))
     return torch.where(sample.valid[..., None], gathered, base(gathered))
+
+
+def tips_in_object_frame(mano_joints, wrist_pos, wrist_rot_euler, pc_ply):
+    """(B, 5, 3) fingertips in the normalized object frame: the canonical
+    MANO joints (B, 21, 3) less the fixed offset (0.11, 0.005, 0), un-rotated
+    by the canonical wrist rotation R(-π/2, π/2, 0) and then by the wrist's
+    Euler angles (B, 3) (both through the inverse of R_from_PYR), moved by
+    the wrist position (B, 3), then normalized by each sample's scan
+    ``pc_ply`` (B, P, 3) (norm_pc_1)."""
+    dt, dev = mano_joints.dtype, mano_joints.device
+    offset = torch.tensor([0.11, 0.005, 0.0], dtype=dt, device=dev)
+    canon = torch.tensor([-math.pi / 2, math.pi / 2, 0.0], dtype=dt, device=dev)
+    R_canon_inv = torch.linalg.inv(R_from_PYR(canon))
+    R_wrist_inv = torch.linalg.inv(torch.stack(
+        [R_from_PYR(w) for w in wrist_rot_euler.to(dt)]))                # (B, 3, 3)
+    tips = mano_joints[:, list(TIP_JOINTS)] - offset                     # (B, 5, 3)
+    tips = R_wrist_inv @ (R_canon_inv @ tips.transpose(1, 2))            # (B, 3, 5)
+    tips = tips.transpose(1, 2) + wrist_pos[:, None, :]
+    return torch.stack([norm_pc_1(t, ply) for t, ply in zip(tips, pc_ply)])
+
+
+def _nearest_tip(query_points, tips):
+    """(B, N) True where a point lies within TIP_RADIUS of its nearest
+    fingertip, and (B, N) that tip's index, by the direct (unexpanded)
+    distance, as the JAX package measures it here."""
+    d = torch.linalg.norm(query_points[:, :, None, :] - tips[:, None, :, :], dim=-1)
+    return torch.amin(d, dim=-1) < TIP_RADIUS, torch.argmin(d, dim=-1)
+
+
+def tips_mask(query_points, tips, touch_success):
+    """(B, 5, N) True where a query point's nearest fingertip is that
+    finger's, within TIP_RADIUS, and the finger touches."""
+    near, assign = _nearest_tip(query_points, tips)
+    fingers = torch.arange(tips.shape[1], device=tips.device)
+    return (near[:, None] & (assign[:, None] == fingers[None, :, None])
+            & touch_success[:, :, None])
+
+
+def tips_draws(mask, num_sample, per_finger, generator=None):
+    """The random draws of fingertip_gated_sample: {"contact_idx": (B, 5,
+    k) query points per finger (k = min(per_finger, num_sample // 5)),
+    "rand_idx": (B, num_sample) query points}, from ``generator`` on the
+    mask's device."""
+    per_finger = min(per_finger, num_sample // 5)
+    idx, _ = random_topk_select(mask, per_finger, generator)
+    rand_idx = torch.randint(0, mask.shape[-1], (mask.shape[0], num_sample),
+                             generator=generator, device=mask.device)
+    return {"contact_idx": idx, "rand_idx": rand_idx}
+
+
+def fingertip_gated_sample(query_points, occ, tips, touch_success, num_sample,
+                           per_finger, generator=None, draws=None):
+    """The img path's decode sample, biased to the fingertips.
+
+    For each touching finger, at most ``per_finger`` (capped at
+    num_sample // 5) query points whose nearest fingertip is that finger's,
+    within TIP_RADIUS, take the sample's first slots, finger by finger;
+    every other slot, and every slot without such a point, takes a random
+    query point.
+
+    Args:
+      query_points: (B, N, 3); occ: (B, N) their occupancy labels.
+      tips:          (B, 5, 3) fingertips (tips_in_object_frame).
+      touch_success: (B, 5) bool.
+      generator:     torch.Generator on the tensors' device for the draws.
+      draws:         the draws given explicitly instead (tips_draws'
+                     dict), since torch cannot replay jax.random.
+    Returns:
+      (ContactSample, (B, num_sample) labels of the sampled points).
+    """
+    B, dev = query_points.shape[0], query_points.device
+    per_finger = min(per_finger, num_sample // 5)
+    n_slots = 5 * per_finger
+    mask = tips_mask(query_points, tips, touch_success)
+    if draws is None:
+        draws = tips_draws(mask, num_sample, per_finger, generator)
+    idx = torch.as_tensor(draws["contact_idx"], dtype=torch.int64, device=dev)
+    valid = torch.gather(mask, 2, idx).reshape(B, n_slots)
+    rand_idx = torch.as_tensor(draws["rand_idx"], dtype=torch.int64, device=dev)
+    sel = torch.cat([torch.where(valid, idx.reshape(B, n_slots), rand_idx[:, :n_slots]),
+                     rand_idx[:, n_slots:]], dim=1)
+    points = torch.gather(query_points, 1, sel[..., None].expand(-1, -1, 3))
+    finger_ids = torch.arange(5, device=dev).repeat_interleave(per_finger)
+    finger = torch.full((B, num_sample), -1, dtype=torch.int64, device=dev)
+    finger[:, :n_slots] = torch.where(valid, finger_ids, -1)
+    valid_all = torch.zeros((B, num_sample), dtype=torch.bool, device=dev)
+    valid_all[:, :n_slots] = valid
+    return ContactSample(points, valid_all, finger), torch.gather(occ, 1, sel)
+
+
+def assign_features_by_proximity(query_points, tips, touch_success, c_img):
+    """(B, N, C) per-point tactile features without resampling (the img
+    path's eval): a point within TIP_RADIUS of its nearest fingertip takes
+    that finger's feature of c_img (B, 5, C) when the finger touches, any
+    other point zeros."""
+    near, assign = _nearest_tip(query_points, tips)
+    mask = near & torch.gather(touch_success, 1, assign)
+    feat = torch.gather(c_img, 1, assign[..., None].expand(-1, -1, c_img.shape[-1]))
+    return torch.where(mask[..., None], feat, torch.zeros_like(feat))

@@ -1,7 +1,7 @@
-"""Trainer: the train and eval steps of the VTacO t2d_img loss path and of
-the tactile depth-stack pretraining (port of
-vtaco_tpu/train/trainer.py:71-860, ``compute_loss_t2d_img`` and
-``compute_loss_tactile``).
+"""Trainer: the train and eval steps of the VTacO t2d_img loss path, the
+VTacOH img loss path and the tactile depth-stack pretraining (port of
+vtaco_tpu/train/trainer.py:71-860, ``compute_loss_t2d_img``,
+``compute_loss_img`` and ``compute_loss_tactile``).
 
 The tactile path (``model.train_tactile``, configs/tactile/) trains the
 depth U-Net and the sensor-pose head alone: the L1 distance of the
@@ -17,7 +17,18 @@ contact points back-projected from the depth maps are mixed into a
 ``num_sample``-point decode sample; winding numbers of the ground-truth
 meshes label it; the object, hand and tactile encoders and the decoder
 give the L1 occupancy loss, and the hand encoder's MANO head the pose and
-hand-vertex losses. Gradients come from autograd over the plain modules,
+hand-vertex losses.
+
+The img path (VTacOH: images, no tactile-to-depth model) samples its
+decode points by fingertip proximity instead: the hand encoder's MANO
+fingertips, moved into the object frame by the ground-truth wrist, pick
+at most ``tips_per_finger`` query points per touching finger (within 0.05
+of the tip), the rest uniformly, with the dataset's own occupancy labels;
+a point near a tip takes that finger's tactile feature, any other zeros.
+Its eval step decodes the whole ``points_iou`` set, each point's feature
+assigned by proximity, with no resampling.
+
+Gradients come from autograd over the plain modules,
 as the JAX package differentiates its plain XLA path; the optimizer is
 torch.optim.Adam (optax ``adam(lr)``'s β 0.9/0.999 and ε 1e-8) or SGD
 with momentum 0.9. ``training.matmul_precision`` decides whether the
@@ -25,9 +36,9 @@ steps' float32 matmuls and convolutions on the card run in TF32, as JAX
 maps its precision names on a GPU: 'default' and 'high' (the config
 default is 'default') allow TF32, 'highest' runs full float32.
 
-The JAX package's other loss paths (plain, contact, img, t2d without
-images), mixed precision, rematerialization and its
-device-resident fused steps are not ported yet (ROADMAP.md).
+The JAX package's other loss paths (plain, contact, t2d without images),
+mixed precision, rematerialization and its device-resident fused steps
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -88,14 +99,17 @@ class Trainer:
                  train_tactile=False, encode_t2d=False, pretrained_t2d=True,
                  mesh_bank: Optional[MeshBank] = None,
                  depth_origin: Optional[np.ndarray] = None, legacy_gt_depth=True,
-                 contact_per_finger=128, seed=0, skip_unused_t2d=False,
-                 compute_dtype=None, remat=False, matmul_precision="default"):
+                 contact_per_finger=128, tips_per_finger=512, seed=0,
+                 skip_unused_t2d=False, compute_dtype=None, remat=False,
+                 matmul_precision="default"):
         if matmul_precision not in TF32:
             raise ValueError(f"training.matmul_precision {matmul_precision!r} is "
                              f"none of {sorted(TF32)}")
-        if not (train_tactile or (encode_t2d and with_img)):
-            _not_ported("Only the t2d_img and tactile loss paths are ported; "
-                        "the plain, contact, img and t2d-without-images paths")
+        if not (train_tactile or with_img):
+            raise NotImplementedError(
+                "Only the t2d_img, img and tactile loss paths are ported; the "
+                "plain, contact and t2d-without-images loss paths (model.with_img "
+                "false) are not ported yet (ROADMAP.md, items 5 and 7)")
         if compute_dtype is not None:
             _not_ported("training.compute_dtype")
         if remat:
@@ -110,12 +124,14 @@ class Trainer:
         self.num_sample = num_sample
         self.threshold = threshold
         self.train_tactile = train_tactile
+        self.encode_t2d = encode_t2d
         self.pretrained_t2d = pretrained_t2d
         self.mesh_bank = mesh_bank
         self.depth_origin = (None if depth_origin is None
                              else torch.as_tensor(depth_origin, device=self.device))
         self.legacy_gt_depth = legacy_gt_depth
         self.contact_per_finger = contact_per_finger
+        self.tips_per_finger = tips_per_finger
         self.seed = seed
         self.skip_unused_t2d = skip_unused_t2d
         self.matmul_precision = matmul_precision
@@ -159,7 +175,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def prepare_batch(self, batch):
         """Loader batch dict → tensors on the trainer's device, with the
-        samples' padded ground-truth meshes."""
+        samples' padded ground-truth meshes on the t2d paths (the img path
+        takes the dataset's labels)."""
         def put(key, dtype=torch.float32):
             return torch.as_tensor(np.asarray(batch[key]), dtype=dtype, device=self.device)
 
@@ -173,7 +190,7 @@ class Trainer:
         a["touch_success"] = put("inputs.touch_success") > 0.5
         if "points_iou" in batch:
             a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
-        if self.train_tactile:
+        if self.train_tactile or not self.encode_t2d:
             return a
         if self.mesh_bank is None:
             raise ValueError("the t2d loss paths need ground-truth meshes "
@@ -267,23 +284,53 @@ class Trainer:
         return loss, scalars, {"c": c, "c_img": c_img,
                                "depth_for_contact": depth_for_contact}
 
+    def _compute_loss_img(self, a, draws=None, generator=None):
+        """The img loss (VTacOH) at the model's train/eval mode: (loss,
+        {name: scalar}, {"c", "c_img", "tips"})."""
+        m = self.model
+        self._mark("start")
+        c = m.encode_inputs(a["inputs"])
+        c_hand = m.encode_hand_inputs(a["inputs"])
+        c_img = m.encode_img_inputs(a["imgs"])
+        self._mark("encoders")
+        # the tips only choose the sample: no gradient reaches them
+        tips = C.tips_in_object_frame(c_hand["mano_joints"].detach(), a["mano"][:, :3],
+                                      a["wrist"], a["pc_ply"])
+        sample, occ = C.fingertip_gated_sample(
+            a["points"], a["occ"], tips, a["touch_success"], self.num_sample,
+            self.tips_per_finger, generator or self.generator, draws)
+        self._mark("contact_labels")
+        logits = m.decode_img(sample.points, c,
+                              C.scatter_finger_features(c_img, sample, init="zeros"))
+        loss_l1 = torch.mean(torch.abs(logits - occ))
+        loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
+        loss_pc = torch.mean((c_hand["mano_verts"] - a["pc_hand"]) ** 2)
+        loss = loss_l1 + loss_mano + loss_pc
+        scalars = {"loss": loss, "loss_l1": loss_l1, "loss_mano": loss_mano,
+                   "loss_pc": loss_pc}
+        self._mark("decode")
+        return loss, scalars, {"c": c, "c_img": c_img, "tips": tips}
+
     @staticmethod
     def _host(scalars):
         vals = torch.stack([v.detach() for v in scalars.values()]).tolist()
         return dict(zip(scalars, vals))
 
     def train_step(self, batch, draws=None):
-        """One optimization step in train mode. ``draws`` gives the contact
-        sample's draws (train.contact.contact_draws' dict) instead of the
-        trainer's generator. The gradients stay in the parameters' .grad
-        until the next step. Returns {scalar: float}."""
+        """One optimization step in train mode. ``draws`` gives the decode
+        sample's draws (train.contact.contact_draws' dict on the t2d path,
+        tips_draws' on the img path) instead of the trainer's generator.
+        The gradients stay in the parameters' .grad until the next step.
+        Returns {scalar: float}."""
         a = self.prepare_batch(batch)
         self.model.train()
         with matmul_precision(self.matmul_precision):
             if self.train_tactile:
                 loss, scalars = self._compute_loss_tactile(a)
-            else:
+            elif self.encode_t2d:
                 loss, scalars, _ = self._compute_loss(a, draws)
+            else:
+                loss, scalars, _ = self._compute_loss_img(a, draws)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             self._mark("backward")
@@ -294,14 +341,16 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch, draws=None, iou_draws=None):
-        """Loss scalars, and the IoU of the decode on a second
-        winding-labelled contact sample, in eval mode (as the JAX package
-        draws the loss's sample and the IoU's from different keys): ``iou``
+        """Loss scalars and an IoU in eval mode: on the t2d path of the
+        decode on a second winding-labelled contact sample (as the JAX
+        package draws the loss's sample and the IoU's from different keys),
+        on the img path of the decode on the whole ``points_iou`` set, each
+        point's tactile feature assigned by fingertip proximity. ``iou``
         with the reference's mean threshold, ``iou_fixed`` at the value
         threshold. The draws come from a generator seeded by the trainer's
         seed and step, so one validation sees the same samples for every
-        batch; ``draws`` and ``iou_draws`` give them explicitly. On the
-        tactile path: the loss scalars only."""
+        batch; ``draws`` and (t2d) ``iou_draws`` give them explicitly. On
+        the tactile path: the loss scalars only."""
         a = self.prepare_batch(batch)
         self.model.eval()
         if self.train_tactile:
@@ -310,11 +359,19 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(
             12345 + 1_000_003 * self.step + self.seed)
         with matmul_precision(self.matmul_precision):
-            _, scalars, enc = self._compute_loss(a, draws, gen)
-            sample, occ = self._labelled_sample(a, enc["depth_for_contact"], iou_draws, gen)
-            logits = self.model.decode_img(
-                sample.points, enc["c"], C.scatter_finger_features(enc["c_img"], sample,
-                                                                   init="ones"))
+            if self.encode_t2d:
+                _, scalars, enc = self._compute_loss(a, draws, gen)
+                sample, occ = self._labelled_sample(a, enc["depth_for_contact"],
+                                                    iou_draws, gen)
+                logits = self.model.decode_img(
+                    sample.points, enc["c"],
+                    C.scatter_finger_features(enc["c_img"], sample, init="ones"))
+            else:
+                _, scalars, enc = self._compute_loss_img(a, draws, gen)
+                occ = a["occ_iou"]
+                logits = self.model.decode_img(
+                    a["points_iou"], enc["c"], C.assign_features_by_proximity(
+                        a["points_iou"], enc["tips"], a["touch_success"], enc["c_img"]))
         out = self._host(scalars)
         out["iou"] = float(metrics.compute_iou(occ, logits, self.threshold)[0])
         out["iou_fixed"] = float(metrics.compute_iou(
