@@ -105,6 +105,36 @@ ends:
      (e) the same CLI on the tactile config from (a)'s checkpoint: one
      cloud of 5 x 320 x 240 points per sample. (f) LoopGenerator.visualize
      called directly on each checkpoint's model: its files must exist.
+     (g) fast: the three *_fast configs (bfloat16 with a float32 decoder,
+     the split on the card, K = 8 steps per block) on the same set, VTacO
+     grafted from (a). First torch's and the port's GroupNorm on a
+     bfloat16 64^3 grid against the float32 evaluation (the port's within
+     one ulp). Per config: (a) train.loop.train for K + 2 steps (blocks
+     of K, 1, 1; fused validation and a checkpoint at K + 2), then a
+     resume to 2K + 3 (blocks of K and 1), the resident split's MB, every
+     parameter, BatchNorm buffer and Adam moment float32; (b) at
+     'default', FAST_ROUNDS rounds of one fused block and K plain float32
+     steps (host batches, compute_dtype and skip_unused_t2d off): the
+     step times with least and most, the peak memory of each, launches
+     per step and busy share under torch.profiler, and the host syncs
+     inside a block (utils.syncs.host_syncs around the fused call; its
+     scalars are read after it); (c) a bfloat16 step against the float32
+     'highest' step from the same weights (built from seed 0), batch and
+     draws, within tests/bf16_checks.step_bars (twice the JAX package's
+     own gap on the CPU), forward hooks seeing the encoders in bfloat16
+     and the decoder in float32; the same step from the trained weights,
+     logged; and each module that runs in bfloat16, alone at the built
+     weights under deterministic algorithms, against the port's bfloat16
+     evaluation on the host CPU within the card's module bar, each
+     planted fault (the module in float32, BatchNorm in bfloat16) logged
+     beside it; (d) a remat step
+     against FAST_PLAIN plain steps from the trained weights, as the card
+     runs them (logged) and under torch.use_deterministic_algorithms
+     (held: no farther than the plain steps' spread), BatchNorm buffers
+     equal, the peak memory of each; (e) cli.generate from the VTacO and
+     VTacOH checkpoints: K1, and K2 on fingertip rows, once per
+     object (counters zeroed just before; these launches join the
+     kernels' count as fast_cli_generate and fast_vtacoh_cli_generate).
 Then one JSON line describing the kernels (K2's and K3's launches by
 mode, and their c_img mode's reading), and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -113,13 +143,16 @@ repository; it never falls back to the CPU.
 """
 
 import contextlib
+import copy
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -129,6 +162,7 @@ from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
 from vtaco_tpu_torch.data import synthetic
 from vtaco_tpu_torch.data.core import BatchLoader
+from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
@@ -148,6 +182,13 @@ from vtaco_tpu_torch.ops.dense_decode import (
     window_blocks,
     window_overflow,
 )
+from vtaco_tpu_torch.models.layers import BatchNorm2d, frozen_batch_stats
+from vtaco_tpu_torch.train.trainer import matmul_precision
+from vtaco_tpu_torch.utils.syncs import host_syncs
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from bf16_checks import (CARD_BAR, CARD_OUTPUTS_LOGGED, bf16_batchnorm,  # noqa: E402
+                         exact_zero, step_bars)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-4
@@ -187,6 +228,27 @@ TRAIN_REFERENCE = {"tactile": torch.float64, "train": torch.float32,
 # tactile_test's batch of 12 fits; 2 val, 2 test), their query points
 # (both configs' points_subsample) and tactile images (H, W)
 PIPELINE_MODELS, PIPELINE_QUERY, PIPELINE_IMG = 16, 100_000, (320, 240)
+# fast phase: the *_fast configs (their steps per block K = 8 is read from
+# each config) and FAST_ROUNDS timing rounds of one fused block of K steps
+# and K plain steps each. (c) holds a bfloat16 step against the card's
+# float32 ('highest') step to tests/bf16_checks.step_bars (twice the JAX
+# package's own gap, measured on the CPU), and each module of FAST_MODULES
+# alone against the port's bfloat16 evaluation on the host CPU to the
+# module bars there; (d) compares a remat step with FAST_PLAIN plain steps
+# under torch.use_deterministic_algorithms, for which cuBLAS needs a fixed
+# workspace (set before its first use).
+FAST_CONFIGS = (("vtaco", "configs/VTacO/VTacO_YCB_fast.yaml"),
+                ("vtacoh", "configs/VTacOH/VTacOH_YCB_fast.yaml"),
+                ("tactile", "configs/tactile/tactile_test_fast.yaml"))
+FAST_ROUNDS, FAST_PLAIN = 3, 4
+# the modules that a *_fast config runs in bfloat16 (VTacOH's are VTacO's
+# at the same widths) → (the model method that runs it, its batch key)
+FAST_MODULES = {"vtaco": ("encoder", "encoder_hand", "encoder_img"), "vtacoh": (),
+                "tactile": ("encoder_hand", "encoder_img")}
+MODULE_METHODS = {"encoder": ("encode_inputs", "inputs"),
+                  "encoder_hand": ("encode_hand_inputs", "inputs"),
+                  "encoder_img": ("encode_img_inputs", "imgs")}
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
 # two operations), TF32 on the tensor cores, and HBM bandwidth, by the
@@ -1686,12 +1748,522 @@ def visualize_stage(root, vt, tac, vh):
             raise AssertionError("visualize: no metrics printed")
 
 
+# ---------------------------------------------------------------------------
+# the fast phase: the *_fast configs
+
+def fast_config(name, path, root, data, t2d_ckpt):
+    """A *_fast config on the pipeline's set, validated and checkpointed
+    every K + 2 steps; VTacO grafts the tactile stage's stack."""
+    cfg = pipeline_config(path, root, data, f"fast_{name}")
+    k = int(cfg["training"]["steps_per_dispatch"])
+    cfg["training"].update(validate_every=k + 2, checkpoint_every=k + 2)
+    if name == "vtaco":
+        cfg["model"]["encoder_t2d_kwargs"]["model_file"] = t2d_ckpt
+    if name != "tactile":
+        cfg["generation"]["mc_level"] = "mean"
+    return cfg, k
+
+
+def logged_blocks(out_dir):
+    """The fused loop's block lengths, in order, from its metrics log."""
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [int(r["value"]) for r in recs if r["tag"] == "train/steps_per_block"]
+
+
+def fast_loop(phase, cfg, k):
+    """(a) loop.train on the device-resident split: K + 2 steps (blocks of
+    K, 1 and 1: validation and a checkpoint at K + 2), then a resume to
+    2K + 3 (blocks of K and 1). Returns the resumed run's trainer."""
+    first, total = k + 2, 2 * k + 3
+    t0 = time.perf_counter()
+    (_, it1), out1 = printed(loop.train, cfg, max_iters=first, device="cuda", seed=0,
+                             generator_factory=make_loop_generator)
+    (trainer, it2), out2 = printed(loop.train, cfg, max_iters=total, device="cuda",
+                                   seed=0, generator_factory=make_loop_generator)
+    torch.cuda.synchronize()
+    out_dir = cfg["training"]["out_dir"]
+    sizes = logged_blocks(out_dir)
+    with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+        its = [json.loads(line)["it"] for line in f if '"train/loss"' in line]
+    resident = re.search(r"device-resident dataset: (\d+) models, ([\d.]+) MB on \S+ "
+                         r"\(val: (\d+) models, ([\d.]+) MB\)", out1)
+    log(phase, loop_s=time.perf_counter() - t0, iterations=it2, blocks=sizes,
+        train_models=resident and int(resident[1]), resident_mb=resident and float(resident[2]),
+        val_models=resident and int(resident[3]), val_resident_mb=resident and float(resident[4]))
+    if (it1, it2) != (first, total) or sizes != [k, 1, 1, k, 1] or its != list(
+            range(1, total + 1)) or resident is None:
+        raise AssertionError(f"{phase}: loop ran {it1}, {it2} in blocks {sizes}, logged {its}")
+    if f"resumed at it={first}" not in out2 or "Validation metric" not in out1:
+        raise AssertionError(f"{phase}: no resume at {first} or no fused validation")
+    for f in ("model.ckpt", "model_best.ckpt"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"{phase}: loop.train wrote no {f}")
+    if trainer.step != total or trainer.compute_dtype != "bfloat16":
+        raise AssertionError(f"{phase}: trainer at step {trainer.step}, {trainer.compute_dtype}")
+    bad = [k2 for k2, v in trainer.model.state_dict().items()
+           if v.is_floating_point() and v.dtype != torch.float32]
+    bad += [k2 for st in trainer.optimizer.state.values() for k2, v in st.items()
+            if torch.is_tensor(v) and v.is_floating_point() and v.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{phase}: master state not float32: {bad[:5]}")
+    return trainer
+
+
+def profiled(fn, n_steps):
+    """fn() under torch.profiler: (wall seconds, the kernels' device
+    seconds, kernel launches per step)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    return (wall, sum(e.self_device_time_total for e in kernels) / 1e6,
+            sum(e.count for e in kernels) / n_steps)
+
+
+def fast_timing(phase, cfg, trainer, k):
+    """(b) at the config's precision ('default'): the warm time per step in
+    a fused block (its wall time, ending in its one host read, over K)
+    and, in the same process, the plain float32 step of the same model
+    (host loader batches, one train_step each, compute_dtype and
+    skip_unused_t2d off as in the non-fast config), FAST_ROUNDS rounds of
+    one block and K plain steps, with least and most; the peak memory of
+    each; launches per step and busy share under torch.profiler; and the
+    host syncs inside a block (utils.syncs.host_syncs around the fused
+    call, whose scalars stay on the card until the read after it)."""
+    bs = cfg["training"]["batch_size"]
+    n_points, n_cloud = cfg["data"]["points_subsample"], cfg["data"]["pointcloud_n"]
+    dds = DeviceDataset(get_dataset("train", cfg), device="cuda",
+                        pointcloud_noise=cfg["data"]["pointcloud_noise"])
+    loader = DeviceBatchLoader(dds, bs, n_points, n_cloud, seed=1)
+    fused = trainer.make_fused_train_fn(dds, n_points, n_cloud)
+
+    def block():
+        return trainer.read_scalars(fused(loader.take_ids(k), loader.next_key()))
+
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["training"].update(compute_dtype=None, skip_unused_t2d=False)
+    plain = Trainer.from_config(trainer.model, plain_cfg, mesh_bank=trainer.mesh_bank, seed=1)
+    batches = take(BatchLoader(get_dataset("train", cfg), bs, num_workers=4, seed=1),
+                   (FAST_ROUNDS + 2) * k)
+    block()        # warm-up
+    for b in batches[-k:]:
+        plain.train_step(b)
+    fused_s, plain_s, peak_f, peak_p = [], [], 0, 0
+    for r in range(FAST_ROUNDS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scal = block()
+        fused_s.append((time.perf_counter() - t0) / k)
+        peak_f = max(peak_f, torch.cuda.max_memory_allocated())
+        if not all(np.isfinite(v).all() for v in scal.values()):
+            raise AssertionError(f"{phase}: non-finite fused scalars {scal}")
+        torch.cuda.reset_peak_memory_stats()
+        for b in batches[r * k:(r + 1) * k]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain.train_step(b)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+        peak_p = max(peak_p, torch.cuda.max_memory_allocated())
+    log(phase, matmul_precision=trainer.matmul_precision, batch_size=bs, steps_per_block=k,
+        fused_step_s=float(np.median(fused_s)), fused_step_s_min=min(fused_s),
+        fused_step_s_max=max(fused_s), fused_step_s_each=fused_s,
+        plain_step_s=float(np.median(plain_s)), plain_step_s_min=min(plain_s),
+        plain_step_s_max=max(plain_s), fused_peak_mem_gib=peak_f / 2 ** 30,
+        plain_peak_mem_gib=peak_p / 2 ** 30)
+    wall, busy, launches = profiled(block, k)
+    p_wall, p_busy, p_launches = profiled(lambda: [plain.train_step(b) for b in batches[:k]], k)
+    log(phase, profiled="fused_block", steps=k, wall_s=wall, kernel_s=busy,
+        device_busy_share=busy / wall, kernel_launches_per_step=launches)
+    log(phase, profiled="plain_steps", steps=k, wall_s=p_wall, kernel_s=p_busy,
+        device_busy_share=p_busy / p_wall, kernel_launches_per_step=p_launches)
+    torch.cuda.synchronize()
+    stacked, syncs = host_syncs(fused, loader.take_ids(k), loader.next_key())
+    scal = trainer.read_scalars(stacked)
+    sites = sorted({f"{os.path.relpath(f, REPO)}:{line}" for f, line in syncs})
+    log(phase, host_syncs_per_block=len(syncs), final_reads_per_block=1, sync_sites=sites)
+    if not all(v.shape == (k,) and np.isfinite(v).all() for v in scal.values()):
+        raise AssertionError(f"{phase}: the checked block's scalars: {scal}")
+
+
+def fast_draws(trainer, a, seed):
+    """The decode sample's draws of one step, made once so that every step
+    compared takes them: the t2d contact sample's, or the fingertip
+    sample's from the model's float32 fingertips."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if trainer.train_tactile:
+        return None
+    if trainer.encode_t2d:
+        H, W = a["imgs"].shape[2:4]
+        return C.contact_draws(a["depths"], a["touch_success"],
+                               trainer._depth_origin_for(H * W), a["points"].shape[1],
+                               trainer.num_sample, trainer.contact_per_finger, g)
+    with torch.no_grad():
+        joints = trainer.model.encode_hand_inputs(a["inputs"])["mano_joints"]
+    tips = C.tips_in_object_frame(joints, a["mano"][:, :3], a["wrist"], a["pc_ply"])
+    return C.tips_draws(C.tips_mask(a["points"], tips, a["touch_success"]),
+                        trainer.num_sample, trainer.tips_per_finger, g)
+
+
+def step_grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def module_rel(grads, ref):
+    """Each top-level module's gradient distance to ``ref`` relative to
+    ref's norm, over ref's tensors less exact_zero's."""
+    live = set(ref) - exact_zero(ref)
+    out = {}
+    for mod in sorted({n.split(".")[0] for n in live}):
+        names = [n for n in live if n.split(".")[0] == mod]
+        g = torch.cat([grads[n].flatten().double() for n in names])
+        w = torch.cat([ref[n].flatten().double() for n in names])
+        if float(w.norm()) > 0:
+            out[mod] = float((g - w).norm() / w.norm())
+    return out
+
+
+def fast_precision(phase, name, cfg, trainer, state, hold):
+    """(c) one bfloat16 step (the config's keep_f32_modules) against the
+    card's float32 'highest' step from the weights ``state``, a host loader
+    batch from seed 5 and one set of draws: the loss scalars' relative
+    gaps and each module's relative gradient distance, within
+    step_bars(name) when ``hold``; forward hooks must see the encoders'
+    outputs in bfloat16 and the decoder's inputs in float32. The model's
+    own state is put back. Returns the prepared batch and the draws."""
+    model = trainer.model
+    own = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    bs = cfg["training"]["batch_size"]
+    np.random.seed(5)   # the items' subsampling and noise draw from it
+    batch = next(iter(BatchLoader(get_dataset("train", cfg), bs, num_workers=1, seed=5)))
+    model.load_state_dict(state)
+    a = trainer.prepare_batch(batch)
+    draws = fast_draws(trainer, a, 6)
+    seen = {}
+
+    def hook(name, inputs):
+        def record(mod, args, out):
+            x = args if inputs else out
+            vals = x.values() if isinstance(x, dict) else (x if isinstance(x, tuple) else (x,))
+            seen.setdefault(name, set()).update(
+                str(v.dtype)[6:] for v in vals if torch.is_tensor(v) and v.is_floating_point())
+        return record
+
+    watched = {"encoder": False, "encoder_hand": False, "encoder_img": False}
+    handles = [getattr(model, m).register_forward_hook(hook(m, inp))
+               for m, inp in watched.items() if getattr(model, m) is not None]
+    if model.decoder is not None:
+        handles += [model.decoder.fc_p_img.register_forward_hook(hook("decoder", True)),
+                    model.decoder.fc_out.register_forward_hook(hook("decoder_out", False))]
+    runs = {}
+    try:
+        for dt in ("bfloat16", None):
+            seen.clear()
+            model.load_state_dict(state)
+            tr = Trainer.from_config(model, cfg, mesh_bank=trainer.mesh_bank, seed=2,
+                                     compute_dtype=dt, matmul_precision="highest")
+            runs[dt] = tr.train_step(batch, draws), step_grads(model), dict(seen)
+    finally:
+        for h in handles:
+            h.remove()
+    model.load_state_dict(own)
+    (s16, g16, seen16), (s32, g32, seen32) = runs["bfloat16"], runs[None]
+    rel = {k: abs(s16[k] - s32[k]) / max(abs(s32[k]), 1e-12) for k in s32}
+    dist = module_rel(g16, g32)
+    loss_bar, grad_bars = step_bars(name)
+    weights = "seed0" if hold else "trained"
+    log(phase, weights=weights, vs_float32_highest="loss_rel_gap", bar=loss_bar, held=hold,
+        **rel)
+    log(phase, weights=weights, vs_float32_highest="grad_rel_dist", bars=grad_bars, held=hold,
+        **dist)
+    log(phase, weights=weights, dtypes_bf16_step=seen16, dtypes_f32_step=seen32)
+    want16 = {m: {"bfloat16"} for m in watched if getattr(model, m) is not None}
+    if model.decoder is not None:
+        want16.update(decoder={"float32"}, decoder_out={"float32"})
+    if seen16 != want16 or any(v != {"float32"} for v in seen32.values()):
+        raise AssertionError(f"{phase}: the modules ran in {seen16} (want {want16})")
+    if hold and (max(rel.values()) > loss_bar or set(dist) != set(grad_bars)
+                 or any(d > grad_bars[m] for m, d in dist.items())):
+        raise AssertionError(f"{phase}: bfloat16 step beyond its bars: {rel} {dist}")
+    return a, draws
+
+
+def module_eval(model, cfg, mod, x, cot, dtype, fault=None):
+    """``mod`` alone as a bfloat16 step runs it (Trainer._call on the cast
+    parameters; train mode, the BatchNorm statistics left alone) on x, at
+    'highest', with the cotangent ``cot`` on its floating outputs (None:
+    drawn from seed 5 on the CPU): ({output: tensor}, {parameter:
+    gradient}, cot), in float64 on the CPU. ``fault``: 'float32' keeps the
+    module in float32, 'bf16_batchnorm' plants that BatchNorm. On the CPU
+    oneDNN stays on (Trainer turns it off for bfloat16 steps because of a
+    fault on 1x1 inputs, which full-size images never reach; without it a
+    bfloat16 64^3 UNet3D takes minutes)."""
+    keep = ("decoder", mod) if fault == "float32" else ("decoder",)
+    tr = Trainer.from_config(model, cfg, compute_dtype=dtype, keep_f32_modules=keep,
+                             matmul_precision="highest")
+    model.train()
+    model.zero_grad(set_to_none=True)
+    method = MODULE_METHODS[mod][0]
+    forward = BatchNorm2d.forward
+    if fault == "bf16_batchnorm":
+        BatchNorm2d.forward = bf16_batchnorm
+    try:
+        with frozen_batch_stats(), matmul_precision("highest"):
+            if dtype is not None:
+                tr._params = tr._module_params(tr._cast_params(dict(model.named_parameters())))
+            out = tr._call(method, x)
+            out = {k: v for k, v in (sorted(out.items()) if isinstance(out, dict)
+                                     else [("out", out)]) if v.is_floating_point()}
+            if cot is None:
+                g = torch.Generator().manual_seed(5)
+                cot = {k: torch.randn(v.shape, generator=g) for k, v in out.items()}
+            torch.autograd.backward([out[k] for k in cot],
+                                    [cot[k].to(out[k].device, out[k].dtype) for k in cot])
+    finally:
+        tr._params = None
+        BatchNorm2d.forward = forward
+    grads = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()
+             if n.split(".")[0] == mod and p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: v.detach().double().cpu() for k, v in out.items()}, grads, cot
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms for the block (cuDNN's choice
+    too); yields the list that collects the names of the operations that
+    warned that they have no deterministic kernel."""
+    cudnn = torch.backends.cudnn.deterministic
+    ops = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield ops
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn
+            ops += sorted({str(w.message).split(" does not have a deterministic")[0]
+                           for w in seen if "does not have a deterministic" in str(w.message)})
+
+
+def fast_modules(phase, name, cfg, trainer, state, a):
+    """(c) each module of FAST_MODULES alone at the weights ``state`` (the
+    built ones: the trained weights differ from run to run), on the first
+    sample of (c)'s batch, under deterministic() so that a run reads what
+    the last one did: the card's bfloat16 evaluation against the port's
+    bfloat16 evaluation on the host CPU (held to the JAX
+    package's on the CPU by tests/test_torch_fast_modules.py), R = the
+    distance in units of the CPU's bfloat16-to-float32 gap (the card's
+    float32 'highest' evaluation standing for float32), per output and
+    for the gradient, within CARD_BAR (the hand encoders' outputs logged
+    only: tests/bf16_checks.py); each planted fault on the card (the
+    module in float32; BatchNorm in bfloat16 where the module has
+    BatchNorm) logged beside it, with whether it exceeds the bar (the CPU
+    test holds that it does)."""
+    model = trainer.model
+    own = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    cpu_model = copy.deepcopy(model).cpu()
+    failed = {}
+    with deterministic() as ops:
+        R_all = {mod: module_ratios(model, cpu_model, cfg, mod, a)
+                 for mod in FAST_MODULES[name]}
+    model.load_state_dict(own)
+    for mod, (R, cpu_s) in R_all.items():
+        held = ("grad",) if mod in CARD_OUTPUTS_LOGGED else tuple(R["port"])
+
+        def exceeds(r):
+            return any(r[k] > CARD_BAR for k in held)
+
+        log(phase, module=mod, cpu_reference_s=cpu_s, bar=CARD_BAR, held=held,
+            **{f"R_{t}": v for t, v in R.items()},
+            **{f"{t}_exceeds": exceeds(v) for t, v in R.items() if t != "port"})
+        if exceeds(R["port"]):
+            failed[mod] = R["port"]
+    log(phase, modules_nondeterministic_ops=ops)
+    if failed:
+        raise AssertionError(f"{phase}: modules against the CPU's bfloat16: {failed}")
+
+
+def module_ratios(model, cpu_model, cfg, mod, a):
+    """fast_modules' readings of one module: ({'port' and each fault: R},
+    the CPU reference's seconds)."""
+    x = a[MODULE_METHODS[mod][1]][:1]
+    f32 = module_eval(model, cfg, mod, x, None, None)
+    cot = f32[2]
+    t0 = time.perf_counter()
+    ref16 = module_eval(cpu_model, cfg, mod, x.cpu().bfloat16(), cot, "bfloat16")
+    cpu_s = time.perf_counter() - t0
+    has_bn = any(isinstance(m, BatchNorm2d) for m in getattr(model, mod).modules())
+    runs = {"port": module_eval(model, cfg, mod, x.bfloat16(), cot, "bfloat16"),
+            "fault_float32": module_eval(model, cfg, mod, x.bfloat16(), cot, "bfloat16",
+                                         "float32")}
+    if has_bn:
+        runs["fault_bf16_batchnorm"] = module_eval(model, cfg, mod, x.bfloat16(), cot,
+                                                   "bfloat16", "bf16_batchnorm")
+    live = sorted(set(f32[1]) - exact_zero(f32[1]))
+
+    def ratio(got):
+        r = {k: float((got[0][k] - ref16[0][k]).norm() / (ref16[0][k] - f32[0][k]).norm())
+             for k in f32[0]}
+        num = sum(float((got[1][n] - ref16[1][n]).norm() ** 2) for n in live)
+        den = sum(float((ref16[1][n] - f32[1][n]).norm() ** 2) for n in live)
+        r["grad"] = float(np.sqrt(num / den))
+        return r
+
+    return {tag: ratio(v) for tag, v in runs.items()}, cpu_s
+
+
+def fast_remat(phase, cfg, trainer, a, draws):
+    """(d) from the trained weights, with (c)'s batch and draws, in the
+    config's precision: FAST_PLAIN plain steps and a rematerialized one
+    (training.remat), first as the card runs them (the spread between
+    plain steps that its atomics make), then under deterministic() (its
+    warnings name the operations that have no deterministic kernel: there
+    plain steps mostly agree bit for bit). Held: the deterministic remat
+    step's loss scalars and each module's gradient no farther from the
+    nearest plain step than two plain steps of either run are from each
+    other (or 1e-6); its BatchNorm buffers equal a plain step's (the
+    recomputation moves nothing). The peak memory of each."""
+    model = trainer.model
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def step(remat):
+        model.load_state_dict(state)
+        tr = Trainer.from_config(model, cfg, mesh_bank=trainer.mesh_bank, seed=3, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sc = tr._host(tr._train_step(a, draws))
+        peak = torch.cuda.max_memory_allocated()
+        bufs = {k: v.detach().clone() for k, v in model.state_dict().items()
+                if "running" in k or "num_batches" in k}
+        return sc, step_grads(model), bufs, peak
+
+    def dist(x, y):
+        d = {k: abs(x[0][k] - y[0][k]) / max(abs(y[0][k]), 1e-12) for k in y[0]}
+        for mod in {n.split(".")[0] for n in y[1]}:
+            names = [n for n in y[1] if n.split(".")[0] == mod]
+            g = torch.cat([x[1][n].flatten().double() for n in names])
+            w = torch.cat([y[1][n].flatten().double() for n in names])
+            d[mod] = float((g - w).norm() / w.norm())
+        return d
+
+    def compare(plain, remat):
+        spread, got = {}, {}
+        for i in range(FAST_PLAIN):
+            for k, v in dist(remat, plain[i]).items():
+                got[k] = min(got.get(k, np.inf), v)
+            for j in range(i + 1, FAST_PLAIN):
+                for k, v in dist(plain[i], plain[j]).items():
+                    spread[k] = max(spread.get(k, 0.0), v)
+        return spread, got
+
+    spread, got = compare([step(False) for _ in range(FAST_PLAIN)], step(True))
+    log(phase, remat="plain_spread", deterministic=False, **spread)
+    log(phase, remat="remat_to_nearest_plain", deterministic=False, **got)
+    with deterministic() as ops:
+        plain = [step(False) for _ in range(FAST_PLAIN)]
+        remat = step(True)
+    model.load_state_dict(state)
+    det_spread, det_got = compare(plain, remat)
+    log(phase, remat="plain_spread", deterministic=True, **det_spread)
+    log(phase, remat="remat_to_nearest_plain", deterministic=True, **det_got)
+    log(phase, remat_nondeterministic_ops=ops)
+    buf_equal = all(torch.equal(remat[2][k], v) for k, v in plain[0][2].items())
+    log(phase, remat_peak_mem_gib=remat[3] / 2 ** 30, plain_peak_mem_gib=plain[0][3] / 2 ** 30,
+        batchnorm_buffers=len(plain[0][2]), batchnorm_buffers_equal=buf_equal)
+    far = {k: v for k, v in det_got.items()
+           if v > max(spread[k], det_spread[k], 1e-6)}
+    if far or not buf_equal or not plain[0][2]:
+        raise AssertionError(f"{phase}: remat step differs: {far}, buffers equal {buf_equal}")
+
+
+def group_norm_bf16_check():
+    """GroupNorm on a bfloat16 input on the card (UNet3D's first norm at
+    VTacO_YCB's batch of 3 and 64^3 x 32 grid) against the float32
+    evaluation of the same input and weights, in bfloat16 ulps of each
+    output: torch's own kernel (logged: it rounds on the way) and the
+    port's models.unet3d.GroupNorm, which must be within one, as flax
+    reduces and normalizes in float32 and rounds once."""
+    from vtaco_tpu_torch.models.unet3d import GroupNorm
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn((3, 32, 64, 64, 64), generator=g, device="cuda") * 3 + 1).bfloat16()
+    norm = GroupNorm(8, 32).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(32, generator=g, device="cuda") + 0.5)
+        norm.bias.copy_(torch.randn(32, generator=g, device="cuda"))
+        w, b = norm.weight.bfloat16(), norm.bias.bfloat16()
+        want = torch.nn.functional.group_norm(x.float(), 8, w.float(), b.float(), 1e-5)
+
+        def ulps(got):
+            return float(((got.float() - want).abs()
+                          / (want.abs() * 2.0 ** -8).clamp_min(1e-30)).max())
+
+        torch_ulps = ulps(torch.nn.functional.group_norm(x, 8, w, b, 1e-5))
+        norm.weight.copy_(w.float())
+        norm.bias.copy_(b.float())
+        port_ulps = ulps(norm(x))
+    log("fast", group_norm_bf16_torch_max_ulps=torch_ulps,
+        group_norm_bf16_port_max_ulps=port_ulps)
+    if port_ulps > 1.0:
+        raise AssertionError(f"fast: the port's bfloat16 GroupNorm is {port_ulps} ulps off")
+
+
+def fast_phase(root, data, t2d_ckpt):
+    """(g) the three *_fast configs at full width on the pipeline's set:
+    (a) the loop in fused blocks with validation, checkpoints and a
+    resume, (b) their steps' time, memory, launches and syncs beside the
+    plain step's, (c) the bfloat16 step against the float32 one, (d)
+    remat against plain, (e) cli.generate from the VTacO and VTacOH
+    checkpoints (K1, and K2 on fingertip rows, once per object). Returns
+    (e)'s launches by path."""
+    group_norm_bf16_check()
+    launches = {}
+    for name, path in FAST_CONFIGS:
+        phase = f"fast_{name}"
+        cfg, k = fast_config(name, path, root, data, t2d_ckpt)
+        log(phase, config=path, steps_per_dispatch=k, compute_dtype=cfg["training"]["compute_dtype"],
+            on_device=cfg["data"]["on_device"], batch_size=cfg["training"]["batch_size"])
+        trainer = fast_loop(phase, cfg, k)
+        fast_timing(phase, cfg, trainer, k)
+        trained = {k2: v.detach().clone() for k2, v in trainer.model.state_dict().items()}
+        torch.manual_seed(0)
+        built = get_model(cfg, device="cpu").state_dict()
+        fast_precision(phase, name, cfg, trainer, built, hold=True)
+        a, draws = fast_precision(phase, name, cfg, trainer, trained, hold=False)
+        fast_modules(phase, name, cfg, trainer, built, a)
+        fast_remat(phase, cfg, trainer, a, draws)
+        ckpt = os.path.abspath(os.path.join(cfg["training"]["out_dir"], "model.ckpt"))
+        del trainer, a, draws
+        torch.cuda.empty_cache()
+        if name == "vtaco":
+            launches["fast_cli_generate"] = generate_meshes(
+                root, (cfg, ckpt), path, "fast_generate_vtaco", "fused_trunk_gated_cn")
+        elif name == "vtacoh":
+            launches["fast_vtacoh_cli_generate"] = generate_meshes(
+                root, (cfg, ckpt), path, "fast_generate_vtacoh", "fused_trunk_cn:c_img")
+    return launches
+
+
 def pipeline_phase():
     """The paper's three stages through the port's entry points at full
     width on one synthetic set: (a) pretrain the tactile depth stack,
     (b) train VTacO_YCB with its graft, (c) train VTacOH_YCB, (d, e)
-    reconstruct through the generation CLI, (f) the loop's visualization.
-    Returns the kernel launches of the CLI's VTacO and VTacOH paths."""
+    reconstruct through the generation CLI, (f) the loop's visualization,
+    (g) the *_fast configs. Returns the kernel launches of the CLI's VTacO
+    and VTacOH paths, and of the fast phase's by path."""
     root = os.path.join(REPO, "out", "chip_smoke_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -1706,8 +2278,9 @@ def pipeline_phase():
     vh = vtacoh_stage(root, data)
     launches = generate_stage(root, vt, tac, vh)
     visualize_stage(root, vt, tac, vh)
+    fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
-    return launches
+    return launches, fast
 
 
 def main():
@@ -1750,7 +2323,7 @@ def main():
     h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
     cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
     del h_model, h_gen
-    cli_launches, h_cli = pipeline_phase()
+    (cli_launches, h_cli), fast_launches = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
         "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),
@@ -1763,7 +2336,7 @@ def main():
     # counted apart as ':c_img') and both generation CLIs
     paths = {"mesh": launches, "eval_points": eval_launches, "vtacoh_mesh": h_mesh,
              "vtacoh_eval_points": h_eval, "cli_generate": cli_launches,
-             "vtacoh_cli_generate": h_cli}
+             "vtacoh_cli_generate": h_cli, **fast_launches}
     kernels = []
     for kname, (source, replaces) in replaced.items():
         r = rows[kname]

@@ -2,10 +2,11 @@
 csrc/window.cu; all on the tile chain of csrc/tile_chain.cuh) against
 their plain PyTorch versions on the card, and the training path on the
 card: one VTacO_YCB train step and one tactile depth-stack step against
-the same steps on the CPU, a mesh reconstructed through K1 from the
-checkpoint that train.loop.train writes, and the generation CLI on the
-card reconstructing a split through K1 (all at small widths on the port's
-synthetic set).
+the same steps on the CPU, a bfloat16 step against the card's float32
+one, a fused block of steps with no host sync, a mesh reconstructed
+through K1 from the checkpoint that train.loop.train writes, and the
+generation CLI on the card reconstructing a split through K1 (all at small
+widths on the port's synthetic set).
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -550,3 +551,76 @@ def test_train_then_mesh(cuda, train_cfg):
         (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
     assert K.fused_trunk_gated_cn.launches >= 1
     assert len(faces) > 0 and np.isfinite(verts).all() and np.isfinite(cd)
+
+
+@pytest.mark.cuda
+def test_bf16_step_card_within_bars(cuda, train_cfg):
+    """One bfloat16 step (keep_f32_modules: the decoder) against the card's
+    float32 'highest' step from the same weights, batch and contact draws,
+    held to the step bars for VTacO (tests/bf16_checks.step_bars: twice the
+    JAX package's own bfloat16-to-float32 gap on the CPU): the loss
+    scalars' relative gaps and each module's relative gradient distance
+    (less the exact_zero biases); every parameter, BatchNorm buffer and
+    Adam moment float32 after it."""
+    from bf16_checks import exact_zero, step_bars
+
+    loss_rtol, grad_rel = step_bars("vtaco")
+    torch.manual_seed(0)
+    base = get_model(train_cfg, device="cpu").state_dict()
+    bank = loop.build_mesh_bank(train_cfg, cuda)
+    batch = next(iter(BatchLoader(get_dataset("train", train_cfg), 3, num_workers=1,
+                                  seed=0)))
+    runs = {}
+    for dt in ("bfloat16", None):
+        model = get_model(train_cfg, device="cuda")
+        model.load_state_dict(base)
+        tr = Trainer.from_config(model, train_cfg, mesh_bank=bank, compute_dtype=dt)
+        a = tr.prepare_batch(batch)
+        H, W = a["imgs"].shape[2:4]
+        draws = C.contact_draws(a["depths"], a["touch_success"], tr._depth_origin_for(H * W),
+                                a["points"].shape[1], tr.num_sample, tr.contact_per_finger,
+                                torch.Generator(device="cuda").manual_seed(1))
+        sc = tr.train_step(batch, draws)
+        runs[dt] = sc, {n: p.grad.double() for n, p in model.named_parameters()
+                        if p.grad is not None}, tr
+    (s16, g16, tr16), (s32, g32, _) = runs["bfloat16"], runs[None]
+    for k in s32:
+        assert abs(s16[k] - s32[k]) <= loss_rtol * abs(s32[k]), (k, s16[k], s32[k])
+    assert g16.keys() == g32.keys()
+    live = set(g32) - exact_zero(g32)
+    for mod in {n.split(".")[0] for n in live}:
+        names = [n for n in live if n.split(".")[0] == mod]
+        g = torch.cat([g16[n].flatten() for n in names])
+        w = torch.cat([g32[n].flatten() for n in names])
+        assert float((g - w).norm() / w.norm()) <= grad_rel[mod], mod
+    assert all(v.dtype == torch.float32 for v in tr16.model.state_dict().values()
+               if v.is_floating_point())
+    assert all(v.dtype == torch.float32 for st in tr16.optimizer.state.values()
+               for v in st.values() if v.is_floating_point() and v.dim() > 0)
+
+
+@pytest.mark.cuda
+def test_fused_block_has_no_host_sync(cuda, train_cfg):
+    """K = 4 fused bfloat16 steps on a device-resident split (VTacO_YCB at
+    small widths): after a warm-up block, a block runs under
+    utils.syncs.host_syncs and none of its steps may wait for the card
+    (the failure lists the file:line of each wait); its scalars stay on
+    the card until the one read after it."""
+    from vtaco_tpu_torch.data.device_data import DeviceDataset
+    from vtaco_tpu_torch.utils.syncs import host_syncs
+
+    cfg = copy.deepcopy(train_cfg)
+    cfg["training"]["compute_dtype"] = "bfloat16"
+    torch.manual_seed(0)
+    tr = Trainer.from_config(get_model(cfg), cfg, mesh_bank=loop.build_mesh_bank(cfg, cuda))
+    dds = DeviceDataset(get_dataset("train", cfg), device="cuda")
+    fused = tr.make_fused_train_fn(dds, cfg["data"]["points_subsample"],
+                                   cfg["data"]["pointcloud_n"])
+    ids = np.array([[i % dds.n_models, (i + 1) % dds.n_models] for i in range(4)])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tr.read_scalars(fused(ids, gen))
+    torch.cuda.synchronize()
+    stacked, syncs = host_syncs(fused, ids, gen)
+    assert not syncs, syncs
+    out = tr.read_scalars(stacked)
+    assert all(v.shape == (4,) and np.isfinite(v).all() for v in out.values())

@@ -308,16 +308,6 @@ def test_exit_after_preemption(synth, tmp_path):
     assert scalars["it"] >= 1 and scalars["epoch_it"] >= 1
 
 
-@pytest.mark.parametrize("flag", [["--on-device"], ["--steps-per-dispatch", "2"]])
-def test_train_cli_rejects_unported(synth, tmp_path, flag):
-    from vtaco_tpu_torch.cli.train import main
-
-    path = tmp_path / "cfg.yaml"
-    path.write_text(yaml.safe_dump(small_cfg(synth, tmp_path / "out")))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main([str(path), "--max-iters", "1", "--cpu"] + flag)
-
-
 def test_train_cli_then_mesh(synth, tmp_path, capsys):
     """The train CLI on --cpu for 2 steps with validation and a checkpoint;
     a resume continues from its iteration; then a mesh reconstructed in

@@ -119,9 +119,9 @@ def make_batch(rng, n_touch=CONTACTS_PER_FINGER):
 
 
 def test_import_guard():
-    """Every module of the port (the generation CLI and the Inferencer
-    among them), and chip_smoke.py, import without jax and without
-    vtaco_tpu."""
+    """Every module of the port (the generation CLI, the Inferencer and
+    the device-resident dataset among them), and chip_smoke.py, import
+    without jax and without vtaco_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vtaco_tpu_torch\n"
@@ -130,7 +130,8 @@ def test_import_guard():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vtaco_tpu')]\n"
         "assert not bad, bad\n"
-        "assert {'vtaco_tpu_torch.cli.generate', 'vtaco_tpu_torch.generate.inferencer'} <= set(sys.modules)\n"
+        "assert {'vtaco_tpu_torch.cli.generate', 'vtaco_tpu_torch.generate.inferencer',\n"
+        "        'vtaco_tpu_torch.data.device_data'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('vtaco_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

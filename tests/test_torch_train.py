@@ -299,6 +299,7 @@ def setup(synth):
     jtr = JaxTrainer.from_config(jmodel, cfg, mesh_bank=jbank,
                                  contact_per_finger=PER_FINGER)
     ds = jax_get_dataset("train", cfg)
+    np.random.seed(0)   # the items' subsampling and noise draw from it
     batch = next(iter(JaxBatchLoader(ds, batch_size=2, num_workers=1, seed=0)))
     shapes = jtr.init_state_abstract(batch)
     rng = np.random.default_rng(8)

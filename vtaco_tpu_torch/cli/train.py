@@ -8,9 +8,11 @@ S`` saves a checkpoint and exits with code 3 after S seconds (the
 reference's preemption contract). Every ``training.visualize_every``
 iterations the loop writes the validation split's meshes (or, for a
 tactile depth stack, its predicted sensor clouds) under
-``<out_dir>/vis`` (generate.generator.LoopGenerator). The JAX package's
-``--on-device`` and ``--steps-per-dispatch`` (> 1) are not ported yet and
-raise.
+``<out_dir>/vis`` (generate.generator.LoopGenerator). ``--on-device``
+keeps the train and val splits on the device (``data.on_device``) and
+``--steps-per-dispatch K`` runs the steps in blocks of K with one host
+read each (``training.steps_per_dispatch``); the ``*_fast`` configs set
+both, and bfloat16 mixed precision.
 """
 
 from __future__ import annotations
@@ -44,9 +46,9 @@ def main(argv=None):
     parser.add_argument("--out-dir", type=str, default=None,
                         help="Override training.out_dir.")
     parser.add_argument("--on-device", action="store_true",
-                        help="Device-resident dataset (not ported yet).")
+                        help="Keep the dataset on the device (data.on_device).")
     parser.add_argument("--steps-per-dispatch", type=int, default=None,
-                        help="Fused train steps per dispatch (not ported yet).")
+                        help="Train steps per block on a device-resident dataset.")
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config, DEFAULT_CFG)

@@ -12,9 +12,16 @@ variance and moves its running variance with the unbiased one), and
 momentum 0.1 in torch's convention, flax's 0.9. The one-pass form matters
 where the batch variance is small beside the squared mean, as for the
 tactile U-Net's first convolutions on images scaled to [0, 1/255].
+Like flax's ``force_float32_reductions`` (its default), a bfloat16 input
+is reduced and normalized in float32 with the float32 value of the scale
+and bias, and the result is cast back to bfloat16; the running
+statistics stay float32. Inside ``frozen_batch_stats()`` (the
+recomputation of a rematerialized forward) the statistics do not move.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -23,18 +30,44 @@ import torch.nn.functional as F
 from vtaco_tpu_torch.models.unet2d import UpConv, check_unet_modes
 
 
+_FROZEN_STATS = [0]   # > 0 while a rematerialized forward is recomputed
+
+
+@contextlib.contextmanager
+def frozen_batch_stats():
+    """Train-mode BatchNorm2d normalizes with its batch statistics but
+    leaves its running statistics and counter alone: the context of the
+    backward pass's recomputation under torch.utils.checkpoint, so that a
+    rematerialized step moves them once, as JAX's functional remat does. A
+    plain counter, not thread-local: the autograd engine recomputes on its
+    own thread on the card."""
+    _FROZEN_STATS[0] += 1
+    try:
+        yield
+    finally:
+        _FROZEN_STATS[0] -= 1
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
+        dt = torch.promote_types(x.dtype, torch.float32)
         if not self.training:
-            return super().forward(x)
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked += 1
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+            if x.dtype == dt:
+                return super().forward(x)
+            return F.batch_norm(x.to(dt), self.running_mean, self.running_var,
+                                self.weight.to(dt), self.bias.to(dt), False, 0.0,
+                                self.eps).to(x.dtype)
+        xf = x.to(dt)
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if not _FROZEN_STATS[0]:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+                self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(dt)[:, None, None]
+        return y.to(x.dtype)
 
 
 class ResnetBlockFC(nn.Module):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vtaco_tpu_torch.ops.geometry import batch_rodrigues
+from vtaco_tpu_torch.ops.geometry import batch_rodrigues, const
 
 DEFAULT_NPZ = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -71,7 +71,11 @@ class ManoLayer(nn.Module):
 
     def forward(self, pose_coeffs, betas=None, trans=None):
         """(B, 3 + ncomps) → (verts (B, 778, 3), joints (B, 21, 3)[, full
-        pose (B, 48)])."""
+        pose (B, 48)]). The layer computes in its constants' dtype: a
+        bfloat16 input (the hand encoder's coefficients under mixed
+        precision) is cast to float32 here, where the JAX package promotes
+        it at the layer's first product."""
+        pose_coeffs = pose_coeffs.to(self.shapedirs.dtype)
         B = pose_coeffs.shape[0]
         hand_pose = pose_coeffs[:, 3:3 + self.ncomps]
         if self.use_pca:
@@ -93,8 +97,7 @@ class ManoLayer(nn.Module):
         v_posed = v_shaped + torch.einsum("vip,bp->bvi", self.posedirs, pose_map)
 
         # forward kinematics over the kintree
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rots.dtype,
-                              device=rots.device).expand(B, 1, 4)
+        bottom = const((0.0, 0.0, 0.0, 1.0), rots.dtype, rots.device).expand(B, 1, 4)
         transforms = []
         for j in range(16):
             parent = self.kintree_parents[j]
@@ -115,8 +118,13 @@ class ManoLayer(nn.Module):
         v_h = torch.cat([v_posed, v_posed.new_ones((B, 778, 1))], dim=-1)
         verts = torch.einsum("bvij,bvj->bvi", T, v_h)[..., :3]
 
-        tips = verts[:, TIPS_RIGHT if self.side == "right" else TIPS_LEFT]
-        jtr = torch.cat([G[:, :, :3, 3], tips], dim=1)[:, JOINT_REORDER]
+        # index tensors made once per device: a host list would be copied
+        # to the card, and waited for, on every call
+        dev = verts.device
+        tips = verts.index_select(1, const(tuple(TIPS_RIGHT if self.side == "right"
+                                                 else TIPS_LEFT), torch.int64, dev))
+        jtr = torch.cat([G[:, :, :3, 3], tips], dim=1).index_select(
+            1, const(tuple(JOINT_REORDER), torch.int64, dev))
 
         if trans is None:
             if self.center_idx is not None:

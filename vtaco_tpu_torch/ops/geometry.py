@@ -8,10 +8,30 @@ MANO layer.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 # plane axis pairs of the tri-plane feature fields
 PLANE_AXES = {"xz": (0, 2), "xy": (0, 1), "yz": (1, 2)}
+
+
+@functools.lru_cache(maxsize=None)
+def const(values: tuple, dtype, device):
+    """A constant tensor, made once per (values, dtype, device): building
+    it from a host list on every call would copy it to the card and wait
+    for the copy, a host sync inside the train step. Made outside
+    inference mode, so that autograd may use it later. Callers must not
+    modify it."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
+
+
+def inv(a):
+    """torch.linalg.inv without its error check, whose read of the
+    factorization's status waits for the card; the inverse is the same.
+    The matrices inverted here are rotations."""
+    return torch.linalg.inv_ex(a).inverse
 
 
 def normalize_coordinate(p, padding: float = 0.1, plane: str = "xz"):

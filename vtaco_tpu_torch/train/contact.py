@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from vtaco_tpu_torch.ops.geometry import R_from_PYR, norm_pc_1
+from vtaco_tpu_torch.ops.geometry import R_from_PYR, const, inv, norm_pc_1
 
 DEPTH_REST = 0.0215  # gel at rest: the value depth_origin stores
 CAM_FOV = 60.0       # sensor camera field of view, degrees
@@ -71,7 +71,7 @@ def cam_rotation_inv(rot):
     rot_x = mat([[cx, z, sx], [z, o, z], [-sx, z, cx]])
     rot_y = mat([[cy, -sy, z], [sy, cy, z], [z, z, o]])
     rot_z = mat([[z, z, o], [cz, sz, z], [-sz, cz, z]])
-    return torch.linalg.inv(rot_z @ rot_x @ rot_y)
+    return inv(rot_z @ rot_x @ rot_y)
 
 
 def contact_mask(depths, touch_success, depth_origin):
@@ -142,8 +142,7 @@ def t2d_contact_sample(depths, touch_success, cam_pos, cam_rot, pc_ply,
     ys = torch.div(idx, width, rounding_mode="floor").to(depths.dtype)
     pts_cam = torch.stack([d, -((xs - width / 2.0) * d / cam_f),
                            -((ys - height / 2.0) * d / cam_f)], dim=-1)
-    rot_off = torch.tensor([-math.pi / 2, 0.0, math.pi / 2], dtype=cam_rot.dtype,
-                           device=dev)
+    rot_off = const((-math.pi / 2, 0.0, math.pi / 2), cam_rot.dtype, dev)
     R_inv = cam_rotation_inv(cam_rot + rot_off)                    # (B, 5, 3, 3)
     world = (R_inv[:, :, None] @ pts_cam[..., None])[..., 0] + cam_pos[:, :, None]
     # norm_pc_1 by each sample's scan
@@ -183,12 +182,12 @@ def tips_in_object_frame(mano_joints, wrist_pos, wrist_rot_euler, pc_ply):
     the wrist position (B, 3), then normalized by each sample's scan
     ``pc_ply`` (B, P, 3) (norm_pc_1)."""
     dt, dev = mano_joints.dtype, mano_joints.device
-    offset = torch.tensor([0.11, 0.005, 0.0], dtype=dt, device=dev)
-    canon = torch.tensor([-math.pi / 2, math.pi / 2, 0.0], dtype=dt, device=dev)
-    R_canon_inv = torch.linalg.inv(R_from_PYR(canon))
-    R_wrist_inv = torch.linalg.inv(torch.stack(
+    offset = const((0.11, 0.005, 0.0), dt, dev)
+    canon = const((-math.pi / 2, math.pi / 2, 0.0), dt, dev)
+    R_canon_inv = inv(R_from_PYR(canon))
+    R_wrist_inv = inv(torch.stack(
         [R_from_PYR(w) for w in wrist_rot_euler.to(dt)]))                # (B, 3, 3)
-    tips = mano_joints[:, list(TIP_JOINTS)] - offset                     # (B, 5, 3)
+    tips = mano_joints.index_select(1, const(TIP_JOINTS, torch.int64, dev)) - offset  # (B, 5, 3)
     tips = R_wrist_inv @ (R_canon_inv @ tips.transpose(1, 2))            # (B, 3, 5)
     tips = tips.transpose(1, 2) + wrist_pos[:, None, :]
     return torch.stack([norm_pc_1(t, ply) for t, ply in zip(tips, pc_ply)])

@@ -1,5 +1,5 @@
 """Training loop with the reference's cadences (port of
-vtaco_tpu/train/loop.py:33-416, the host-loader path).
+vtaco_tpu/train/loop.py:33-416).
 
 An endless epoch loop with modulo-iteration triggers for print, validate,
 checkpoint, backup and visualize (through the ``generator_factory``'s
@@ -12,6 +12,16 @@ parameters are grafted from ``encoder_t2d_kwargs.model_file`` before a
 resume, so a resumed checkpoint's own encoder_t2d wins. TensorBoard
 events, ``profile_dir`` traces and ``debug_nans`` are not ported and
 raise.
+
+With ``data.on_device`` the train and val splits are stacked on the
+device (data.device_data) and validation runs through
+``Trainer.evaluate_device``; with ``training.steps_per_dispatch`` K > 1 as
+well, the steps run in blocks of K through ``Trainer.make_fused_train_fn``
+(one host read per block), cut to blocks of one step before each
+validate, checkpoint, backup and visualize cadence and before
+``max_iters``, so that every cadence fires at its iteration; each
+block's length is logged as ``train/steps_per_block`` at its first
+iteration. A block's ``exit_after`` check comes after its last step.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import torch
 from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.factory import get_model
 from vtaco_tpu_torch.data.core import BatchLoader, get_dataset
+from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.ops.winding import MeshBank
 from vtaco_tpu_torch.train.trainer import Trainer
 from vtaco_tpu_torch.utils import meshio
@@ -110,12 +121,6 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
         if tcfg.get(key):
             raise NotImplementedError(f"training.{key} is not ported yet "
                                       "(ROADMAP.md, item 13)")
-    if cfg["data"].get("on_device"):
-        raise NotImplementedError("data.on_device (the device-resident dataset) "
-                                  "is not ported yet (ROADMAP.md)")
-    if int(tcfg.get("steps_per_dispatch", 1) or 1) > 1:
-        raise NotImplementedError("training.steps_per_dispatch > 1 (fused steps) "
-                                  "is not ported yet (ROADMAP.md)")
     out_dir = tcfg["out_dir"]
     batch_size = tcfg["batch_size"]
     print_every, validate_every = tcfg["print_every"], tcfg["validate_every"]
@@ -136,8 +141,20 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
         print("Warning: batch_size %d > train split size %d; clamping"
               % (batch_size, len(train_dataset)))
         batch_size = len(train_dataset)
-    train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
-                               num_workers=tcfg["n_workers"], seed=seed)
+    val_dds = None
+    if cfg["data"].get("on_device"):
+        noise = cfg["data"]["pointcloud_noise"]
+        dds = DeviceDataset(train_dataset, pointcloud_noise=noise, device=device)
+        val_dds = DeviceDataset(val_dataset, pointcloud_noise=noise, device=device)
+        print("device-resident dataset: %d models, %.1f MB on %s (val: %d models, %.1f MB)"
+              % (dds.n_models, dds.nbytes() / 1e6, device, val_dds.n_models,
+                 val_dds.nbytes() / 1e6))
+        train_loader = DeviceBatchLoader(dds, batch_size, seed=seed,
+                                         n_points=cfg["data"]["points_subsample"],
+                                         n_cloud=cfg["data"]["pointcloud_n"])
+    else:
+        train_loader = BatchLoader(train_dataset, batch_size, shuffle=True,
+                                   num_workers=tcfg["n_workers"], seed=seed)
 
     def val_loader():
         return BatchLoader(val_dataset, 1, shuffle=False,
@@ -168,57 +185,102 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     print("output path: ", out_dir)
     logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"))
     generator = generator_factory(model, cfg, bank) if generator_factory else None
+    n_points, n_cloud = cfg["data"]["points_subsample"], cfg["data"]["pointcloud_n"]
+    fused_val = None
+    if val_dds is not None and val_dds.n_models:
+        fused_val = trainer.make_fused_eval_fn(val_dds, n_points, n_cloud)
     t0 = time.time()
     t_last, it_last = t0, it
+    stop = False
 
     def save(filename):
         ckpt.save(filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
 
-    stop = False
+    def post_step(scalars, exit_ok=True, rate=None):
+        """Everything after step ``it``: logging and the cadences. A fused
+        block passes exit_ok False for all but its last step: the model
+        already holds the whole block, so an exit_after save there would
+        record an ``it`` behind it; and its steps/s as ``rate``, since its
+        steps are logged together after it."""
+        nonlocal metric_val_best, stop, t_last, it_last
+        for k, v in scalars.items():
+            logger.add_scalar(f"train/{k}", v, it)
+        if print_every > 0 and it % print_every == 0:
+            now = time.time()
+            if rate is None:
+                rate = (it - it_last) / max(now - t_last, 1e-9)
+            msg = ", ".join(f"{k}={v:.4f}" for k, v in scalars.items())
+            print("[Epoch %02d] it=%03d, %s, %.2f it/s, time: %.2fs"
+                  % (epoch_it, it, msg, rate, now - t0))
+            t_last, it_last = now, it
+        if validate_every > 0 and it % validate_every == 0:
+            if fused_val is not None:
+                eval_dict = trainer.evaluate_device(fused_val, val_dds.n_models)
+            else:
+                eval_dict = trainer.evaluate(val_loader())
+            metric_val = eval_dict[metric]
+            print("Validation metric (%s): %.4f" % (metric, metric_val))
+            for k, v in eval_dict.items():
+                logger.add_scalar(f"val/{k}", v, it)
+            if sign * (metric_val - metric_val_best) > 0:
+                metric_val_best = metric_val
+                print("New best model (%s %.4f)" % (metric, metric_val_best))
+                save("model_best.ckpt")
+        if checkpoint_every > 0 and it % checkpoint_every == 0:
+            print("Saving checkpoint at iteration: %d" % it)
+            save("model.ckpt")
+        if backup_every > 0 and it % backup_every == 0:
+            print("Backup checkpoint at iteration: %d" % it)
+            save("model_%d.ckpt" % it)
+        if generator is not None and visualize_every > 0 and it % visualize_every == 0:
+            try:
+                generator.visualize(model, val_loader(), out_dir, it)
+            except Exception as e:   # visualization must not stop training
+                print("visualize failed:", e)
+        if exit_ok and exit_after > 0 and (time.time() - t0) >= exit_after:
+            print("Time limit reached. Exiting.")
+            save("model.ckpt")
+            raise SystemExit(3)
+        if max_iters is not None and it >= max_iters:
+            stop = True
+
+    fused_k = int(tcfg.get("steps_per_dispatch", 1) or 1)
     try:
-        while not stop:
-            epoch_it += 1
-            for batch in train_loader:
-                it += 1
-                scalars = trainer.train_step(batch)
-                for k, v in scalars.items():
-                    logger.add_scalar(f"train/{k}", v, it)
-                if print_every > 0 and it % print_every == 0:
-                    now = time.time()
-                    msg = ", ".join(f"{k}={v:.4f}" for k, v in scalars.items())
-                    print("[Epoch %02d] it=%03d, %s, %.2f it/s, time: %.2fs"
-                          % (epoch_it, it, msg, (it - it_last) / max(now - t_last, 1e-9),
-                             now - t0))
-                    t_last, it_last = now, it
-                if validate_every > 0 and it % validate_every == 0:
-                    eval_dict = trainer.evaluate(val_loader())
-                    metric_val = eval_dict[metric]
-                    print("Validation metric (%s): %.4f" % (metric, metric_val))
-                    for k, v in eval_dict.items():
-                        logger.add_scalar(f"val/{k}", v, it)
-                    if sign * (metric_val - metric_val_best) > 0:
-                        metric_val_best = metric_val
-                        print("New best model (%s %.4f)" % (metric, metric_val_best))
-                        save("model_best.ckpt")
-                if checkpoint_every > 0 and it % checkpoint_every == 0:
-                    print("Saving checkpoint at iteration: %d" % it)
-                    save("model.ckpt")
-                if backup_every > 0 and it % backup_every == 0:
-                    print("Backup checkpoint at iteration: %d" % it)
-                    save("model_%d.ckpt" % it)
-                if (generator is not None and visualize_every > 0
-                        and it % visualize_every == 0):
-                    try:
-                        generator.visualize(model, val_loader(), out_dir, it)
-                    except Exception as e:   # visualization must not stop training
-                        print("visualize failed:", e)
-                if exit_after > 0 and (time.time() - t0) >= exit_after:
-                    print("Time limit reached. Exiting.")
-                    save("model.ckpt")
-                    raise SystemExit(3)
-                if max_iters is not None and it >= max_iters:
-                    stop = True
-                    break
+        if val_dds is not None and fused_k > 1:
+            fused = trainer.make_fused_train_fn(train_loader.ds, n_points, n_cloud)
+            steps_per_epoch = max(1, train_loader.ds.n_models // batch_size)
+
+            def dist_to_cadence(it):
+                ds_ = [fused_k]
+                for c in (validate_every, checkpoint_every, backup_every, visualize_every):
+                    if c and c > 0:
+                        ds_.append(c - it % c)
+                if max_iters is not None:
+                    ds_.append(max_iters - it)
+                return max(1, min(ds_))
+
+            while not stop:
+                k = fused_k if dist_to_cadence(it) >= fused_k else 1
+                logger.add_scalar("train/steps_per_block", k, it + 1)
+                t_block = time.time()
+                scal = trainer.read_scalars(fused(train_loader.take_ids(k),
+                                                  train_loader.next_key()))
+                rate = k / max(time.time() - t_block, 1e-9)
+                for j in range(k):
+                    it += 1
+                    epoch_it = 1 + (it - 1) // steps_per_epoch
+                    post_step({name: float(v[j]) for name, v in scal.items()},
+                              exit_ok=j == k - 1, rate=rate)
+                    if stop:
+                        break
+        else:
+            while not stop:
+                epoch_it += 1
+                for batch in train_loader:
+                    it += 1
+                    post_step(trainer.train_step(batch))
+                    if stop:
+                        break
         save("model.ckpt")
     finally:
         logger.close()

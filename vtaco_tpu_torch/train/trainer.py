@@ -36,8 +36,29 @@ steps' float32 matmuls and convolutions on the card run in TF32, as JAX
 maps its precision names on a GPU: 'default' and 'high' (the config
 default is 'default') allow TF32, 'highest' runs full float32.
 
-The JAX package's other loss paths (plain, contact, t2d without images),
-mixed precision, rematerialization and its device-resident fused steps
+Mixed precision (``compute_dtype: bfloat16``, the ``*_fast`` configs)
+follows the JAX trainer's policy, not torch.autocast's per-op casts: each
+top-level module that is not in ``keep_f32_modules`` (default: the
+decoder) runs on bfloat16 copies of its parameters (torch.func.
+functional_call on a differentiably cast parameter dict, so the gradients
+reach the float32 masters); only the batch's ``inputs`` and ``imgs`` are
+cast; BatchNorm reduces in float32 and keeps float32 statistics; the loss
+and its scalars are float32, and so are Adam's moments. Where a bfloat16
+feature meets a float32 module, which JAX does by dtype promotion and
+torch's linear and convolution layers refuse, it is cast to float32 at
+the call (``_call``): the object grid ``c`` and the scattered finger rows
+``c_img`` entering the decoder, and (in ManoLayer) the hand encoder's
+coefficients entering the MANO layer. Evaluation runs in float32, as the
+JAX eval step does. ``remat`` recomputes each encoder and decoder call in
+the backward pass (torch.utils.checkpoint), and the recomputation leaves
+the BatchNorm statistics alone (models.layers.frozen_batch_stats).
+
+``make_fused_train_fn`` runs K steps on batches gathered and augmented on
+the device from a data.device_data.DeviceDataset, with one host read of
+the K steps' scalars; ``make_fused_eval_fn`` and ``evaluate_device``
+validate a device-resident split the same way.
+
+The JAX package's other loss paths (plain, contact, t2d without images)
 are not ported yet (ROADMAP.md).
 """
 
@@ -50,7 +71,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from vtaco_tpu_torch.models.layers import frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
 from vtaco_tpu_torch.train import contact as C
@@ -65,10 +89,35 @@ CAM_FOV = 60.0
 # DEFAULT and HIGH use TF32 where the card has it, HIGHEST full float32)
 TF32 = {"default": True, "fastest": True, "bfloat16": True, "high": True,
         "bfloat16_3x": True, "tensorfloat32": True, "highest": False, "float32": False}
+# the model method → the top-level module whose parameters it runs
+METHOD_MODULE = {"encode_inputs": "encoder", "encode_hand_inputs": "encoder_hand",
+                 "encode_img_inputs": "encoder_img", "encode_t2d": "encoder_t2d",
+                 "decode": "decoder", "decode_img": "decoder"}
+# the eval sample's base seed (the JAX package folds PRNGKey(12345))
+EVAL_SEED = 12345
+# batch keys of a device-resident sample (data.device_data) → the step's keys
+DEVICE_KEYS = {"points": "points", "occ": "points.occ", "pc_hand": "points.pc_hand",
+               "mano": "points.mano", "wrist": "points.wrist",
+               "cam_pos": "points.cam_pos", "cam_rot": "points.cam_rot",
+               "inputs": "inputs", "pc_ply": "inputs.pc_ply", "imgs": "inputs.img",
+               "depths": "inputs.depth", "touch_success": "inputs.touch_success"}
 
 
-def _not_ported(what):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+@contextlib.contextmanager
+def cpu_reduced_precision_convs(active):
+    """Turn oneDNN off for the block when ``active``: on the CPU its
+    bfloat16 convolution (PyTorch 2.13) leaves the weight gradient of the
+    kernel taps that see only padding uninitialized when a stride-2 conv
+    meets a 1x1 input (ResNet-18's last stage on small images), and the
+    step then trains on garbage. The fallback is exact and slower; float32
+    steps and the card are unaffected."""
+    old = torch.backends.mkldnn.enabled
+    if active:
+        torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = old
 
 
 @contextlib.contextmanager
@@ -88,6 +137,36 @@ def _minmax_norm(x):
     return (x - torch.min(x)) / (torch.max(x) - torch.min(x))
 
 
+def _cast_floats(x, dtype):
+    """Floating tensors of x (a tensor, or a dict, list or tuple of them)
+    cast to dtype; anything else as it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype) if x.is_floating_point() else x
+    if isinstance(x, dict):
+        return {k: _cast_floats(v, dtype) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cast_floats(v, dtype) for v in x)
+    return x
+
+
+def _remat_contexts():
+    """torch.utils.checkpoint's (forward, recomputation) contexts: the
+    recomputation leaves the BatchNorm statistics alone."""
+    return contextlib.nullcontext(), frozen_batch_stats()
+
+
+class _Bound(nn.Module):
+    """Runs one of the model's methods, for torch.func.functional_call to
+    swap the model's parameters under it."""
+
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, method, *args):
+        return getattr(self.model, method)(*args)
+
+
 class Trainer:
     """Runs the train and eval steps on the device of ``model``'s
     parameters. ``stage_events``, when set to a list, collects
@@ -100,8 +179,8 @@ class Trainer:
                  mesh_bank: Optional[MeshBank] = None,
                  depth_origin: Optional[np.ndarray] = None, legacy_gt_depth=True,
                  contact_per_finger=128, tips_per_finger=512, seed=0,
-                 skip_unused_t2d=False, compute_dtype=None, remat=False,
-                 matmul_precision="default"):
+                 skip_unused_t2d=False, compute_dtype=None, keep_f32_modules=("decoder",),
+                 remat=False, matmul_precision="default"):
         if matmul_precision not in TF32:
             raise ValueError(f"training.matmul_precision {matmul_precision!r} is "
                              f"none of {sorted(TF32)}")
@@ -111,9 +190,19 @@ class Trainer:
                 "plain, contact and t2d-without-images loss paths (model.with_img "
                 "false) are not ported yet (ROADMAP.md, items 5 and 7)")
         if compute_dtype is not None:
-            _not_ported("training.compute_dtype")
-        if remat:
-            _not_ported("training.remat")
+            if not isinstance(compute_dtype, str):
+                compute_dtype = str(compute_dtype).replace("torch.", "")
+            dt = getattr(torch, compute_dtype, None)
+            if not (isinstance(dt, torch.dtype) and dt.is_floating_point):
+                raise ValueError(f"training.compute_dtype {compute_dtype!r} is not a "
+                                 "floating dtype")
+        self.compute_dtype = compute_dtype
+        if isinstance(keep_f32_modules, str):
+            # a bare string would tuple() into characters and silently
+            # drop the float32 decoder
+            keep_f32_modules = (keep_f32_modules,)
+        self.keep_f32_modules = tuple(keep_f32_modules or ())
+        self.remat = bool(remat)
         self.model = model
         self.device = next(model.parameters()).device
         if optimizer is None:
@@ -138,6 +227,8 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
         self.stage_events = None
+        self._bound = _Bound(model)
+        self._params = None   # the train step's cast parameters by module (mixed precision)
 
     @classmethod
     def from_config(cls, model, cfg, mesh_bank=None, **kw):
@@ -160,17 +251,9 @@ class Trainer:
             **{"legacy_gt_depth": tcfg.get("legacy_gt_depth", True),
                "skip_unused_t2d": tcfg.get("skip_unused_t2d", False),
                "compute_dtype": tcfg.get("compute_dtype"),
+               "keep_f32_modules": tcfg.get("keep_f32_modules", ("decoder",)),
                "remat": tcfg.get("remat", False),
                "matmul_precision": tcfg.get("matmul_precision", "default"), **kw})
-
-    def make_fused_train_fn(self, *args, **kw):
-        _not_ported("Fused multi-step training (make_fused_train_fn)")
-
-    def make_fused_eval_fn(self, *args, **kw):
-        _not_ported("Fused validation (make_fused_eval_fn)")
-
-    def evaluate_device(self, *args, **kw):
-        _not_ported("Validation on a device-resident split (evaluate_device)")
 
     # ------------------------------------------------------------------
     def prepare_batch(self, batch):
@@ -178,7 +261,9 @@ class Trainer:
         samples' padded ground-truth meshes on the t2d paths (the img path
         takes the dataset's labels)."""
         def put(key, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(batch[key]), dtype=dtype, device=self.device)
+            v = batch[key]   # a host array, or a tensor (a device-resident batch)
+            v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+            return torch.as_tensor(v, dtype=dtype, device=self.device)
 
         a = {"points": put("points"), "occ": put("points.occ"),
              "inputs": put("inputs")}
@@ -204,6 +289,67 @@ class Trainer:
             return self.depth_origin
         return torch.full((hw,), DEPTH_REST, device=self.device)
 
+    # ------------------------------------------------------------------
+    # mixed precision and rematerialization
+    def _cast_params(self, params):
+        """Selective mixed precision on a {name: tensor} dict of parameters
+        (dotted names): with compute_dtype, each floating entry of a
+        top-level module not in keep_f32_modules is cast to it
+        (differentiably, so that gradients reach the float32 masters), the
+        others are kept; without it, params as they are."""
+        if self.compute_dtype is None:
+            return params
+        dt = getattr(torch, self.compute_dtype)
+        return {k: (v if k.split(".")[0] in self.keep_f32_modules
+                    or not v.is_floating_point() else v.to(dt))
+                for k, v in params.items()}
+
+    def _cast_batch(self, a):
+        """Mixed precision casts only the networks' input tensors, the
+        point cloud and the images; the geometry and label paths (depths,
+        camera poses, query points, winding labels) stay float32."""
+        if self.compute_dtype is None:
+            return a
+        dt = getattr(torch, self.compute_dtype)
+        return {k: (_cast_floats(v, dt) if k in ("inputs", "imgs") else v)
+                for k, v in a.items()}
+
+    @staticmethod
+    def _module_params(params):
+        """{name: tensor} → {top-level module: {"model." + name: tensor}},
+        the dicts that functional_call swaps in for each module's calls."""
+        out = {}
+        for k, v in params.items():
+            out.setdefault(k.split(".")[0], {})["model." + k] = v
+        return out
+
+    def _call(self, method, *args):
+        """The model's ``method`` (METHOD_MODULE) on args. In a train step
+        with compute_dtype, a module kept in float32 takes its floating
+        arguments in float32 (the cast where bfloat16 features enter the
+        decoder), any other module runs on the step's cast parameters with
+        its floating arguments in compute_dtype. With ``remat`` in train
+        mode the call is recomputed in the backward pass, its parameters
+        passed along so that the recomputation sees the same ones."""
+        module = METHOD_MODULE[method]
+        params = self._params
+        if params is not None:
+            if module in self.keep_f32_modules:
+                args, params = _cast_floats(args, torch.float32), None
+            else:
+                args = _cast_floats(args, getattr(torch, self.compute_dtype))
+                params = params.get(module, {})
+        if self.remat and self.model.training and torch.is_grad_enabled():
+            return checkpoint(self._run, method, params, *args, use_reentrant=False,
+                              context_fn=_remat_contexts)
+        return self._run(method, params, *args)
+
+    def _run(self, method, params, *args):
+        if params is None:
+            return getattr(self.model, method)(*args)
+        return torch.func.functional_call(self._bound, params, (method,) + args,
+                                          strict=False)
+
     def _mark(self, name):
         if self.stage_events is not None:
             ev = torch.cuda.Event(enable_timing=True)
@@ -225,13 +371,13 @@ class Trainer:
         (loss, {name: scalar})."""
         m = self.model
         self._mark("start")
-        pred_depth = m.encode_img_inputs(a["imgs"])
+        pred_depth = self._call("encode_img_inputs", a["imgs"])
         loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"])))
         loss, scalars = loss_depth, {"loss_depth": loss_depth}
         self._mark("depth_unet")
         if m.encoder_hand is not None:
             B = a["cam_pos"].shape[0]
-            c_hand = m.encode_hand_inputs(a["inputs"])
+            c_hand = self._call("encode_hand_inputs", a["inputs"])
             cam_info = torch.cat([a["cam_pos"].reshape(B, -1),
                                   a["cam_rot"].reshape(B, -1)], 1)
             loss_digit = torch.mean((c_hand["mano_param"] - cam_info) ** 2)
@@ -251,7 +397,7 @@ class Trainer:
         pred_depth = digit_param = None
         if t2d_needed or (m.training and not self.skip_unused_t2d):
             with torch.set_grad_enabled(t2d_needed and torch.is_grad_enabled()):
-                pred_depth, c_hand_d = m.encode_t2d(a["inputs"], a["imgs"])
+                pred_depth, c_hand_d = self._call("encode_t2d", a["inputs"], a["imgs"])
             digit_param = c_hand_d["mano_param"]
         self._mark("t2d")
         if self.legacy_gt_depth:
@@ -261,12 +407,12 @@ class Trainer:
         sample, occ = self._labelled_sample(a, depth_for_contact, draws,
                                             generator or self.generator)
         self._mark("contact_labels")
-        c = m.encode_inputs(a["inputs"])
-        c_hand = m.encode_hand_inputs(a["inputs"])
-        c_img = m.encode_img_inputs(a["imgs"])
+        c = self._call("encode_inputs", a["inputs"])
+        c_hand = self._call("encode_hand_inputs", a["inputs"])
+        c_img = self._call("encode_img_inputs", a["imgs"])
         self._mark("encoders")
-        logits = m.decode_img(sample.points, c,
-                              C.scatter_finger_features(c_img, sample, init="ones"))
+        logits = self._call("decode_img", sample.points, c,
+                            C.scatter_finger_features(c_img, sample, init="ones"))
         loss_l1 = torch.mean(torch.abs(logits - occ))
         loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
         loss_pc = torch.mean((c_hand["mano_verts"] - a["pc_hand"]) ** 2)
@@ -287,11 +433,10 @@ class Trainer:
     def _compute_loss_img(self, a, draws=None, generator=None):
         """The img loss (VTacOH) at the model's train/eval mode: (loss,
         {name: scalar}, {"c", "c_img", "tips"})."""
-        m = self.model
         self._mark("start")
-        c = m.encode_inputs(a["inputs"])
-        c_hand = m.encode_hand_inputs(a["inputs"])
-        c_img = m.encode_img_inputs(a["imgs"])
+        c = self._call("encode_inputs", a["inputs"])
+        c_hand = self._call("encode_hand_inputs", a["inputs"])
+        c_img = self._call("encode_img_inputs", a["imgs"])
         self._mark("encoders")
         # the tips only choose the sample: no gradient reaches them
         tips = C.tips_in_object_frame(c_hand["mano_joints"].detach(), a["mano"][:, :3],
@@ -300,8 +445,8 @@ class Trainer:
             a["points"], a["occ"], tips, a["touch_success"], self.num_sample,
             self.tips_per_finger, generator or self.generator, draws)
         self._mark("contact_labels")
-        logits = m.decode_img(sample.points, c,
-                              C.scatter_finger_features(c_img, sample, init="zeros"))
+        logits = self._call("decode_img", sample.points, c,
+                            C.scatter_finger_features(c_img, sample, init="zeros"))
         loss_l1 = torch.mean(torch.abs(logits - occ))
         loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
         loss_pc = torch.mean((c_hand["mano_verts"] - a["pc_hand"]) ** 2)
@@ -313,8 +458,38 @@ class Trainer:
 
     @staticmethod
     def _host(scalars):
-        vals = torch.stack([v.detach() for v in scalars.values()]).tolist()
+        """{name: 0-d tensor} → {name: float}, in one read from the device."""
+        vals = torch.stack([v.detach().float() for v in scalars.values()]).tolist()
         return dict(zip(scalars, vals))
+
+    def _train_step(self, a, draws=None):
+        """One optimization step on prepared tensors (prepare_batch's dict,
+        or a device-resident batch's): {scalar: 0-d float32 tensor} on the
+        device, read by nobody here, so that steps can follow each other
+        without a host sync."""
+        self.model.train()
+        with matmul_precision(self.matmul_precision), cpu_reduced_precision_convs(
+                self.compute_dtype is not None and self.device.type == "cpu"):
+            a = self._cast_batch(a)
+            if self.compute_dtype is not None:
+                self._params = self._module_params(
+                    self._cast_params(dict(self.model.named_parameters())))
+            try:
+                if self.train_tactile:
+                    loss, scalars = self._compute_loss_tactile(a)
+                elif self.encode_t2d:
+                    loss, scalars, _ = self._compute_loss(a, draws)
+                else:
+                    loss, scalars, _ = self._compute_loss_img(a, draws)
+            finally:
+                self._params = None
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.float().backward()
+            self._mark("backward")
+            self.optimizer.step()
+            self._mark("optimizer")
+        self.step += 1
+        return {k: v.detach().float() for k, v in scalars.items()}
 
     def train_step(self, batch, draws=None):
         """One optimization step in train mode. ``draws`` gives the decode
@@ -322,62 +497,52 @@ class Trainer:
         tips_draws' on the img path) instead of the trainer's generator.
         The gradients stay in the parameters' .grad until the next step.
         Returns {scalar: float}."""
-        a = self.prepare_batch(batch)
-        self.model.train()
-        with matmul_precision(self.matmul_precision):
-            if self.train_tactile:
-                loss, scalars = self._compute_loss_tactile(a)
-            elif self.encode_t2d:
-                loss, scalars, _ = self._compute_loss(a, draws)
-            else:
-                loss, scalars, _ = self._compute_loss_img(a, draws)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self._mark("backward")
-            self.optimizer.step()
-            self._mark("optimizer")
-        self.step += 1
-        return self._host(scalars)
+        return self._host(self._train_step(self.prepare_batch(batch), draws))
 
     @torch.no_grad()
-    def eval_step(self, batch, draws=None, iou_draws=None):
+    def _eval_step(self, a, draws=None, iou_draws=None, generator=None):
+        """eval_step on prepared tensors: {scalar: 0-d tensor} on the
+        device."""
+        self.model.eval()
+        with matmul_precision(self.matmul_precision):
+            if self.train_tactile:
+                return self._compute_loss_tactile(a)[1]
+            if self.encode_t2d:
+                _, scalars, enc = self._compute_loss(a, draws, generator)
+                sample, occ = self._labelled_sample(a, enc["depth_for_contact"],
+                                                    iou_draws, generator)
+                logits = self._call(
+                    "decode_img", sample.points, enc["c"],
+                    C.scatter_finger_features(enc["c_img"], sample, init="ones"))
+            else:
+                _, scalars, enc = self._compute_loss_img(a, draws, generator)
+                occ = a["occ_iou"]
+                logits = self._call(
+                    "decode_img", a["points_iou"], enc["c"], C.assign_features_by_proximity(
+                        a["points_iou"], enc["tips"], a["touch_success"], enc["c_img"]))
+        out = dict(scalars)
+        out["iou"] = metrics.compute_iou(occ, logits, self.threshold)[0]
+        out["iou_fixed"] = metrics.compute_iou(
+            occ, (logits >= self.threshold).float(), 0.5, legacy_mean_threshold=False)[0]
+        return out
+
+    def eval_step(self, batch, draws=None, iou_draws=None, generator=None):
         """Loss scalars and an IoU in eval mode: on the t2d path of the
         decode on a second winding-labelled contact sample (as the JAX
         package draws the loss's sample and the IoU's from different keys),
         on the img path of the decode on the whole ``points_iou`` set, each
         point's tactile feature assigned by fingertip proximity. ``iou``
         with the reference's mean threshold, ``iou_fixed`` at the value
-        threshold. The draws come from a generator seeded by the trainer's
-        seed and step, so one validation sees the same samples for every
-        batch; ``draws`` and (t2d) ``iou_draws`` give them explicitly. On
-        the tactile path: the loss scalars only."""
-        a = self.prepare_batch(batch)
-        self.model.eval()
-        if self.train_tactile:
-            with matmul_precision(self.matmul_precision):
-                return self._host(self._compute_loss_tactile(a)[1])
-        gen = torch.Generator(device=self.device).manual_seed(
-            12345 + 1_000_003 * self.step + self.seed)
-        with matmul_precision(self.matmul_precision):
-            if self.encode_t2d:
-                _, scalars, enc = self._compute_loss(a, draws, gen)
-                sample, occ = self._labelled_sample(a, enc["depth_for_contact"],
-                                                    iou_draws, gen)
-                logits = self.model.decode_img(
-                    sample.points, enc["c"],
-                    C.scatter_finger_features(enc["c_img"], sample, init="ones"))
-            else:
-                _, scalars, enc = self._compute_loss_img(a, draws, gen)
-                occ = a["occ_iou"]
-                logits = self.model.decode_img(
-                    a["points_iou"], enc["c"], C.assign_features_by_proximity(
-                        a["points_iou"], enc["tips"], a["touch_success"], enc["c_img"]))
-        out = self._host(scalars)
-        out["iou"] = float(metrics.compute_iou(occ, logits, self.threshold)[0])
-        out["iou_fixed"] = float(metrics.compute_iou(
-            occ, (logits >= self.threshold).float(), 0.5,
-            legacy_mean_threshold=False)[0])
-        return out
+        threshold. The draws come from ``generator``, by default one seeded
+        by the trainer's seed and step, so one validation sees the same
+        samples for every batch; ``draws`` and (t2d) ``iou_draws`` give them
+        explicitly. On the tactile path: the loss scalars only. Evaluation
+        runs in float32 whatever compute_dtype is, as in the JAX package."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                EVAL_SEED + 1_000_003 * self.step + self.seed)
+        return self._host(self._eval_step(self.prepare_batch(batch), draws, iou_draws,
+                                          generator))
 
     def evaluate(self, val_loader):
         """Mean of eval_step's dicts over the loader."""
@@ -386,3 +551,112 @@ class Trainer:
             for k, v in self.eval_step(batch).items():
                 eval_list.setdefault(k, []).append(v)
         return {k: float(np.mean(v)) for k, v in eval_list.items()}
+
+    # ------------------------------------------------------------------
+    # device-resident data: K steps per call, whole-split validation
+    def _device_batch_assembler(self, dds, n_points, n_cloud, for_eval=False):
+        """(ids (B,) on the device, generator, draws) → the step's tensors:
+        a DeviceDataset sample under the step's keys, the ground-truth
+        meshes by a lookup on the device (the t2d path), and for eval the
+        models' whole query sets as ``points_iou``."""
+        bank_ids = None
+        if self.encode_t2d and not self.train_tactile:
+            if self.mesh_bank is None:
+                raise ValueError("the t2d loss paths need ground-truth meshes "
+                                 "(data.mesh_dir, a MeshBank)")
+            bank_ids = torch.as_tensor(self.mesh_bank.ids_for(dds.names), device=self.device)
+
+        def assemble(ids, generator, draws=None):
+            batch = dds._sample(ids, n_points, n_cloud, generator, draws)
+            a = {k: batch[src] for k, src in DEVICE_KEYS.items()}
+            if for_eval:
+                a["points_iou"], a["occ_iou"] = dds.data["points"][ids], dds.data["occ"][ids]
+            if bank_ids is not None:
+                a["mesh_verts"], a["mesh_faces"] = self.mesh_bank.gather(bank_ids[ids])
+            return a
+
+        return assemble
+
+    def _upload_ids(self, ids):
+        """Host ids → an int64 tensor on the trainer's device, copied without
+        waiting for the card (pinned memory)."""
+        ids = torch.as_tensor(np.asarray(ids, np.int64))
+        if self.device.type == "cuda":
+            return ids.pin_memory().to(self.device, non_blocking=True)
+        return ids.to(self.device)
+
+    @staticmethod
+    def _stack(outs):
+        """[{name: 0-d tensor}] → {name: (len(outs),) float32 tensor}, on the
+        device."""
+        return {k: torch.stack([o[k].float() for o in outs]) for k in outs[0]}
+
+    @staticmethod
+    def read_scalars(stacked):
+        """A fused function's {name: (K,) tensor} → {name: (K,) numpy
+        array}, in one read from the device."""
+        names = list(stacked)
+        vals = torch.stack([stacked[k] for k in names]).cpu().numpy()
+        return {k: vals[i] for i, k in enumerate(names)}
+
+    def make_fused_train_fn(self, device_dataset, n_points, n_cloud):
+        """K optimization steps per call on a device-resident dataset
+        (data.device_data.DeviceDataset). Returns ``fn(ids, generator=None,
+        draws=None) -> {scalar: (K,) tensor}``: ``ids`` (K, B) model
+        ids; step j gathers and augments its batch of ids[j] on the device
+        (query and cloud subsampling, cloud and image noise, from
+        ``generator``, default the trainer's) and runs the train step on
+        it, its decode sample drawn from the trainer's generator. Nothing
+        in the K steps reads the device from the host, and neither does
+        the function: it returns the scalars stacked on the device, for the
+        caller's one read_scalars after the block. Same losses as K
+        train_step calls with the same batches and draws;
+        ``draws`` (a list of K dicts {"sample": DeviceDataset._sample's
+        draws, "step": train_step's}) gives them explicitly."""
+        assemble = self._device_batch_assembler(device_dataset, n_points, n_cloud)
+
+        def run(ids, generator=None, draws=None):
+            ids = self._upload_ids(ids)
+            gen = self.generator if generator is None else generator
+            outs = []
+            for j in range(ids.shape[0]):
+                d = draws[j] if draws is not None else {}
+                outs.append(self._train_step(assemble(ids[j], gen, d.get("sample")),
+                                             d.get("step")))
+            return self._stack(outs)
+
+        return run
+
+    def _eval_generator(self, model_id):
+        """The eval draws of one model of a device-resident split: seeded
+        from EVAL_SEED and the model's id alone, so every validation of the
+        same weights sees the same samples."""
+        return torch.Generator(device=self.device).manual_seed(
+            EVAL_SEED + 1_000_003 * (int(model_id) + 1))
+
+    def make_fused_eval_fn(self, device_dataset, n_points, n_cloud):
+        """Whole-split validation on a device-resident split. Returns
+        ``fn(ids (M, 1)) -> {metric: (M,) tensor}``: eval_step on each
+        model alone (B = 1, as the host loader's validation), its batch
+        assembled on the device and every draw from _eval_generator(id);
+        the metrics stay on the device, for one read_scalars after the last
+        model."""
+        assemble = self._device_batch_assembler(device_dataset, n_points, n_cloud,
+                                                for_eval=True)
+
+        def run(ids):
+            host = np.asarray(ids).reshape(-1)
+            dev_ids = self._upload_ids(host)
+            outs = []
+            for j, i in enumerate(host):
+                g = self._eval_generator(i)
+                outs.append(self._eval_step(assemble(dev_ids[j:j + 1], g), generator=g))
+            return self._stack(outs)
+
+        return run
+
+    def evaluate_device(self, eval_fn, n_models):
+        """evaluate() over a device-resident split through a
+        make_fused_eval_fn function: the mean of the per-model metrics."""
+        out = self.read_scalars(eval_fn(np.arange(n_models)[:, None]))
+        return {k: float(np.mean(v)) for k, v in out.items()}
