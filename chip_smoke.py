@@ -66,7 +66,31 @@ ends:
      gates on sets (a) and (d): the window route (K3 on c_img rows only),
      K3's logits against window_trunk_plain with the same rows, call_s,
      and K3's time in its c_img mode.
-  8. pipeline: the paper's three stages through the port's entry points,
+  8. batched: (a) K2 over BATCH_B = 4 objects in one launch
+     (fused_trunk_cn_batched, K2 under the JAX package's vmap) against its
+     plain version (trunk_cn per object) on the shared 128^3 grid and on
+     4 objects' own 2^19 nodes of MISE's 512^3 lattice, timed against 4
+     single-object K2 launches on the same inputs, beside its bound (4
+     times the single-object work, the shared grid read once). Then
+     VTacO_YCB at full width on 4 objects (make_batch from seeds 0..3),
+     the decoder's feature conditioning damped by MISE_GAIN so that the
+     random field crosses its level along a surface of the object's size
+     through the contacts (mise_model): (b) decode_dense_batched at
+     nx = 128 (one batched K2 launch a call) against eval_points_dense per
+     object; (c) generate_obj_mesh_mise at the config's default (128
+     coarse, 2 levels: 513^3), contact-gated (K1 once per level), its time
+     with the stats split, query_pts per level beside the counts of the
+     object's own surface (object_queries, each level must reach
+     MISE_SPAN of them, and gated points at each) and the marching cubes'
+     time, and each level's values, as the grid keeps them, against
+     eval_points_fast on the same points as float world coordinates
+     (another encoding and route; points within 1e-6 of r^2 left out); (d) multires_decode_batched at 64 coarse with 2
+     levels (257^3; one batched K2 launch per level) against
+     multires_decode per object, values within 1e-5 of the level counted
+     and left out with what they can reach. Counters are zeroed just
+     before (b), (c) and (d) and read just after: only the expected
+     kernel may launch, as many times as expected.
+  9. pipeline: the paper's three stages through the port's entry points,
      at full width on one synthetic set made from seed 0 (PIPELINE_MODELS
      models: 12 in the train split, 2 val, 2 test; 100,000 query points,
      320x240 tactile images), each model initialized from a seed:
@@ -103,7 +127,13 @@ ends:
      zeroed just before, read just after: these launches join the
      kernel's count), and each object's wall time (mesh + hand mesh).
      (e) the same CLI on the tactile config from (a)'s checkpoint: one
-     cloud of 5 x 320 x 240 points per sample. (f) LoopGenerator.visualize
+     cloud of 5 x 320 x 240 points per sample. (h) cli.generate
+     --batched 2 on VTacO_YCB's test split, then on its train split (six
+     flights), from (b)'s checkpoint: the JSON line, a mesh per object,
+     K2 batched once per flight and nothing else, objects per second of
+     Inferencer.run_batched, each flight's decode between CUDA events, and
+     whether flight k + 1's decode is still running on the card when
+     flight k's host work starts (flight k + 1 must be launched first). (f) LoopGenerator.visualize
      called directly on each checkpoint's model: its files must exist.
      (g) fast: the three *_fast configs (bfloat16 with a float32 decoder,
      the split on the card, K = 8 steps per block) on the same set, VTacO
@@ -136,7 +166,8 @@ ends:
      object (counters zeroed just before; these launches join the
      kernels' count as fast_cli_generate and fast_vtacoh_cli_generate).
 Then one JSON line describing the kernels (K2's and K3's launches by
-mode, and their c_img mode's reading), and last the line
+mode, and their c_img mode's reading; K2 batched's row with the time of
+4 single-object launches beside it), and last the line
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no such line. It needs CUDA and the rest of the
 repository; it never falls back to the CPU.
@@ -248,6 +279,15 @@ FAST_MODULES = {"vtaco": ("encoder", "encoder_hand", "encoder_img"), "vtacoh": (
 MODULE_METHODS = {"encoder": ("encode_inputs", "inputs"),
                   "encoder_hand": ("encode_hand_inputs", "inputs"),
                   "encoder_img": ("encode_img_inputs", "imgs")}
+# batched phase: objects per flight of the batched kernel, dense decode
+# and MISE checks, each object's lattice points in the kernel check, the
+# damping of the decoder's feature conditioning for MISE (mise_model), and
+# the objects per flight of cli.generate --batched
+BATCH_B, BATCH_LATTICE_N, MISE_GAIN, BATCH_CLI = 4, 1 << 19, 0.3, 2
+# the semi-axes of make_batch's ellipsoid object; MISE's query counts on
+# its exact field (object_queries) are what a mesh of the object's size
+# would query, and each level of (c) must reach MISE_SPAN of them
+OBJECT_AXES, MISE_SPAN = (0.35, 0.25, 0.3), 0.5
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
@@ -259,6 +299,7 @@ PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417e12, 3.9e12),
 
 # each kernel's launch counter: (wrapper, attribute)
 COUNTERS = {"fused_trunk_cn": (K.fused_trunk_cn, "launches"),
+            "fused_trunk_cn_batched": (K.fused_trunk_cn_batched, "launches"),
             "fused_trunk_gated_cn": (K.fused_trunk_gated_cn, "launches"),
             "fused_trunk_window_cn": (K.fused_trunk_window_cn, "launches"),
             "fused_trunk_window_cn:gated": (K.fused_trunk_window_cn, "launches_gated")}
@@ -719,7 +760,7 @@ def make_batch(rng, cfg):
     gel's rest depth, touch flags (finger 2 not touching), and camera
     poses on a world-frame scan of the object."""
     H, W = 320, 240
-    axes = np.array([0.35, 0.25, 0.3])
+    axes = np.array(OBJECT_AXES)
 
     def surface(n):
         u = rng.standard_normal((n, 3))
@@ -1282,6 +1323,349 @@ def vtacoh_query_phase(dev, peak, model, batch, gen):
     return total, row
 
 
+# ---------------------------------------------------------------------------
+# batched serving and MISE
+
+def lattice_points(dev, g, n, R):
+    """n random nodes of the R^3 refinement lattice in C order (as MISE
+    queries them) → (3, n) world coords box (i / R - 0.5)."""
+    idx, _ = torch.sort(torch.randint(0, (R + 1) ** 3, (n,), generator=g, device=dev))
+    ijk = torch.stack([idx // (R + 1) ** 2, idx // (R + 1) % (R + 1), idx % (R + 1)])
+    return (1 + PADDING) * (ijk.float() / R - 0.5)
+
+
+def batched_kernel_phase(dev, peak):
+    """(a) K2 over BATCH_B objects in one launch (fused_trunk_cn_batched)
+    against its plain version (trunk_cn per object) on the shared 128^3
+    grid and on BATCH_B objects' own BATCH_LATTICE_N lattice points (the
+    512^3 lattice of MISE's last level), then timed against BATCH_B
+    single-object K2 launches on the same inputs."""
+    tp = FT.extract_trunk_params(random_decoder(dev, seed=0), with_img=False)
+    g = torch.Generator(device=dev).manual_seed(13)
+    grid = dense_query_grid_cn(LATTICE_NX, 1 + PADDING, device=dev)
+    B = BATCH_B
+    cases = {
+        "grid": [(grid, torch.randn((B, WIDTH, N_FLAGSHIP), generator=g, device=dev))
+                 for _ in range(2)],
+        "lattice": [(torch.stack([lattice_points(dev, g, BATCH_LATTICE_N, 512)
+                                  for _ in range(B)]),
+                     torch.randn((B, WIDTH, BATCH_LATTICE_N), generator=g, device=dev))
+                    for _ in range(2)]}
+
+    def singles(p, f):
+        return [K.fused_trunk_cn(tp, p if p.dim() == 2 else p[b], f[b]) for b in range(B)]
+
+    def plain(p, f):
+        return torch.stack([FT.trunk_cn(tp, p if p.dim() == 2 else p[b], f[b])
+                            for b in range(B)])
+
+    out = {}
+    with torch.no_grad():
+        for name, sets in cases.items():
+            errs = [max_err(K.fused_trunk_cn_batched(tp, p, f), plain(p, f))
+                    for p, f in sets]
+            ms = cuda_ms(lambda p, f: K.fused_trunk_cn_batched(tp, p, f), sets, 20)
+            singles_ms = cuda_ms(singles, sets, 20)
+            plain_ms = cuda_ms(plain, sets, 2)
+            p, f = sets[0]
+            n = f.shape[-1]
+            work = trunk_work(B * n, False)
+            if p.dim() == 2:          # one grid read for every object
+                work[2] -= (B - 1) * 3 * n * 4
+            out[name] = kernel_row(max(errs), ms, plain_ms, work, peak)
+            out[name]["singles_ms"] = singles_ms
+            log("batched", kernel="fused_trunk_cn_batched", case=name, B=B, N=n,
+                coords="shared" if p.dim() == 2 else "per object", max_abs_err=max(errs),
+                ms=ms, singles_ms=singles_ms, plain_ms=plain_ms,
+                bound_ms=out[name]["bound_ms"], bound_by=out[name]["bound_by"])
+    del cases
+    row = dict(out["grid"])
+    row["lattice_ms"] = out["lattice"]["ms"]
+    row["lattice_bound_ms"] = out["lattice"]["bound_ms"]
+    row["lattice_singles_ms"] = out["lattice"]["singles_ms"]
+    row["err"] = max(out["grid"]["err"], out["lattice"]["err"])
+    return row
+
+
+def mise_model(model):
+    """The flagship model with its decoder's feature conditioning (fc_c)
+    damped by MISE_GAIN, as tests/test_torch_generate.py damps it: the
+    field is then dominated by its smooth response to the coordinates, as
+    a trained decoder's is. Random weights give a noise field whose level
+    set folds through the whole box, and MISE would query nearly every
+    node; damped much further (0.05), the tactile term's peaks at the
+    contacts pull the midpoint level up to a few blobs around them. At
+    0.3, (c)'s midpoint surface queries about as many nodes as the
+    object's own (object_queries) and passes through the contacts."""
+    damped = copy.deepcopy(model)
+    with torch.no_grad():
+        for fc in damped.decoder.fc_c:
+            fc.weight.mul_(MISE_GAIN)
+    return damped.eval()
+
+
+def object_queries(res0, steps, box):
+    """MISE's query count per level on make_batch's ellipsoid, its exact
+    field 1 - |p / OBJECT_AXES| at level 0: the count a mesh of the
+    object's surface queries."""
+    from vtaco_tpu_torch.generate.mise import MultiGridExtractor
+
+    def field(pts, R):
+        w = box * (pts / R - 0.5)
+        return (1.0 - np.linalg.norm(w / np.array(OBJECT_AXES), axis=1)).astype(np.float32)
+
+    mg = MultiGridExtractor(res0, 0.0, invert=False)
+    pts = mg.query()
+    mg.update(pts, field(pts, mg.resolution))
+    counts = []
+    for _ in range(steps):
+        mg.increase_resolution()
+        pts = mg.query()
+        counts.append(len(pts))
+        mg.update(pts, field(pts, mg.resolution))
+    return counts
+
+
+def zero_counters():
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
+    K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
+
+
+def launched_only(phase, launches, want):
+    """Raises unless the counters read ``want`` ({name: launches}) and
+    nothing else launched."""
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v} or min(want.values()) < 1:
+        raise AssertionError(f"{phase}: launched {got}, expected {want}")
+
+
+def settled_mask(got, want, thr_got, thr_want, near=1e-5):
+    """The grid points no undecided value can reach (values within
+    ``near`` of their level may be decided either way, which changes the
+    points decoded around them up to three fine voxels away), and the
+    count of such values."""
+    from scipy.ndimage import binary_dilation
+
+    undecided = (np.abs(got - thr_got) < near) | (np.abs(want - thr_want) < near)
+    keep = ~binary_dilation(undecided, np.ones((3, 3, 3), bool), iterations=3)
+    return keep, int(undecided.sum())
+
+
+def batched_phase(dev, peak, cfg, model):
+    """(b)-(d): VTacO_YCB at full width on BATCH_B objects (make_batch
+    from seeds 0..BATCH_B-1), the decoder damped (mise_model): (b)
+    decode_dense_batched at nx = 128 against eval_points_dense per
+    object; (c) generate_obj_mesh_mise at the config's default (128
+    coarse, upsampling_steps 2: 513^3), contact-gated, and the refinement
+    values at the queried points against eval_points_fast on their world
+    coordinates; (d) multires_decode_batched at 64 coarse with 2 levels
+    (257^3) against multires_decode per object. Counters are zeroed just
+    before each run and read just after. Returns the launches by path."""
+    from vtaco_tpu_torch.generate.mise import multires_decode, multires_decode_batched
+
+    mmodel = mise_model(model)
+    cfg_none = json.loads(json.dumps(cfg))
+    cfg_none["model"]["with_img"] = False
+    gen, gen_none = get_generator(mmodel, cfg), get_generator(mmodel, cfg_none)
+    batches = [make_batch(np.random.default_rng(s), cfg) for s in range(BATCH_B)]
+    with torch.no_grad():
+        c = mmodel.encode_inputs(torch.as_tensor(
+            np.concatenate([b["inputs"] for b in batches]), device=dev))
+    nx, B = LATTICE_NX, BATCH_B
+    paths = {}
+
+    # (b) the batched dense decode
+    f32 = torch.float32
+    gen_none.decode_dense_batched(mmodel, nx, c, transfer_dtype=f32)      # warm
+    zero_counters()
+    times, outs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        outs.append(gen_none.decode_dense_batched(mmodel, nx, c, transfer_dtype=f32))
+        times.append(time.perf_counter() - t0)
+    paths["dense_batched"] = launches = read_counters()
+    launched_only("dense_batched", launches, {"fused_trunk_cn_batched": 3})
+    t0 = time.perf_counter()
+    singles = [gen_none.eval_points_dense(mmodel, nx, {"grid": c["grid"][b:b + 1]},
+                                          transfer_dtype=f32) for b in range(B)]
+    singles_s = time.perf_counter() - t0
+    err = max(float(np.abs(outs[-1][b] - singles[b]).max()) for b in range(B))
+    log("batched", path="decode_dense_batched", B=B, nx=nx, call_s=float(np.median(times)),
+        call_s_each=times, singles_s=singles_s, vs_eval_points_dense=err,
+        equal=all(np.array_equal(outs[-1][b], singles[b]) for b in range(B)),
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not (err <= ATOL and all(np.array_equal(o, outs[-1]) for o in outs)):
+        raise AssertionError(f"decode_dense_batched disagrees with eval_points_dense: {err}")
+    del outs, singles
+
+    # (c) the MISE mesh at 513^3, contact-gated (K1)
+    res0, steps = gen.resolution0 * 4, gen.upsampling_steps
+    reso = res0 << steps
+    gen.generate_obj_mesh_mise(mmodel, batches[0])                        # cold
+    zero_counters()
+    st = {}
+    t0 = time.perf_counter()
+    verts, faces = gen.generate_obj_mesh_mise(mmodel, batches[0], stats=st)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    paths["mise_mesh"] = launches = read_counters()
+    levels = sum(1 for q in st["query_pts"] if q)
+    launched_only("mise_mesh", launches, {"fused_trunk_gated_cn": 1 + levels})
+    if not (len(faces) > 0 and np.isfinite(verts).all() and np.abs(verts).max() <= 0.56):
+        raise AssertionError(f"mise: bad mesh of {len(verts)} vertices, {len(faces)} faces")
+    box = 1 + gen.padding
+    expected = object_queries(res0, steps, box)
+    log("mise", res0=res0, upsampling_steps=steps, reso=reso, mesh_s=mesh_s,
+        coarse_s=st["coarse_s"], decode_s=st["decode_s"], host_s=st["host_s"],
+        marching_cubes_s=st["marching_cubes_s"], query_pts=st["query_pts"],
+        object_query_pts=expected, dense_pts=(reso + 1) ** 3, verts=len(verts),
+        faces=len(faces), **{f"launches_{k}": v for k, v in launches.items() if v})
+    if any(q < MISE_SPAN * e for q, e in zip(st["query_pts"], expected)):
+        raise AssertionError(f"mise: the surface queries {st['query_pts']} nodes, under "
+                             f"{MISE_SPAN} of the object's {expected}")
+    # the values the levels recorded against eval_points_fast on the same
+    # points as float world coordinates (another encoding and route)
+    with torch.no_grad():
+        cm, gates = gen._encode_sample(mmodel, batches[0], 0)
+    calls, fast = [], gen.eval_points_fast
+
+    def recorded(model_, pts, *a, **kw):
+        out = fast(model_, pts, *a, **kw)
+        calls.append((np.array(pts), kw["lattice_reso"], out))
+        return out
+
+    gen.eval_points_fast = recorded
+    try:
+        values, thr = multires_decode(gen, mmodel, cm, res0, steps, "midpoint", *gates)
+    finally:
+        del gen.eval_points_fast
+    for pts, R, vals in calls:
+        at = pts * (reso // R)
+        kept = np.array(values[at[:, 0], at[:, 1], at[:, 2]])
+        world = (box * (pts.astype(np.float32) / np.float32(R) - np.float32(0.5))).astype(
+            np.float32)
+        again = gen.eval_points_fast(mmodel, world, cm, *gates, transfer_dtype=f32,
+                                     detect_lattice=False)
+        _, gated, keep = gate_stats(torch.as_tensor(world.T.copy(), device=dev),
+                                    gates[1], gates[3], RADIUS)
+        keep = keep.cpu().numpy()
+        err = float(np.abs(again - vals)[keep].max())
+        log("mise", level_reso=R, query_pts=len(pts), kept_equal=bool(np.array_equal(kept, vals)),
+            vs_float_coords=err, gated_points=gated, near_radius=int((~keep).sum()))
+        if not (np.array_equal(kept, vals) and err <= ATOL and gated > 0):
+            raise AssertionError(f"mise level {R}: grid {np.array_equal(kept, vals)}, "
+                                 f"{err}, {gated} points gated")
+    del values, calls
+
+    # (d) batched MISE at 64 coarse, 2 levels, against MISE per object
+    zero_counters()
+    st = {}
+    t0 = time.perf_counter()
+    grids, thrs = multires_decode_batched(gen_none, mmodel, c, 64, 2, None, stats=st)
+    batched_s = time.perf_counter() - t0
+    paths["mise_batched"] = launches = read_counters()
+    levels = sum(1 for q in st["query_pts"] if q)
+    launched_only("mise_batched", launches, {"fused_trunk_cn_batched": 1 + levels})
+    t0 = time.perf_counter()
+    single = [multires_decode(gen_none, mmodel, {"grid": c["grid"][b:b + 1]}, 64, 2, None)
+              for b in range(B)]
+    single_s = time.perf_counter() - t0
+    errs, n_near, kept = [], 0, []
+    for (g1, t1), g2, t2 in zip(single, grids, thrs):
+        g1, g2 = np.array(g1), np.array(g2)
+        keep, near = settled_mask(g2, g1, t2, t1)
+        n_near += near
+        kept.append(float(keep.mean()))
+        if abs(t1 - t2) > 1e-6 or not np.array_equal((g2 >= t2)[keep], (g1 >= t1)[keep]):
+            raise AssertionError("batched MISE occupies other points than MISE per object")
+        errs.append(float(np.abs(g2 - g1)[keep].max()))
+    log("mise_batched", B=B, res0=64, upsampling_steps=2, reso=256, batched_s=batched_s,
+        singles_s=single_s, coarse_s=st["coarse_s"], decode_s=st["decode_s"],
+        host_s=st["host_s"], query_pts=st["query_pts"],
+        object_query_pts=object_queries(64, 2, box), vs_per_object=max(errs),
+        near_level=n_near, settled_share=kept,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if max(errs) > ATOL:
+        raise AssertionError(f"batched MISE disagrees with MISE per object: {max(errs)}")
+    return paths
+
+
+def batched_cli_stage(root, vt):
+    """(h) cli.generate --batched BATCH_CLI on VTacO_YCB's test split from
+    (b)'s checkpoint, then on its train split (more flights): the last
+    JSON line, an object mesh per object, K2 batched once per flight and
+    nothing else (counters zeroed just before, read just after), objects
+    per second of Inferencer.run_batched, and its pipelining: each
+    flight's decode between CUDA events and the host's time to enqueue it,
+    and, when the host work of flight k starts, whether flight k+1's
+    decode is still running on the card. Returns the launches."""
+    from vtaco_tpu_torch.generate import inferencer as inf
+    from vtaco_tpu_torch.generate.generator import Generator3D
+
+    cfg, ckpt = vt
+    decode, host_map = Generator3D.decode_dense_batched, inf.host_map
+    total = {}
+    for split in ("test", "train"):
+        order, flights, host_work = [], [], []
+
+        def timed_decode(self, *a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = decode(self, *a, **kw)
+            end.record()
+            order.append(("decode", len(flights)))
+            flights.append((start, end, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def timed_host_map(fn, *seqs):
+            k = len(host_work)
+            order.append(("host", k))
+            running = k + 1 < len(flights) and not flights[k + 1][1].query()
+            t0 = time.perf_counter()
+            out = host_map(fn, *seqs)
+            host_work.append((time.perf_counter() - t0, running))
+            return out
+
+        Generator3D.decode_dense_batched, inf.host_map = timed_decode, timed_host_map
+        zero_counters()
+        try:
+            with timed_methods(inf.Inferencer, ("run_batched",)) as t:
+                line, files, seconds = cli_generate(
+                    root, cfg, ckpt, f"generate_batched_{split}", "--split", split,
+                    "--batched", str(BATCH_CLI))
+        finally:
+            Generator3D.decode_dense_batched, inf.host_map = decode, host_map
+        launches = read_counters()
+        n, n_flights = line["n"], len(flights)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        run_s = t["run_batched"][0]
+        decode_ms = [s.elapsed_time(e) for s, e, _ in flights]
+        overlapped = [r for _, r in host_work[:-1]]
+        log("batched_cli", config="configs/VTacO/VTacO_YCB.yaml", cli_s=seconds, run_batched_s=run_s, objects_per_s=n / run_s,
+            flights=n_flights, decode_ms_each=decode_ms,
+            decode_enqueue_ms_each=[h for _, _, h in flights],
+            host_work_s_each=[h for h, _ in host_work],
+            next_flight_running_at_host_work=overlapped, **line,
+            **{f"launches_{k}": v for k, v in launches.items() if v})
+        if not (n >= 1 and line["batched"] == BATCH_CLI and np.isfinite(line["cd_mean"])
+                and len(files) == n and n_flights == -(-n // BATCH_CLI)):
+            raise AssertionError(f"batched cli: bad result {line}, {files}")
+        for f in files:
+            verts, faces = meshio.read_off(os.path.join(root, f"generate_batched_{split}", f))
+            if len(faces) == 0 or not np.isfinite(verts).all():
+                raise AssertionError(f"batched cli: bad mesh {f}")
+        # flight k + 1 is launched before flight k's host work
+        if any(order.index(("decode", k + 1)) > order.index(("host", k))
+               for k in range(n_flights - 1)):
+            raise AssertionError(f"batched cli: not pipelined: {order}")
+        launched_only(f"batched cli {split}", launches, {"fused_trunk_cn_batched": n_flights})
+    return total
+
+
 def pipeline_config(path, root, data, run):
     """A shipped config with its data on the pipeline's synthetic set
     (``data``: the data and mesh roots), its run directory ``root/run``,
@@ -1635,15 +2019,17 @@ def timed_methods(cls, names):
             setattr(cls, n, orig[n])
 
 
-def cli_generate(root, cfg, ckpt, run):
-    """python -m vtaco_tpu_torch.cli.generate on cfg's test split from
-    ``ckpt``: (the last JSON line, what it wrote, the seconds it took)."""
+def cli_generate(root, cfg, ckpt, run, *extra):
+    """python -m vtaco_tpu_torch.cli.generate on cfg's test split (or as
+    ``extra`` arguments say) from ``ckpt``: (the last JSON line, what it
+    wrote, the seconds it took)."""
     path = os.path.join(root, f"{run}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     out_dir = os.path.join(root, run)
     t0 = time.perf_counter()
-    _, out = printed(generate_cli.main, [path, "--checkpoint", ckpt, "--out-dir", out_dir])
+    _, out = printed(generate_cli.main,
+                     [path, "--checkpoint", ckpt, "--out-dir", out_dir, *extra])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return json.loads(out.strip().splitlines()[-1]), sorted(os.listdir(out_dir)), seconds
@@ -2262,8 +2648,9 @@ def pipeline_phase():
     width on one synthetic set: (a) pretrain the tactile depth stack,
     (b) train VTacO_YCB with its graft, (c) train VTacOH_YCB, (d, e)
     reconstruct through the generation CLI, (f) the loop's visualization,
-    (g) the *_fast configs. Returns the kernel launches of the CLI's VTacO
-    and VTacOH paths, and of the fast phase's by path."""
+    (h) cli.generate --batched, (g) the *_fast configs. Returns the kernel
+    launches of the CLI's VTacO and VTacOH paths, of its batched path, and
+    of the fast phase's by path."""
     root = os.path.join(REPO, "out", "chip_smoke_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -2277,10 +2664,11 @@ def pipeline_phase():
     vt = vtaco_stage(root, data, tac[1])
     vh = vtacoh_stage(root, data)
     launches = generate_stage(root, vt, tac, vh)
+    batched = batched_cli_stage(root, vt)
     visualize_stage(root, vt, tac, vh)
     fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
-    return launches, fast
+    return launches, batched, fast
 
 
 def main():
@@ -2314,18 +2702,23 @@ def main():
 
     rows = kernel_phase(dev, peak)
     rows.update(window_kernel_phase(dev, peak))
+    rows["fused_trunk_cn_batched"] = batched_kernel_phase(dev, peak)
     cfg, model, batch, gens = build_model()
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
+    batched_paths = batched_phase(dev, peak, cfg, model)
     del model, gens
     h_cfg, h_model, h_batch, h_gen = build_vtacoh()
     h_mesh, cimg_rows = vtacoh_mesh_phase(dev, peak, h_cfg, h_model, h_batch, h_gen)
     h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
     cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
     del h_model, h_gen
-    (cli_launches, h_cli), fast_launches = pipeline_phase()
+    (cli_launches, h_cli), cli_batched, fast_launches = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
+        # K2 under the JAX package's vmap (decode_dense_batched,
+        # decode_points_batched): the same pallas_call with an object axis
+        "fused_trunk_cn_batched": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
         "fused_trunk_gated_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:641"),
         "fused_trunk_window_cn": ("window.cu", "vtaco_tpu/ops/pallas/decode.py:442"),
         "fused_trunk_window_cn:gated": ("window.cu",
@@ -2336,7 +2729,8 @@ def main():
     # counted apart as ':c_img') and both generation CLIs
     paths = {"mesh": launches, "eval_points": eval_launches, "vtacoh_mesh": h_mesh,
              "vtacoh_eval_points": h_eval, "cli_generate": cli_launches,
-             "vtacoh_cli_generate": h_cli, **fast_launches}
+             "vtacoh_cli_generate": h_cli, **batched_paths,
+             "cli_generate_batched": cli_batched, **fast_launches}
     kernels = []
     for kname, (source, replaces) in replaced.items():
         r = rows[kname]
@@ -2354,6 +2748,9 @@ def main():
             "lattice_ms": r.get("lattice_ms"),
             "lattice_bound_ms": r.get("lattice_bound_ms"), "library_ms": None,
         }
+        if "singles_ms" in r:    # K2 batched: BATCH_B single-object launches
+            entry.update(objects=BATCH_B, singles_ms=r["singles_ms"],
+                         lattice_singles_ms=r["lattice_singles_ms"])
         if kname in cimg_rows:   # the modes launched, and the c_img mode's reading
             c = cimg_rows[kname]
             entry["modes_launched"] = {

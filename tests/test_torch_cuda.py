@@ -1,12 +1,13 @@
-"""The CUDA trunk kernels (K1, K2 in csrc/trunk.cu; K3, K4 in
-csrc/window.cu; all on the tile chain of csrc/tile_chain.cuh) against
-their plain PyTorch versions on the card, and the training path on the
-card: one VTacO_YCB train step and one tactile depth-stack step against
-the same steps on the CPU, a bfloat16 step against the card's float32
-one, a fused block of steps with no host sync, a mesh reconstructed
-through K1 from the checkpoint that train.loop.train writes, and the
-generation CLI on the card reconstructing a split through K1 (all at small
-widths on the port's synthetic set).
+"""The CUDA trunk kernels (K1, K2 and K2 over an object axis in
+csrc/trunk.cu; K3, K4 in csrc/window.cu; all on the tile chain of
+csrc/tile_chain.cuh) against their plain PyTorch versions on the card,
+and the training path on the card: one VTacO_YCB train step and one
+tactile depth-stack step against the same steps on the CPU, a bfloat16
+step against the card's float32 one, a fused block of steps with no host
+sync, a mesh reconstructed through K1 from the checkpoint that
+train.loop.train writes, and the generation CLI on the card
+reconstructing a split through K1 (all at small widths on the port's
+synthetic set).
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -103,6 +104,50 @@ def test_fused_trunk_cn(cuda, N, variant):
                            None if ci is None else K._stored(ci, store))
         torch.cuda.synchronize()
     assert got.shape == (N,) and got.dtype == torch.float32
+    assert float(torch.max(torch.abs(got - want))) < ATOL
+
+
+def _batched_plain(tp, p, f, store):
+    """K2 batched's plain version: trunk_cn per object."""
+    return torch.stack([FT.trunk_cn(tp, K._stored(p if p.dim() == 2 else p[b], store),
+                                    K._stored(f[b], store)) for b in range(len(f))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [100_003, 77])
+@pytest.mark.parametrize("coords", ["shared", "per_object"])
+@pytest.mark.parametrize("store", [None, torch.bfloat16])
+def test_fused_trunk_cn_batched(cuda, N, coords, store):
+    """K2 over B = 3 objects in one launch against trunk_cn per object: an
+    odd N and one below a tile per object, coordinates shared by every
+    object (the dense grid) or each object's own."""
+    B = 3
+    tp = FT.extract_trunk_params(random_decoder(cuda), with_img=False)
+    g = torch.Generator().manual_seed(4)
+    f = torch.randn((B, 32, N), generator=g).to(cuda)
+    shape = (3, N) if coords == "shared" else (B, 3, N)
+    p = (torch.rand(shape, generator=g) * 1.1 - 0.55).to(cuda)
+    with torch.no_grad():
+        before = K.fused_trunk_cn_batched.launches
+        got = K.fused_trunk_cn_batched(tp, p, f, store_dtype=store)
+        assert K.fused_trunk_cn_batched.launches == before + 1
+        want = _batched_plain(tp, p, f, store)
+        torch.cuda.synchronize()
+    assert got.shape == (B, N) and got.dtype == torch.float32
+    assert float(torch.max(torch.abs(got - want))) < ATOL
+
+
+@pytest.mark.cuda
+def test_fused_trunk_cn_batched_inference_tensors(cuda):
+    """Weights and inputs made under torch.inference_mode (as the batched
+    decodes make them) go through batched K2 like any others."""
+    with torch.inference_mode():
+        tp = FT.extract_trunk_params(random_decoder(cuda), with_img=False)
+        p, _ = _inputs(cuda, 5000)
+        f = torch.randn((4, 32, 5000), device=cuda)
+        got = K.fused_trunk_cn_batched(tp, p, f)
+        want = _batched_plain(tp, p, f, None)
+        torch.cuda.synchronize()
     assert float(torch.max(torch.abs(got - want))) < ATOL
 
 

@@ -322,26 +322,35 @@ def test_pipeline_through_the_clis(synth, tmp_path, capsys):
     assert json.loads(out.strip().splitlines()[-1])["n"] == 1
 
 
-@pytest.mark.parametrize("what", ["--batched", "run_batched", "tensorboard",
-                                  "profile_dir", "debug_nans"])
+@pytest.mark.parametrize("what", ["device_mesh", "points_unfast", "dense_band",
+                                  "tensorboard", "profile_dir", "debug_nans"])
 def test_unported_options_raise(synth, tmp_path, what):
-    """The generate CLI's --batched and Inferencer.run_batched (ROADMAP
-    item 9), and the loop's TensorBoard, profiler and NaN-debug options
-    (item 13), raise instead of running without them."""
-    from vtaco_tpu_torch.cli import generate
+    """Batched serving over a device mesh (ROADMAP item 12), the chunked
+    legacy ``decode_points_batched(fast=False)`` (item 7) and the batched
+    iso-band transfer ``decode_dense_batched_band`` (item 10), and the
+    loop's TensorBoard, profiler and NaN-debug options (item 13), raise
+    instead of running without them."""
     from vtaco_tpu_torch.train import loop
 
     cfg = _cli_cfg(_small_cfg("configs/VTacO/VTacO_YCB.yaml", *synth), tmp_path / "out")
-    if what == "--batched":
-        path = tmp_path / "cfg.yaml"
-        path.write_text(yaml.safe_dump(cfg))
-        with pytest.raises(NotImplementedError, match="item 9"):
-            generate.main([str(path), "--cpu", "--batched", "4"])
-    elif what == "run_batched":
+    if what in ("device_mesh", "points_unfast", "dense_band"):
         model = get_model(port_cfg(), device="cpu")
-        inf = Inferencer.from_config(model, get_generator(model, port_cfg()), cfg)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            inf.run_batched(model, [], batch_size=2)
+        gen = get_generator(model, port_cfg())
+        c = {"grid": torch.zeros(2, 4, 4, 4, 8)}
+        if what == "device_mesh":
+            inf = Inferencer.from_config(model, gen, cfg)
+            with pytest.raises(NotImplementedError, match="device mesh.*item 12"):
+                inf.run_batched(model, [], batch_size=2, device_mesh=object())
+            with pytest.raises(NotImplementedError, match="device mesh.*item 12"):
+                gen.decode_dense_batched(model, 4, c, device_mesh=object())
+        elif what == "points_unfast":
+            with pytest.raises(NotImplementedError, match="fast=False.*item 7"):
+                gen.decode_points_batched(model, np.zeros((2, 3, 3), np.float32), c,
+                                          fast=False)
+        else:
+            with pytest.raises(NotImplementedError,
+                               match="decode_dense_batched_band.*item 10"):
+                gen.decode_dense_batched_band(model, 4, c)
     else:
         cfg["training"][what] = "prof" if what == "profile_dir" else True
         with pytest.raises(NotImplementedError, match=f"training.{what}.*item 13"):

@@ -2,7 +2,7 @@
 
     python -m vtaco_tpu_torch.cli.generate configs/VTacO/VTacO_YCB.yaml \\
         [--split test] [--out-dir DIR] [--max-samples N] [--checkpoint F] \\
-        [--data-root D] [--mesh-root M] [--cpu]
+        [--data-root D] [--mesh-root M] [--cpu] [--batched B]
 
 Loads the checkpoint (``--checkpoint``, else ``test.model_file``; a
 relative name resolves against ``training.out_dir``) and reconstructs the
@@ -11,8 +11,10 @@ object and hand meshes of every sample of the split into ``--out-dir``
 stack, its predicted sensor point clouds. The last line of its output is
 ``{"split", "n", "emd_mean", "cd_mean"}``. A missing checkpoint warns and
 the run goes on from the untrained initialization. Runs on the first
-CUDA device unless ``--cpu`` is given. ``--batched`` is not ported yet
-and raises.
+CUDA device unless ``--cpu`` is given. ``--batched B`` reconstructs the
+object meshes B at a time, pipelined and ungated
+(``Inferencer.run_batched``: one K2 launch per flight); its last line is
+``{"split", "n", "cd_mean", "batched"}``.
 """
 
 from __future__ import annotations
@@ -46,11 +48,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="Override test.model_file.")
     ap.add_argument("--batched", type=int, default=0, metavar="B",
-                    help="Batched reconstruction (not ported yet).")
+                    help="Pipelined B-object batched reconstruction "
+                         "(plain occupancy decode; no tactile gating).")
     args = ap.parse_args(argv)
-    if args.batched:
-        raise NotImplementedError("--batched (Inferencer.run_batched) is not "
-                                  "ported yet (ROADMAP.md, item 9)")
 
     cfg = load_config(args.config, DEFAULT_CFG)
     if args.data_root:
@@ -77,8 +77,14 @@ def main(argv=None):
 
     generator = get_generator(model, cfg)
     inferencer = Inferencer.from_config(model, generator, cfg)
-    results = inferencer.run(model, loader,
-                             out_dir=args.out_dir or os.path.join(out_dir, "generation"),
+    gen_dir = args.out_dir or os.path.join(out_dir, "generation")
+    if args.batched:
+        results = inferencer.run_batched(model, loader, batch_size=args.batched,
+                                         out_dir=gen_dir, max_samples=args.max_samples)
+        print(json.dumps({"split": args.split, "n": len(results["names"]),
+                          "cd_mean": results["cd_mean"], "batched": args.batched}))
+        return
+    results = inferencer.run(model, loader, out_dir=gen_dir,
                              max_samples=args.max_samples)
     print(json.dumps({
         "split": args.split,

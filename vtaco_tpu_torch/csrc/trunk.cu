@@ -1,7 +1,10 @@
 // Fused occupancy-decoder trunk for Hopper (sm_90a) at precomputed
 // features: one tile kernel, three modes, replacing the Pallas kernels of
 // vtaco_tpu/ops/pallas/decode.py:
-//   MODE_COORDS  fused_trunk_cn (K2), input projection of the coords only
+//   MODE_COORDS  fused_trunk_cn (K2), input projection of the coords only;
+//                also over B objects at once (fused_trunk_cn_batched, K2
+//                under the JAX package's vmap in decode_dense_batched and
+//                decode_points_batched)
 //   MODE_CIMG    fused_trunk_cn (K2) with precomputed per-point c_img rows
 //   MODE_GATED   fused_trunk_gated_cn (K1), contact gating fused in
 //
@@ -43,6 +46,12 @@
 //   contact; the gate then stages each chunk of rows in shared memory and
 //   each point tests them from the last, four per step, stopping at its
 //   first hit.
+// - Objects (K2 batched). B objects' points are B (C, N) feature slabs,
+//   B coordinate slabs (or one shared by all: the dense grid, stride 0)
+//   and B output rows. The persistent blocks stride over all B ceil(N /
+//   kTile) tiles of the flight, a tile never spanning two objects, and
+//   stage the weights once per block as for one object: one launch for
+//   the flight, no per-object tail of half-empty waves.
 
 #include "tile_chain.cuh"
 
@@ -50,19 +59,39 @@ namespace {
 
 using namespace tile;
 
+// body(b, n0) for each tile of this warp's group over B objects of N
+// points: object b's tile ti holds its points ti kTile + [0, kTile), n0
+// the first of the warp's 32 points in it. Tiles blockIdx.x kGroups +
+// group of the flight, strided by the grid, as for_each_tile.
+template <class Body>
+__device__ __forceinline__ void for_each_object_tile(int B, long long N, Body body) {
+  const int group = threadIdx.x / kTile, warp = (threadIdx.x % kTile) / 32;
+  const long long per_object = (N + kTile - 1) / kTile;
+  const long long n_tiles = per_object * B;
+  for (long long ti = (long long)blockIdx.x * kGroups + group; ti < n_tiles;
+       ti += (long long)gridDim.x * kGroups) {
+    const long long b = ti / per_object;
+    body(b, (ti - b * per_object) * kTile + warp * 32);
+  }
+}
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads, 1)
 trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int K, float r2,
-             const float4* __restrict__ contacts, int rows, const T* __restrict__ p,
-             const T* __restrict__ feats, const T* __restrict__ c_img,
-             float* __restrict__ out, long long N) {
+             const float4* __restrict__ contacts, int rows, const T* __restrict__ p_b,
+             const T* __restrict__ feats_b, const T* __restrict__ c_img,
+             float* __restrict__ out_b, long long N, int B, long long p_stride,
+             long long f_stride) {
   const float* sm = stage_blob(blob, n_floats);
   const Layout Lw = make_layout(NB);
   const WarpScratch ws = warp_scratch(sm, n_floats);
   const int lane = threadIdx.x & 31;
   const auto feature_a = [&](int mi, int jk, float (&a)[4]) { col_a(ws.f, mi, jk, a); };
 
-  for_each_tile(N, [&](long long n0) {
+  for_each_object_tile(B, N, [&](long long b, long long n0) {
+    const T* p = p_b + b * p_stride;
+    const T* feats = feats_b + b * f_stride;
+    float* out = out_b + b * N;
     const long long n = n0 + lane;
     const bool valid = n < N;
     float px = 0.f, py = 0.f, pz = 0.f;
@@ -90,27 +119,33 @@ trunk_kernel(const float* __restrict__ blob, int n_floats, int NB, int K, float 
   });
 }
 
+// launch_tiles sizes the grid from a point count: B objects' tiles are
+// those of B ceil(N / kTile) kTile points.
 template <typename T, int MODE>
 int launch(const float* blob, int n_floats, int H, int C, int NB, int K, float r2,
            const float* contacts, int rows, const void* p, const void* feats,
-           const void* c_img, float* out, long long N, cudaStream_t stream) {
-  if (H != kWidth || C != kWidth) return (int)cudaErrorInvalidValue;
-  return launch_tiles(trunk_kernel<T, MODE>, n_floats, N, stream, blob, n_floats, NB,
-                      K, r2, reinterpret_cast<const float4*>(contacts), rows,
+           const void* c_img, float* out, long long N, int B, long long p_stride,
+           long long f_stride, cudaStream_t stream) {
+  if (H != kWidth || C != kWidth || B < 1) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  const long long flight = (long long)B * ((N + kTile - 1) / kTile) * kTile;
+  return launch_tiles(trunk_kernel<T, MODE>, n_floats, flight, stream, blob, n_floats,
+                      NB, K, r2, reinterpret_cast<const float4*>(contacts), rows,
                       static_cast<const T*>(p), static_cast<const T*>(feats),
-                      static_cast<const T*>(c_img), out, N);
+                      static_cast<const T*>(c_img), out, N, B, p_stride, f_stride);
 }
 
 template <int MODE>
 int launch_stored(int bf16, const float* blob, int n_floats, int H, int C, int NB,
                   int K, float r2, const float* contacts, int rows, const void* p,
                   const void* feats, const void* c_img, float* out, long long N,
-                  void* stream) {
+                  int B, long long p_stride, long long f_stride, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<uint16_t, MODE>(blob, n_floats, H, C, NB, K, r2, contacts,
-                                       rows, p, feats, c_img, out, N, s)
+                                       rows, p, feats, c_img, out, N, B, p_stride,
+                                       f_stride, s)
               : launch<float, MODE>(blob, n_floats, H, C, NB, K, r2, contacts, rows,
-                                    p, feats, c_img, out, N, s);
+                                    p, feats, c_img, out, N, B, p_stride, f_stride, s);
 }
 
 }  // namespace
@@ -131,9 +166,21 @@ int trunk_cn_launch(const float* blob, int n_floats, int H, int C, int NB,
                     int bf16, float* out, long long N, void* stream) {
   if (c_img == nullptr)
     return launch_stored<MODE_COORDS>(bf16, blob, n_floats, H, C, NB, 0, 0.f, nullptr,
-                                      0, p, feats, nullptr, out, N, stream);
+                                      0, p, feats, nullptr, out, N, 1, 0, 0, stream);
   return launch_stored<MODE_CIMG>(bf16, blob, n_floats, H, C, NB, 0, 0.f, nullptr, 0,
-                                  p, feats, c_img, out, N, stream);
+                                  p, feats, c_img, out, N, 1, 0, 0, stream);
+}
+
+// K2 over B objects of N points each: fused_trunk_cn_batched. Mode 0's
+// blob; feats (B, C, N) and out (B, N) contiguous; p (B, 3, N), or (3, N)
+// shared by every object with p_stride 0 (elements between objects).
+int trunk_cn_batched_launch(const float* blob, int n_floats, int H, int C, int NB,
+                            int B, const void* p, long long p_stride,
+                            const void* feats, int bf16, float* out, long long N,
+                            void* stream) {
+  return launch_stored<MODE_COORDS>(bf16, blob, n_floats, H, C, NB, 0, 0.f, nullptr, 0,
+                                    p, feats, nullptr, out, N, B, p_stride,
+                                    (long long)C * N, stream);
 }
 
 // K1: fused_trunk_gated_cn. blob: mode 2's, W_img g_f per finger after it;
@@ -145,7 +192,7 @@ int trunk_gated_cn_launch(const float* blob, int n_floats, int H, int C, int NB,
                           long long N, void* stream) {
   if (F < 1 || K < 1 || contacts == nullptr) return (int)cudaErrorInvalidValue;
   return launch_stored<MODE_GATED>(bf16, blob, n_floats, H, C, NB, K, r2, contacts,
-                                   F * K, p, feats, nullptr, out, N, stream);
+                                   F * K, p, feats, nullptr, out, N, 1, 0, 0, stream);
 }
 
 }  // extern "C"

@@ -6,9 +6,11 @@ vtaco_tpu/generate/generator.py: ``from_config`` :249-314,
 detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
 :1288-1478, ``eval_points`` :1480-1533, ``_prep_contact_gates``
 :1597-1629, ``_build_gates`` :2175-2210, ``generate_obj_mesh_wnf``
-:2212-2293 through its full-volume branch, ``generate_hand_mesh``
-:2374-2405, ``generate_tactile_pc`` :2408-2450, ``LoopGenerator`` and
-``make_loop_generator`` :2453-2512).
+:2212-2293 through its full-volume branch, the batched decodes
+``decode_dense_batched`` :1704-1794 and ``decode_points_batched``
+:1915-2120 through its fast path, ``generate_obj_mesh_mise`` :2296-2371,
+``generate_hand_mesh`` :2374-2405, ``generate_tactile_pc`` :2408-2450,
+``LoopGenerator`` and ``make_loop_generator`` :2453-2512).
 
 The tactile gates come in two kinds, as in the JAX package: contact
 gating (VTacO: contact points back-projected from the ground-truth or the
@@ -25,6 +27,13 @@ other set to the sorted window route, whose kernel
 with contact gating) interpolates and decodes in one pass. On CPU tensors
 the same wrappers run their plain PyTorch versions.
 
+The batched decodes serve B objects at once, ungated, as the JAX package
+runs K2 under ``vmap``: one ``fused_trunk_cn_batched`` launch covers every
+object's points (the dense grid shared by all, or each object's own
+points with its corner-gathered features). ``generate_obj_mesh_mise``
+refines a coarse dense decode where the surface passes
+(generate/mise.py).
+
 The hand mesh is the MANO prediction moved from the canonical wrist frame
 into the object's normalized frame; the tactile clouds back-project the
 depth U-Net's predicted maps through each sensor's camera. LoopGenerator
@@ -35,6 +44,7 @@ from __future__ import annotations
 
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -44,6 +54,7 @@ from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.cuda.decode import (
     fused_trunk_cn,
+    fused_trunk_cn_batched,
     fused_trunk_gated_cn,
     fused_trunk_window_cn,
 )
@@ -76,6 +87,7 @@ _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
 _FIELDS = ("grid", "xz", "xy", "yz")
 _NO_PLANES = ("plane feature fields in the decode are not ported yet "
               "(ROADMAP.md, item 8)")
+_NO_MESH = "over a device mesh is not ported yet (ROADMAP.md, item 12)"
 
 
 def _transfer(td):
@@ -84,18 +96,26 @@ def _transfer(td):
 
 
 def _host(out):
-    """Finalized logits → host (N,) float32 numpy."""
-    if isinstance(out, tuple):           # int8: (quantized, scale)
+    """Finalized (N,) or (B, N) logits → host float32 numpy."""
+    if isinstance(out, tuple):           # int8: (quantized, scale per row)
         q, scale = out
-        return q.cpu().numpy().astype(np.float32) * float(scale)
+        return q.cpu().numpy().astype(np.float32) * scale.cpu().numpy()[..., None]
     return out.float().cpu().numpy()
+
+
+def _grid_only(c):
+    """The (B, R, R, R, C) grid of a feature dict without planes."""
+    if set(c) & set(_FIELDS) != {"grid"}:
+        raise NotImplementedError(_NO_PLANES)
+    return c["grid"]
 
 
 class Generator3D:
     def __init__(self, model, resolution0=16, padding=0.1,
                  with_img=False, encode_t2d=False, contact_per_finger=128,
                  depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
-                 transfer_dtype="auto", band_transfer="auto", coord_quant="auto"):
+                 transfer_dtype="auto", band_transfer="auto", coord_quant="auto",
+                 upsampling_steps=0):
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
@@ -104,7 +124,9 @@ class Generator3D:
         ``coord_quant``: round non-lattice query coords of ``eval_points``
         to uint16 steps of the box (error ≤ box/2¹⁶/2) before decoding, as
         the JAX package does for its host link. 'auto' resolves to off,
-        true turns it on."""
+        true turns it on.
+        ``upsampling_steps``: MISE's refinement levels
+        (``generate_obj_mesh_mise``)."""
         if isinstance(mc_level, bool) or not (
                 mc_level in ("midpoint", "mean")
                 or isinstance(mc_level, (int, float))):
@@ -121,7 +143,7 @@ class Generator3D:
                              f"false; got {coord_quant!r}")
         if band_transfer is True:
             raise NotImplementedError("band_transfer (generate/band.py) is not "
-                                      "ported yet (ROADMAP.md)")
+                                      "ported yet (ROADMAP.md, item 10)")
         self.model = model
         self.resolution0 = resolution0
         self.padding = padding
@@ -139,6 +161,11 @@ class Generator3D:
         self.scatter_slice_points = 1 << 22
         self.window_tile = 1024
         self.window_S = 128
+        self.upsampling_steps = upsampling_steps
+        # decode_dense_batched: a flight of more points than this runs in
+        # sub-batches under it (the JAX package's lax.map branch), which
+        # caps the memory of one launch
+        self.batched_vmap_limit = 1 << 25
 
     @classmethod
     def from_config(cls, model, cfg, **kw):
@@ -153,6 +180,7 @@ class Generator3D:
         return cls(
             model,
             resolution0=gen["resolution_0"],
+            upsampling_steps=gen["upsampling_steps"],
             padding=cfg["data"]["padding"],
             with_img=cfg["model"]["with_img"],
             encode_t2d=bool(cfg["model"]["encoder_t2d"]),
@@ -168,13 +196,14 @@ class Generator3D:
     # ------------------------------------------------------------------
     @staticmethod
     def _finalize_logits(logits, out_dtype):
-        """Transfer rounding: None (f32), a torch dtype, or 'int8' →
-        (int8 logits, f32 scale) with scale = max|logit|/127."""
+        """Transfer rounding of (N,) or (B, N) logits: None (f32), a torch
+        dtype, or 'int8' → (int8 logits, f32 scale per row) with scale =
+        max|logit|/127 over the row (each object's own)."""
         if out_dtype is None:
             return logits
         if out_dtype == "int8":
-            scale = torch.clamp(torch.max(torch.abs(logits)), min=1e-6) / 127.0
-            return torch.round(logits / scale).to(torch.int8), scale
+            scale = torch.clamp(torch.amax(torch.abs(logits), dim=-1), min=1e-6) / 127.0
+            return torch.round(logits / scale[..., None]).to(torch.int8), scale
         return logits.to(out_dtype)
 
     def _trunk_fast(self, tp, p_cn, feats, gate_pts, gate_feat, gate_valid,
@@ -323,6 +352,14 @@ class Generator3D:
             model, R1, xmajor, c, gating, gate_pts, gate_feat, gate_valid,
             transfer_dtype, dtype)
 
+    @staticmethod
+    def _quantize(p, box, dev):
+        """Host coords (any shape) → their uint16 steps of the box as an
+        int32 device tensor (``coord_quant``'s upload)."""
+        u = np.asarray(p, np.float32) / box + 0.5
+        return torch.as_tensor(np.round(np.clip(u, 0.0, 1.0) * 65535.0).astype(np.int32),
+                               device=dev)
+
     def _world_coords(self, pts, lattice_reso=None, coord_quant=False):
         """(3, N) device coords as encoded → f32 world coords: lattice
         nodes ``box·(i/R − 0.5)``, uint16 steps ``box·(q/65535 − 0.5)``, or
@@ -464,10 +501,7 @@ class Generator3D:
                     pts, lattice_reso = cand, reso
         if pts is None and lattice_reso is None:
             if coord_quant or quant_fallback:
-                u = pf.astype(np.float32).T / box + 0.5
-                q = np.round(np.clip(u, 0.0, 1.0) * 65535.0).astype(np.int32)
-                p = self._world_coords(torch.as_tensor(q, device=dev),
-                                       coord_quant=True)
+                p = self._world_coords(self._quantize(pf.T, box, dev), coord_quant=True)
             else:
                 p = torch.as_tensor(
                     np.ascontiguousarray(pf.astype(np.float32, copy=False).T),
@@ -525,6 +559,125 @@ class Generator3D:
         return np.concatenate([
             self.eval_points_fast(model, pointsf[i:i + lim], c, **kw)
             for i in range(0, n, lim)])
+
+    # ------------------------------------------------------------------
+    # batched serving: B objects per call, ungated
+    @staticmethod
+    def _trunk_batched(tp, p_cn, feats, dtype, leaky):
+        """(3, N) shared or (B, 3, N) coords + (B, C, N) features → (B, N)
+        logits: one batched K2 launch; the plain trunk per object for
+        leaky decoders (the kernels hardcode ReLU)."""
+        if not leaky:
+            store = dtype if dtype != torch.float32 else None
+            return fused_trunk_cn_batched(tp, p_cn, feats, store_dtype=store)
+        return torch.stack([FT.trunk_cn(tp, p_cn if p_cn.dim() == 2 else p_cn[b],
+                                        feats[b], dtype=dtype, leaky=True)
+                            for b in range(len(feats))])
+
+    @torch.inference_mode()
+    def decode_dense_batched(self, model, nx, c_batched, device_mesh=None,
+                             dtype=torch.float32, return_device=False,
+                             transfer_dtype=torch.bfloat16):
+        """Batched dense decode: (B, ...) feature fields → (B, nx³) logits,
+        each object flattened x-slowest (the marching-cubes order) and
+        rounded through ``transfer_dtype`` (its own default: bfloat16;
+        'int8' quantizes each object by its own scale), returned as host
+        float32 numpy. Ungated (the plain head): one batched K2 launch for
+        the flight, or one per sub-batch when the flight holds
+        ``batched_vmap_limit`` points or more. ``dtype`` bfloat16 stores
+        the streamed operands as bfloat16; K2 computes in float32.
+        ``return_device=True`` returns the finalized device tensor ((q,
+        scale) for int8) without waiting for it. ``device_mesh`` (the
+        objects sharded over cards) is not ported."""
+        if device_mesh is not None:
+            raise NotImplementedError(f"decode_dense_batched {_NO_MESH}")
+        grid = _grid_only(c_batched)
+        decoder = model.decoder
+        tp = FT.extract_trunk_params(decoder, with_img=False)
+        B, n = grid.shape[0], nx ** 3
+        box = 1 + self.padding
+        per = B if B * n < self.batched_vmap_limit else max(
+            1, (self.batched_vmap_limit - 1) // n)
+        p_cn = dense_query_grid_cn(nx, box, device=grid.device)
+        logits = torch.empty((B, n), dtype=torch.float32, device=grid.device)
+        for s in range(0, B, per):
+            objs = range(s, min(s + per, B))
+            feats = torch.stack([dense_feature_volume_cn({"grid": grid[b]}, nx, box,
+                                                         self.padding, dtype)
+                                 for b in objs])
+            logits[s:s + len(objs)] = self._trunk_batched(tp, p_cn, feats, dtype,
+                                                          decoder.leaky)
+            del feats
+        logits = logits.reshape(B, nx, nx, nx).permute(0, 3, 2, 1).reshape(B, n)
+        out = self._finalize_logits(logits, _transfer(transfer_dtype))
+        return out if return_device else _host(out)
+
+    def decode_dense_batched_band(self, *args, **kw):
+        raise NotImplementedError("decode_dense_batched_band (the batched iso-band "
+                                  "transfer, generate/band.py) is not ported yet "
+                                  "(ROADMAP.md, item 10)")
+
+    def finish_batched_band(self, *args, **kw):
+        raise NotImplementedError("finish_batched_band (the batched iso-band "
+                                  "transfer, generate/band.py) is not ported yet "
+                                  "(ROADMAP.md, item 10)")
+
+    @torch.inference_mode()
+    def decode_points_batched(self, model, pts_b, c_batched, device_mesh=None,
+                              transfer_dtype=torch.bfloat16, fast=None,
+                              lattice_reso=None, coord_quant=None, pts_cn=None,
+                              n_real=None):
+        """Batched decode at per-object points: (B, M, 3) host points
+        against (B, ...) feature fields → host (B, M) float32 logits,
+        ungated, rounded through ``transfer_dtype`` ('int8': per-object
+        scales). Each object's features are corner-gathered at its points,
+        then one batched K2 launch decodes all B objects.
+
+        Encodings, as ``eval_points_fast``: ``lattice_reso=R`` takes
+        integer lattice nodes (world coords ``box·(p/R − 0.5)``);
+        ``coord_quant`` rounds float coords to uint16 steps of the box
+        (None: the generator's setting, off the lattice). ``pts_cn`` (with
+        ``n_real``) is a prepacked (B, 3, mpad) int16 lattice upload whose
+        first ``n_real`` columns are decoded (MultiGridExtractorNative.
+        query_cn fills the rest with each object's last point). Only the
+        M real slots are decoded: the JAX package's size buckets pad with
+        the last slot, so they change no value and no int8 scale.
+        ``fast=False`` (the chunked legacy decode) and ``device_mesh`` are
+        not ported."""
+        if device_mesh is not None:
+            raise NotImplementedError(f"decode_points_batched {_NO_MESH}")
+        if fast is False:
+            raise NotImplementedError("decode_points_batched(fast=False), the chunked "
+                                      "legacy decode, is not ported yet (ROADMAP.md, "
+                                      "item 7)")
+        if pts_cn is not None:
+            if lattice_reso is None or n_real is None:
+                raise ValueError("pts_cn takes lattice_reso and n_real")
+            pts = np.asarray(pts_cn)[:, :, :int(n_real)]
+        else:
+            pts = np.asarray(pts_b, np.int16 if lattice_reso else np.float32)
+            pts = pts.transpose(0, 2, 1)
+        if coord_quant is None:
+            coord_quant = lattice_reso is None and self.coord_quant
+        elif coord_quant and lattice_reso is not None:
+            raise ValueError("coord_quant needs the non-lattice path")
+        grid = _grid_only(c_batched)
+        B, _, M = pts.shape
+        if M == 0:
+            return np.zeros((B, 0), np.float32)
+        decoder = model.decoder
+        tp = FT.extract_trunk_params(decoder, with_img=False)
+        dev = grid.device
+        if coord_quant:
+            p = self._world_coords(self._quantize(pts, 1 + self.padding, dev),
+                                   coord_quant=True)
+        else:
+            p = self._world_coords(torch.as_tensor(np.ascontiguousarray(pts), device=dev),
+                                   lattice_reso)
+        feats = torch.stack([scattered_grid_features_cn(grid[b], p[b], self.padding)
+                             for b in range(B)])
+        logits = self._trunk_batched(tp, p, feats, torch.float32, decoder.leaky)
+        return _host(self._finalize_logits(logits, _transfer(transfer_dtype)))
 
     # ------------------------------------------------------------------
     def _prep_contact_gates(self, gt_depths, pred_depths, d_origin, touch,
@@ -590,6 +743,29 @@ class Generator3D:
             pc_ply[0], H, W, seed=seed)
         return "contact", gate_pts, c_img[0], gate_valid
 
+    def _encode_sample(self, model, data, seed, gates=True):
+        """A B=1 loader batch → (its encoded feature grid, its tactile gates
+        from ``_build_gates``, or no gating when ``gates`` is false)."""
+        dev = next(model.parameters()).device
+
+        def get(key, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(data[key]), dtype=dtype, device=dev)
+
+        inputs = get("inputs")
+        c = model.encode_inputs(inputs)
+        if not gates:
+            return c, ("none", None, None, None)
+        imgs = get("inputs.img") if "inputs.img" in data else None
+        depths = get("inputs.depth") if "inputs.depth" in data else None
+        touch = (get("inputs.touch_success") > 0.5
+                 if "inputs.touch_success" in data else None)
+        hand = {k: get(f"points.{k}") for k in ("mano", "wrist")
+                if f"points.{k}" in data}
+        return c, self._build_gates(
+            model, imgs, depths, touch, get("inputs.pc_ply"),
+            get("points.cam_pos"), get("points.cam_rot"), seed, inputs=inputs,
+            mano_gt=hand.get("mano"), wrist=hand.get("wrist"))
+
     @torch.inference_mode()
     def generate_obj_mesh_wnf(self, model, data, seed=0):
         """Dense-grid decode + marching cubes + metrics for a B=1 batch.
@@ -601,26 +777,11 @@ class Generator3D:
         on the device that holds ``model``'s parameters.
         Returns ((verts, faces), emd, chamfer)."""
         dev = next(model.parameters()).device
-
-        def get(key, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(data[key]), dtype=dtype, device=dev)
-
         box_size = 1 + self.padding
         nx = self.resolution0 * 4
-        inputs = get("inputs")
-        imgs = get("inputs.img") if "inputs.img" in data else None
-        depths = get("inputs.depth") if "inputs.depth" in data else None
-        touch = (get("inputs.touch_success") > 0.5
-                 if "inputs.touch_success" in data else None)
         points_obj = np.asarray(data["points.points_obj"])
-        hand = {k: get(f"points.{k}") for k in ("mano", "wrist")
-                if f"points.{k}" in data}
-
-        c = model.encode_inputs(inputs)
-        gating, gate_pts, gate_feat, gate_valid = self._build_gates(
-            model, imgs, depths, touch, get("inputs.pc_ply"),
-            get("points.cam_pos"), get("points.cam_rot"), seed, inputs=inputs,
-            mano_gt=hand.get("mano"), wrist=hand.get("wrist"))
+        c, (gating, gate_pts, gate_feat, gate_valid) = self._encode_sample(
+            model, data, seed)
         values = self.eval_points_dense(
             model, nx, c, gating, gate_pts, gate_feat, gate_valid,
             transfer_dtype=self.transfer_dtype)
@@ -647,6 +808,39 @@ class Generator3D:
             torch.as_tensor(vert_sample[None], device=dev))[0])
         emd = metrics.earth_mover_distance(points_obj[0], vert_sample)
         return (verts, faces), emd, cd
+
+    @torch.inference_mode()
+    def generate_obj_mesh_mise(self, model, data, resolution0=None,
+                               upsampling_steps=None, seed=0, stats=None):
+        """A B=1 batch's mesh by MISE refinement (generate/mise.py): a
+        dense decode at (resolution0+1)³ (default ``resolution_0·4``), then
+        ``upsampling_steps`` levels (default the config's) that decode
+        only the points next to the surface, through the gather route with
+        the same tactile gates as ``generate_obj_mesh_wnf`` (contact,
+        fingertip or none), so the trained head drives the extraction.
+        The level follows ``mc_level``: a number is a level in logit
+        space; 'mean' and 'midpoint' take the coarse field's mean or
+        (min+max)/2. Returns (verts, faces), vertices in the object's
+        normalized frame. ``stats`` (a dict) receives multires_decode's
+        split and ``marching_cubes_s``."""
+        from vtaco_tpu_torch.generate.mise import multires_decode
+
+        res0 = resolution0 or self.resolution0 * 4
+        steps = self.upsampling_steps if upsampling_steps is None else upsampling_steps
+        c, gates = self._encode_sample(model, data, seed,
+                                       gates=self.with_img and "inputs.img" in data)
+        if isinstance(self.mc_level, (int, float)):
+            thr = float(self.mc_level)
+        else:
+            thr = None if self.mc_level == "mean" else "midpoint"
+        st = stats if stats is not None else {}
+        values, thr = multires_decode(self, model, c, res0, steps, thr, *gates,
+                                      stats=st)
+        reso = res0 * 2 ** steps
+        t0 = time.perf_counter()
+        verts, faces = marching_cubes(values, level=thr, gradient="ascent")
+        st["marching_cubes_s"] = st.get("marching_cubes_s", 0.0) + time.perf_counter() - t0
+        return (verts / reso - 0.5) * (1 + self.padding), faces
 
     # ------------------------------------------------------------------
     @torch.inference_mode()

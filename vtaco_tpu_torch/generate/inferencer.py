@@ -1,5 +1,6 @@
 """Batch inference: reconstruct a split (port of
-vtaco_tpu/generate/inferencer.py:26-94 and :229-275, ``Inferencer``).
+vtaco_tpu/generate/inferencer.py, ``Inferencer``: :26-94, ``run_batched``
+:96-227 through its full-volume branch, ``run`` :229-275).
 
 For every sample of a B=1 loader the object mesh
 (``Generator3D.generate_obj_mesh_wnf``, whose dense decode launches the
@@ -9,7 +10,13 @@ clouds instead. Every sample is encoded anew (the reference reuses the
 first sample's features, inferencing.py:155-160, an apparent caching
 bug the JAX package does not keep either). Means are taken over the
 meshes that have an iso-surface; an empty mesh reports inf and counts in
-``n_empty``. The batched, pipelined ``run_batched`` is not ported yet.
+``n_empty``.
+
+``run_batched`` serves B objects per flight, ungated (the plain head): one
+batched encode and one batched dense decode (one K2 launch), the logits'
+copy to pinned host memory started at once, then the next flight launched
+before this one's host work (threaded marching cubes, mesh files, one
+batched chamfer on the device), so that the host work overlaps the card's.
 """
 
 from __future__ import annotations
@@ -18,8 +25,12 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from vtaco_tpu_torch.generate.generator import Generator3D
+from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
+from vtaco_tpu_torch.generate.mise import host_map
+from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.utils import meshio
 
 
@@ -67,9 +78,106 @@ class Inferencer:
                  "n": len(emds), "n_empty": n_empty}
         return mesh_list_obj, mesh_list_hand, stats
 
-    def run_batched(self, *args, **kw):
-        raise NotImplementedError("Inferencer.run_batched (the CLI's --batched) "
-                                  "is not ported yet (ROADMAP.md, item 9)")
+    def run_batched(self, model, loader, batch_size=8, device_mesh=None,
+                    out_dir=None, max_samples: Optional[int] = None, dtype=None):
+        """Reconstruct a split ``batch_size`` objects at a time, ungated,
+        writing ``{name}_obj.off`` to ``out_dir`` (default: the config's
+        vis directory). Per flight: one batched encode and
+        ``decode_dense_batched`` (bfloat16 transfer, ``return_device``),
+        the copy of its logits to pinned host memory started at once;
+        flight k+1 is launched before flight k's host work: marching
+        cubes per object on ``host_map``'s threads at the midpoint level,
+        the mesh files, and one batched chamfer on the device against
+        2048 vertices per object drawn by one ``default_rng(0)`` over the
+        run (inf for an empty mesh). ``dtype``: the decode's (None:
+        float32, K2's own; bfloat16 stores its operands as bfloat16).
+        Returns ``{names, cd, cd_mean, n_empty}``, the mean over the
+        meshes that are not empty (None when all are). ``device_mesh`` is
+        not ported (ROADMAP.md, item 12)."""
+        if device_mesh is not None:
+            raise NotImplementedError("Inferencer.run_batched over a device mesh "
+                                      "is not ported yet (ROADMAP.md, item 12)")
+        out_dir = out_dir or self.vis_dir
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        gen = self.generator
+        nx = gen.resolution0 * 4
+        box = 1 + gen.padding
+        dev = next(model.parameters()).device
+        dtype = torch.float32 if dtype is None else dtype
+        names, cds = [], []
+        rng = np.random.default_rng(0)
+
+        def dispatch(inputs_list, names_b, objs):
+            with torch.inference_mode():
+                inputs = torch.as_tensor(np.stack(inputs_list), device=dev)
+                c = model.encode_inputs(inputs)
+                logits = gen.decode_dense_batched(model, nx, c, dtype=dtype,
+                                                  return_device=True)
+                done = None
+                if logits.is_cuda:
+                    # start the copy now: a .cpu() after the next flight's
+                    # launch would wait for that flight's kernels too
+                    host = torch.empty(logits.shape, dtype=logits.dtype,
+                                       pin_memory=True)
+                    host.copy_(logits, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                    logits = host
+            return logits, done, names_b, objs
+
+        def mc_one(v):
+            verts, faces = marching_cubes(v.reshape(nx, nx, nx), gradient="ascent")
+            return (verts - nx / 2) * box / nx, faces
+
+        def consume(flight):
+            logits, done, names_b, objs = flight
+            if done is not None:
+                done.synchronize()
+            meshes = host_map(mc_one, list(logits.float().numpy()))
+            samples, empty = [], []
+            for (verts, faces), name in zip(meshes, names_b):
+                if out_dir:
+                    meshio.write_off(os.path.join(out_dir, f"{name}_obj.off"), verts,
+                                     faces)
+                n = len(verts)
+                empty.append(n == 0)
+                if n == 0:       # no iso-surface: a filler, reported as inf
+                    samples.append(np.zeros((2048, 3), np.float32))
+                else:
+                    idx = (rng.permutation(n)[:2048] if n >= 2048
+                           else rng.integers(0, n, 2048))
+                    samples.append(np.ascontiguousarray(verts[idx], np.float32))
+                names.append(name)
+            with torch.inference_mode():
+                cd = metrics.chamfer_distance(
+                    torch.as_tensor(np.stack(objs), device=dev),
+                    torch.as_tensor(np.stack(samples), device=dev)).cpu().numpy()
+            cds.extend(float("inf") if e else float(x) for x, e in zip(cd, empty))
+
+        in_flight = None
+        inputs, names_b, objs = [], [], []
+        for i, batch in enumerate(loader):
+            if max_samples is not None and i >= max_samples:
+                break
+            inputs.append(np.asarray(batch["inputs"])[0])
+            names_b.append(batch["points.name"][0])
+            objs.append(np.asarray(batch["points.points_obj"])[0])
+            if len(inputs) == batch_size:
+                flight = dispatch(inputs, names_b, objs)
+                inputs, names_b, objs = [], [], []
+                if in_flight is not None:
+                    consume(in_flight)    # host work overlaps the new flight
+                in_flight = flight
+        if inputs:
+            flight = dispatch(inputs, names_b, objs)
+            if in_flight is not None:
+                consume(in_flight)
+            in_flight = flight
+        if in_flight is not None:
+            consume(in_flight)
+        cd_mean, n_empty = _finite_mean(cds)
+        return {"names": names, "cd": cds, "cd_mean": cd_mean, "n_empty": n_empty}
 
     def run(self, model, loader, out_dir=None, max_samples: Optional[int] = None):
         """Reconstruct a whole split, writing ``{name}_obj.off`` and

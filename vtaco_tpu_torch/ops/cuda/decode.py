@@ -21,6 +21,8 @@ in ``<wrapper>.launches``, incremented only where the kernel is launched
 ``.launches_gated``); ``fused_trunk_cn`` and ``fused_trunk_window_cn``
 also count, in ``.launches_cimg``, those of their launches that took c_img
 rows (MODE_CIMG, VTacOH's fingertip rows).
+``fused_trunk_cn_batched``, K2 over an object axis in one launch, counts
+in its own ``.launches``.
 ``store_dtype=torch.bfloat16`` stores the streamed per-point operands as
 bf16 (coords, features, c_img) while all math stays f32; the plain path
 rounds the same operands the same way.
@@ -123,6 +125,9 @@ def _lib():
     lib.trunk_cn_launch.argtypes = [P, I, I, I, I, P, P, P, I, P,
                                     ctypes.c_longlong, P]
     lib.trunk_cn_launch.restype = I
+    lib.trunk_cn_batched_launch.argtypes = [P, I, I, I, I, I, P, ctypes.c_longlong, P,
+                                            I, P, ctypes.c_longlong, P]
+    lib.trunk_cn_batched_launch.restype = I
     lib.trunk_gated_cn_launch.argtypes = [P, I, I, I, I, I, I, F, P, P, P, I, P,
                                           ctypes.c_longlong, P]
     lib.trunk_gated_cn_launch.restype = I
@@ -219,6 +224,45 @@ def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
 
 fused_trunk_cn.launches = 0
 fused_trunk_cn.launches_cimg = 0
+
+
+def fused_trunk_cn_batched(tp, p_cn, feats_bcn, *, store_dtype=None):
+    """K2 over B objects in one launch: the JAX package's ``fused_trunk_cn``
+    under ``vmap`` (an object axis on the features). p_cn (3, N), shared by
+    every object (the dense grid), or (B, 3, N); feats_bcn (B, C, N) →
+    (B, N) float32 logits, for any N. The plain version is ``trunk_cn``
+    per object."""
+    if p_cn.device.type == "cpu":
+        f, p = _stored(feats_bcn, store_dtype), _stored(p_cn, store_dtype)
+        out = torch.empty((f.shape[0], f.shape[-1]), dtype=torch.float32)
+        for b in range(len(f)):
+            out[b] = FT.trunk_cn(tp, p if p.dim() == 2 else p[b], f[b])
+        return out
+    if feats_bcn.dim() != 3 or p_cn.dim() not in (2, 3):
+        raise ValueError(f"features must be (B, C, N) and coords (3, N) or (B, 3, N), "
+                         f"got {tuple(feats_bcn.shape)} and {tuple(p_cn.shape)}")
+    B, C, N = feats_bcn.shape
+    shared = p_cn.dim() == 2
+    if not shared and p_cn.shape[0] != B:
+        raise ValueError(f"coords for {p_cn.shape[0]} objects, features for {B}")
+    _check(tp, p_cn if shared else p_cn[0], C, feats_bcn[0])
+    out = torch.empty((B, N), dtype=torch.float32, device=p_cn.device)
+    if B == 0 or N == 0:
+        return out
+    blob, _ = _window_operands(tp, 0)
+    x, f = _streamed(p_cn, store_dtype), _streamed(feats_bcn, store_dtype)
+    lib = _lib()
+    _check_smem(lib.trunk_smem_bytes, blob)
+    rc = lib.trunk_cn_batched_launch(
+        blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), B, x.data_ptr(),
+        0 if shared else 3 * N, f.data_ptr(), int(store_dtype == torch.bfloat16),
+        out.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
+    _raise_on(rc, "trunk_cn_batched_launch")
+    fused_trunk_cn_batched.launches += 1
+    return out
+
+
+fused_trunk_cn_batched.launches = 0
 
 
 def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
