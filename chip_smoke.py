@@ -37,11 +37,12 @@ ends:
      the wrappers' host time per call at 2^19 points.
   5. main path: VTacO_YCB at full width with random weights from a seed,
      Generator3D.generate_obj_mesh_wnf at nx = 128 on a synthetic batch,
-     contact-gated (kernel K1) and ungated (kernel K2), three warm meshes
-     each (median time); launch counters are zeroed just before these
-     runs and must be positive after them. Then a breakdown of a mesh by
-     stage (median of three), and the dense logits of each mode held
-     against the plain PyTorch trunk on the same inputs.
+     contact-gated (kernel K1) and ungated (kernel K2), MESH_REPS warm
+     meshes each (one warm mesh since MESH_REPS is 1); launch counters are
+     zeroed just before these runs and must be positive after them. Then a
+     breakdown of a mesh by stage (over MESH_REPS meshes), and the dense
+     logits of each mode held against the plain PyTorch trunk on the same
+     inputs.
   6. eval_points: the same model and batch, Generator3D.eval_points at
      float32 transfer on (a) 2^21, (b) 100,000 and (d) 2^19 uniform points
      in [-0.54, 0.54]^3 and (c) the shuffled 128^3 lattice, ungated and
@@ -55,7 +56,7 @@ ends:
      from seed 0, the synthetic batch from seed 0 with the ground-truth
      wrist set so that the fingertips land around the object (aim_hand).
      The scan is rescaled so that the random hand's tips span 0.6 of the
-     box. (a) generate_obj_mesh_wnf at nx = 128: one cold and three warm meshes
+     box. (a) generate_obj_mesh_wnf at nx = 128: one cold and MESH_REPS warm meshes
      (K2 launched on the c_img rows of gate_tips_cn, counters zeroed just
      before), a breakdown by stage with tips_gates_s (ResNet-18, the hand
      encoder, the tips in the object frame, gate_tips_cn), K2's logits on
@@ -90,6 +91,18 @@ ends:
      and left out with what they can reach. Counters are zeroed just
      before (b), (c) and (d) and read just after: only the expected
      kernel may launch, as many times as expected.
+  planes (after vtacoh): plane feature fields through K1 and K2. VTacO_YCB
+     with its object encoder on three PLANES_RESO^2 planes (the hand
+     encoder's U-Net on each; no grid, no UNet3D), random weights from
+     seed 0, the batch of phase 5: generate_obj_mesh_wnf at nx = 128
+     contact-gated (K1) and ungated (K2), one cold and one warm mesh
+     each; eval_points on PLANES_EVAL_N uniform points in both modes (the
+     gather route: the window route declines planes), one cold and three
+     warm calls; counters zeroed just before each and only K1 and K2 may
+     launch; then K1 and K2 on the plane-summed features of the mesh's
+     grid and of the points against their plain versions (max abs error
+     <= 1e-4; points within 1e-6 of r^2 left out), eval_points' logits
+     equal to the kernel's.
   9. pipeline: the paper's three stages through the port's entry points,
      at full width on one synthetic set made from seed 0 (PIPELINE_MODELS
      models: 12 in the train split, 2 val, 2 test; 100,000 query points,
@@ -162,9 +175,20 @@ ends:
      runs them (logged) and under torch.use_deterministic_algorithms
      (held: no farther than the plain steps' spread), BatchNorm buffers
      equal, the peak memory of each; (e) cli.generate from the VTacO and
-     VTacOH checkpoints: K1, and K2 on fingertip rows, once per
-     object (counters zeroed just before; these launches join the
-     kernels' count as fast_cli_generate and fast_vtacoh_cli_generate).
+     VTacOH checkpoints on one test object each (--max-samples 1): K1,
+     and K2 on fingertip rows, once (counters zeroed just before; these
+     launches join the kernels' count as fast_cli_generate and
+     fast_vtacoh_cli_generate).
+     (i) crop, before (g): configs/crop/scene_crop.yaml at its shipped full
+     width through python -m vtaco_tpu_torch.cli.train (its main) for
+     CROP_ITERS steps, then its warm steps at each precision and one
+     'highest' step against the CPU's float32 step (TRAIN_RTOL,
+     GRAD_COS), then eval_points on CROP_EVAL_N points of the whole scene
+     from the checkpoint (its 88^2 planes; the chunked module decode in
+     chunks of generation.batch_size), within 1e-4 of the CPU on
+     CROP_CPU_N of them. Counters are zeroed before the CLI and before
+     eval_points: the crop path launches no kernel, as in the JAX
+     package.
 Then one JSON line describing the kernels (K2's and K3's launches by
 mode, and their c_img mode's reading; K2 batched's row with the time of
 4 single-object launches beside it), and last the line
@@ -208,6 +232,7 @@ from vtaco_tpu_torch.generate.generator import make_loop_generator
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
     dense_query_grid_cn,
+    scattered_feature_volume_cn,
     scattered_grid_features_cn,
     supercell_keys,
     window_blocks,
@@ -227,7 +252,7 @@ RADIUS = 0.015           # contact gating radius (generator default)
 NEAR = 1e-6              # |d2 - r^2| below which a gate decision may round either way
 N_FLAGSHIP = 128 ** 3    # resolution_0 32 -> nx 128
 WIDTH, N_BLOCKS, K_CONTACTS = 32, 5, 128
-MESH_REPS = 3            # warm meshes per mode; times are their median
+MESH_REPS = 1            # warm meshes per mode: one warm mesh, no median
 R_GRID, PADDING = 64, 0.1   # VTacO_YCB's feature grid and box padding
 # eval_points query sets: (a) the flagship's 2^21 points, (b) the config's
 # generation.batch_size, (d) 2^19 points, (c) the shuffled LATTICE_NX^3
@@ -243,7 +268,7 @@ ROUTES = {"a": "window", "b": "gather", "d": "window", "c": "gather"}
 DEVICE_STAGES = ("encode_s", "gates_s", "dense_features_s", "trunk_s", "transfer_s")
 # train phase: loop.train's steps (validated and checkpointed at the last),
 # warm-up and timed steps, and the card-against-CPU bars of one step
-TRAIN_LOOP_ITERS, TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 4, 2, 10, 2
+TRAIN_LOOP_ITERS, TRAIN_WARM, TRAIN_TIMED, TRAIN_PROFILED = 4, 1, 6, 2
 TRAIN_PRECISIONS = ("default", "highest")
 TRAIN_RTOL, GRAD_COS = 1e-4, 0.999
 # the CPU step the card's is held to: float32 on the t2d path; float64 for
@@ -252,7 +277,8 @@ TRAIN_RTOL, GRAD_COS = 1e-4, 0.999
 # magnifies the float32 rounding of the CPU's reductions over 4.6 million
 # positions per channel (the bias's gradient, exactly zero, among them), so
 # that the CPU's float32 step strays from the exact one by about as much as
-# the bar allows. The run logs that step's cosines to the float64 step too.
+# the bar allows (measured on the card: the tactile U-Net's gradient cosine
+# of the CPU's float32 step to its float64 step, 0.99850).
 TRAIN_REFERENCE = {"tactile": torch.float64, "train": torch.float32,
                    "vtacoh": torch.float32}
 # pipeline phase: models of its synthetic set (12 train, so that
@@ -271,7 +297,7 @@ PIPELINE_MODELS, PIPELINE_QUERY, PIPELINE_IMG = 16, 100_000, (320, 240)
 FAST_CONFIGS = (("vtaco", "configs/VTacO/VTacO_YCB_fast.yaml"),
                 ("vtacoh", "configs/VTacOH/VTacOH_YCB_fast.yaml"),
                 ("tactile", "configs/tactile/tactile_test_fast.yaml"))
-FAST_ROUNDS, FAST_PLAIN = 3, 4
+FAST_ROUNDS, FAST_PLAIN = 2, 4
 # the modules that a *_fast config runs in bfloat16 (VTacOH's are VTacO's
 # at the same widths) → (the model method that runs it, its batch key)
 FAST_MODULES = {"vtaco": ("encoder", "encoder_hand", "encoder_img"), "vtacoh": (),
@@ -288,6 +314,13 @@ BATCH_B, BATCH_LATTICE_N, MISE_GAIN, BATCH_CLI = 4, 1 << 19, 0.3, 2
 # its exact field (object_queries) are what a mesh of the object's size
 # would query, and each level of (c) must reach MISE_SPAN of them
 OBJECT_AXES, MISE_SPAN = (0.35, 0.25, 0.3), 0.5
+# crop stage: scene_crop's steps through cli.train, the scene points its
+# eval_points decodes (in chunks of the config's generation.batch_size)
+# and the share of them held against the CPU
+CROP_ITERS, CROP_EVAL_N, CROP_CPU_N = 4, 1 << 21, 1 << 18
+# planes phase: the triplane VTacO_YCB's plane resolution and the points of
+# its eval_points call (the gather route)
+PLANES_RESO, PLANES_EVAL_N = 64, 100_000
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
@@ -1326,6 +1359,111 @@ def vtacoh_query_phase(dev, peak, model, batch, gen):
 # ---------------------------------------------------------------------------
 # batched serving and MISE
 
+def build_planes():
+    """VTacO_YCB with its object encoder on three PLANES_RESO² planes (the
+    hand encoder's U-Net on each, no grid, no UNet3D), random weights from
+    seed 0, the synthetic batch from seed 0, a generator per mode."""
+    cfg = load_config(os.path.join(REPO, "configs/VTacO/VTacO_YCB.yaml"),
+                      os.path.join(REPO, "configs/default.yaml"))
+    m = cfg["model"]
+    m["encoder_kwargs"].update(
+        plane_type=["xz", "xy", "yz"], plane_resolution=PLANES_RESO, unet=True,
+        unet_kwargs=copy.deepcopy(m["encoder_hand_kwargs"]["unet_kwargs"]), unet3d=False)
+    model = get_model(cfg)
+    randomize(model, seed=0)
+    batch = make_batch(np.random.default_rng(0), cfg)
+    gens = {"contact": get_generator(model, cfg)}
+    cfg_none = json.loads(json.dumps(cfg))
+    cfg_none["model"]["with_img"] = False
+    gens["none"] = get_generator(model, cfg_none)
+    return cfg, model, batch, gens
+
+
+def planes_phase(dev, cfg, model, batch, gens):
+    """(planes) plane feature fields through K1 and K2: the triplane model's
+    meshes at nx = 128, contact-gated (K1) and ungated (K2), one cold and
+    one warm each; eval_points on PLANES_EVAL_N uniform points in both
+    modes (the gather route: the window route declines planes), one cold
+    and three warm calls; each kernel's logits on the plane-summed
+    features against its plain version. Counters are zeroed just before
+    the meshes and before eval_points. Returns the launches of both paths."""
+    get = batch_tensors(batch, dev)
+    nx = gens["contact"].resolution0 * 4
+    enc = cfg["model"]["encoder_kwargs"]
+    log("planes", planes=enc["plane_type"], plane_resolution=enc["plane_resolution"],
+        unet_kwargs=enc["unet_kwargs"], nx=nx,
+        params=sum(p.numel() for p in model.parameters()))
+    zero_counters()
+    for mode, gen in gens.items():
+        times = []
+        for _ in range(2):
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        check_mesh(f"planes {mode}", verts, faces, emd, cd, nx)
+        log("planes", mode=mode, verts=len(verts), faces=len(faces), chamfer=cd, emd=emd,
+            mesh_s=times[1], first_mesh_s=times[0])
+    mesh_launches = read_counters()
+    launched_only("planes_mesh", mesh_launches,
+                  {"fused_trunk_gated_cn": 2, "fused_trunk_cn": 2})
+
+    pts = np.random.default_rng(9).uniform(-0.54, 0.54, (PLANES_EVAL_N, 3)).astype(np.float32)
+    with torch.no_grad():
+        c = model.encode_inputs(get("inputs"))
+        gates = {mode: gen._build_gates(
+            model, get("inputs.img"), get("inputs.depth"),
+            get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
+            get("points.cam_pos"), get("points.cam_rot"))
+            for mode, gen in gens.items()}
+    zero_counters()
+    outs = {}
+    for mode, gen in gens.items():
+        times = []
+        for _ in range(1 + 3):
+            t0 = time.perf_counter()
+            outs[mode] = gen.eval_points(model, pts, c, *gates[mode],
+                                         transfer_dtype=torch.float32)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        log("planes", eval_points_n=PLANES_EVAL_N, mode=mode,
+            call_s=float(np.median(times[1:])), call_s_each=times[1:], first_call_s=times[0])
+    eval_launches = read_counters()
+    launched_only("planes_eval_points", eval_launches,
+                  {"fused_trunk_gated_cn": 4, "fused_trunk_cn": 4})
+
+    # each kernel against its plain version on the plane-summed features,
+    # on the mesh's grid and on the eval_points set (not counted)
+    box = 1 + PADDING
+    p_sets = {"grid": dense_query_grid_cn(nx, box, device=dev),
+              "points": torch.as_tensor(np.ascontiguousarray(pts.T), device=dev)}
+    with torch.no_grad():
+        for where, p_cn in p_sets.items():
+            feats = (dense_feature_volume_cn(c, nx, box, PADDING) if where == "grid"
+                     else scattered_feature_volume_cn(c, p_cn, PADDING))
+            for mode, (gating, gp, gf, gv) in gates.items():
+                tp = FT.extract_trunk_params(model.decoder, with_img=gating != "none")
+                if gating == "contact":
+                    got = K.fused_trunk_gated_cn(tp, p_cn, feats, gp, gf, gv)
+                    want = plain_gated(tp, p_cn, feats, gp, gf, gv, RADIUS)
+                    _, gated, keep = gate_stats(p_cn, gp, gv, RADIUS)
+                else:
+                    got = K.fused_trunk_cn(tp, p_cn, feats)
+                    want, gated, keep = FT.trunk_cn(tp, p_cn, feats), 0, None
+                err = max_err(got, want, keep)
+                if where == "points":   # eval_points' logits are the kernel's
+                    err_ep = float(np.abs(outs[mode] - got.cpu().numpy()).max())
+                    if err_ep > ATOL:
+                        raise AssertionError(f"planes: eval_points {mode} {err_ep}")
+                log("planes", kernel=("fused_trunk_gated_cn" if gating == "contact"
+                                      else "fused_trunk_cn"), on=where, n=p_cn.shape[1],
+                    max_abs_err=err, gated_points=gated,
+                    near_radius=0 if keep is None else int((~keep).sum()),
+                    feature_min=float(feats.min()), feature_max=float(feats.max()))
+    return mesh_launches, eval_launches
+
+
 def lattice_points(dev, g, n, R):
     """n random nodes of the R^3 refinement lattice in C order (as MISE
     queries them) → (3, n) world coords box (i / R - 0.5)."""
@@ -1724,18 +1862,18 @@ def module_cosines(model, ref):
     return cos, ratio
 
 
-def step_against_cpu(cfg, trainer, batch, dtype):
+def step_against_cpu(cfg, trainer, batch, dtype, dataset=None):
     """One train step on the card and the same step on the CPU in
     ``dtype``, from the same weights, batch and (on the t2d path) contact
     draws: the loss scalars' relative errors, each module's gradient cosine
-    and norm ratio, the CPU step's seconds, and, for a float64 CPU step
-    (the tactile path: the loss and its backward, without the optimizer's
-    update), the CPU's float32 step's cosines and ratios to it. The card
-    runs the step in full float32 ('highest')."""
+    and norm ratio, and the CPU step's seconds (a float64 CPU step, on the
+    tactile path: the loss and its backward, without the optimizer's
+    update). The card runs the step in full float32 ('highest').
+    ``dataset`` sets a crop model's resolution (get_model)."""
     state = {k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()}
 
     def cpu_trainer(dt):
-        model = get_model(cfg, device="cpu")
+        model = get_model(cfg, device="cpu", dataset=dataset)
         model.load_state_dict(state)
         return Trainer.from_config(model.to(dt), cfg,
                                    mesh_bank=loop.build_mesh_bank(cfg, "cpu"))
@@ -1744,7 +1882,7 @@ def step_against_cpu(cfg, trainer, batch, dtype):
     trainer = Trainer.from_config(trainer.model, cfg, mesh_bank=trainer.mesh_bank,
                                   matmul_precision="highest")
     draws = cpu_draws = None
-    if not trainer.train_tactile:
+    if not trainer.train_tactile and (trainer.encode_t2d or trainer.with_img):
         a = trainer.prepare_batch(batch)
         if trainer.encode_t2d:
             H, W = a["imgs"].shape[2:4]
@@ -1765,7 +1903,6 @@ def step_against_cpu(cfg, trainer, batch, dtype):
         cpu_draws = {k: v.cpu() for k, v in draws.items()}
     got = trainer.train_step(batch, draws)
     t0 = time.perf_counter()
-    cpu32 = None
     if dtype == torch.float32:
         want = cpu.train_step(batch, cpu_draws)
     elif trainer.train_tactile or not trainer.encode_t2d:
@@ -1781,13 +1918,9 @@ def step_against_cpu(cfg, trainer, batch, dtype):
     else:
         raise ValueError(f"no {dtype} CPU step on the t2d path")
     cpu_s = time.perf_counter() - t0
-    if dtype != torch.float32:
-        f32 = cpu_trainer(torch.float32)
-        f32.train_step(batch, cpu_draws)
-        cpu32 = module_cosines(f32.model, cpu.model)
     rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
     cos, ratio = module_cosines(trainer.model, cpu.model)
-    return rel, cos, ratio, cpu_s, cpu32
+    return rel, cos, ratio, cpu_s
 
 
 def timed_steps(trainer, batches):
@@ -1881,13 +2014,10 @@ def train_stage(phase, cfg, modules):
                 min=min(col), max=max(col))
 
     dtype = TRAIN_REFERENCE[phase]
-    rel, cos, ratio, cpu_s, cpu32 = step_against_cpu(cfg, trainer, batches[-1], dtype)
+    rel, cos, ratio, cpu_s = step_against_cpu(cfg, trainer, batches[-1], dtype)
     log(phase, vs_cpu="loss_rel_err", cpu_dtype=str(dtype)[6:], cpu_step_s=cpu_s, **rel)
     log(phase, vs_cpu="grad_cosine", **cos)
     log(phase, vs_cpu="grad_norm_ratio", **ratio)
-    if cpu32 is not None:   # the CPU's own float32 step, logged, not held
-        log(phase, cpu_float32_vs_cpu="grad_cosine", **cpu32[0])
-        log(phase, cpu_float32_vs_cpu="grad_norm_ratio", **cpu32[1])
     if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
         raise AssertionError(f"{phase}: card step differs from the CPU step: {rel} {cos}")
     if not set(modules) <= set(cos):
@@ -2046,12 +2176,12 @@ def read_ply_points(path):
     return pts
 
 
-def generate_meshes(root, cfg_ckpt, config, run, kernel):
+def generate_meshes(root, cfg_ckpt, config, run, kernel, *extra):
     """cli.generate on a config's test split from a checkpoint at nx =
-    128: its JSON line, an object and a hand mesh per object, ``kernel``
-    (read_counters' name) launched once per object and nothing else
-    (counters zeroed just before, read just after), each object's mesh and
-    hand-mesh time. Returns the launches."""
+    128 (``extra``: more CLI arguments): its JSON line, an object and a
+    hand mesh per object, ``kernel`` (read_counters' name) launched once
+    per object and nothing else (counters zeroed just before, read just
+    after), each object's mesh and hand-mesh time. Returns the launches."""
     from vtaco_tpu_torch.generate.generator import Generator3D
 
     cfg, ckpt = cfg_ckpt
@@ -2059,7 +2189,7 @@ def generate_meshes(root, cfg_ckpt, config, run, kernel):
         setattr(fn, attr, 0)
     K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
     with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "generate_hand_mesh")) as t:
-        line, files, seconds = cli_generate(root, cfg, ckpt, run)
+        line, files, seconds = cli_generate(root, cfg, ckpt, run, *extra)
     launches = read_counters()
     n = line["n"]
     mesh_s, hand_s = t["generate_obj_mesh_wnf"], t["generate_hand_mesh"]
@@ -2136,6 +2266,113 @@ def visualize_stage(root, vt, tac, vh):
 
 # ---------------------------------------------------------------------------
 # the fast phase: the *_fast configs
+
+def crop_inputs(batch, dev):
+    """A crop batch's encoder input: {"points", "index": {plane: (B, N)}}."""
+    return {"points": torch.as_tensor(batch["inputs"], device=dev),
+            "index": {k.split(".")[-1]: torch.as_tensor(v[:, 0], dtype=torch.int64,
+                                                         device=dev)
+                      for k, v in batch.items() if k.startswith("inputs.ind.")}}
+
+
+def crop_stage(root, data):
+    """(i) scene_crop (configs/crop/scene_crop.yaml) at its shipped full
+    width through python -m vtaco_tpu_torch.cli.train (its main) for
+    CROP_ITERS steps, then its warm steps at each precision, one 'highest'
+    step against the CPU's float32 step, and Generator3D.eval_points on
+    CROP_EVAL_N points of the scene from the checkpoint (the whole scene's
+    88² planes; the chunked module decode), the card against the CPU on
+    CROP_CPU_N of them. Every counter is zeroed before the CLI and before
+    eval_points and read after the CPU step and after eval_points: the
+    crop path reaches no kernel (as in the JAX package)."""
+    from vtaco_tpu_torch.cli import train as train_cli
+
+    path = os.path.join(REPO, "configs/crop/scene_crop.yaml")
+    out_dir = os.path.join(root, "crop")
+    zero_counters()
+    t0 = time.perf_counter()
+    printed(train_cli.main, [path, "--data-root", data[0], "--max-iters", str(CROP_ITERS),
+                             "--out-dir", out_dir])
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    ckpt = os.path.join(out_dir, "model.ckpt")
+    if CheckpointIO(out_dir).load_raw("model.ckpt")[1]["it"] != CROP_ITERS:
+        raise AssertionError("crop: cli.train wrote no checkpoint at its last step")
+    cfg = load_config(path, os.path.join(REPO, "configs/default.yaml"))
+    cfg["data"]["path"] = data[0]
+    cfg["training"]["out_dir"] = out_dir
+    train_ds = get_dataset("train", cfg)
+    model = get_model(cfg, dataset=train_ds)
+    CheckpointIO(out_dir, model=model).load(ckpt)
+    enc = model.encoder
+    log("crop", config="configs/crop/scene_crop.yaml", cli_iters=CROP_ITERS, loop_s=loop_s,
+        params=sum(p.numel() for p in model.parameters()),
+        plane_resolution=enc.plane_resolution, planes=list(enc.planes),
+        batch_size=cfg["training"]["batch_size"], pointcloud_n=cfg["data"]["pointcloud_n"],
+        points_subsample=cfg["data"]["points_subsample"])
+
+    trainer = Trainer.from_config(model, cfg)
+    loader = BatchLoader(train_ds, cfg["training"]["batch_size"], num_workers=4, seed=1)
+    n_steps = (TRAIN_WARM + TRAIN_TIMED) * len(TRAIN_PRECISIONS)
+    batches = take(loader, n_steps + 1)
+    torch.cuda.reset_peak_memory_stats()
+    runs, scalars = timed_steps(trainer, batches[:n_steps])
+    log("crop", peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, **scalars)
+    for prec, (times, _) in runs.items():
+        log("crop", matmul_precision=prec, step_s=float(np.median(times)),
+            step_s_min=min(times), step_s_max=max(times))
+    rel, cos, ratio, cpu_s = step_against_cpu(cfg, trainer, batches[-1], torch.float32,
+                                              dataset=train_ds)
+    log("crop", vs_cpu="loss_rel_err", cpu_dtype="float32", cpu_step_s=cpu_s, **rel)
+    log("crop", vs_cpu="grad_cosine", **cos)
+    log("crop", vs_cpu="grad_norm_ratio", **ratio)
+    if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
+        raise AssertionError(f"crop: card step differs from the CPU step: {rel} {cos}")
+    if set(cos) != {"encoder", "decoder"}:
+        raise AssertionError(f"crop: modules with gradients: {sorted(cos)}")
+    train_launches = read_counters()
+    del trainer, batches
+
+    # the whole scene, decoded from the checkpoint
+    test_ds = get_dataset("test", cfg, return_idx=True)
+    models = {}
+    for dev_name in ("cuda", "cpu"):
+        m = get_model(cfg, device=dev_name, dataset=test_ds)
+        CheckpointIO(out_dir, model=m).load(ckpt)
+        models[dev_name] = m.eval()
+    np.random.seed(0)
+    batch = next(iter(BatchLoader(test_ds, 1, shuffle=False, num_workers=1)))
+    pts = np.random.default_rng(8).uniform(-0.55, 0.55, (CROP_EVAL_N, 3)).astype(np.float32)
+    gens = {d: get_generator(m, cfg) for d, m in models.items()}
+    with torch.no_grad():
+        c = {d: m.encode_inputs(crop_inputs(batch, d)) for d, m in models.items()}
+    zero_counters()
+    times = []
+    for _ in range(1 + 3):                 # one cold call, three warm
+        t0 = time.perf_counter()
+        got = gens["cuda"].eval_points(models["cuda"], pts, c["cuda"],
+                                       transfer_dtype=torch.float32)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    eval_launches = read_counters()
+    t0 = time.perf_counter()
+    want = gens["cpu"].eval_points(models["cpu"], pts[:CROP_CPU_N], c["cpu"],
+                                   transfer_dtype=torch.float32)
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(got[:CROP_CPU_N] - want).max())
+    log("crop", eval_points_n=CROP_EVAL_N, chunk=gens["cuda"].points_batch_size,
+        plane_resolution=models["cuda"].encoder.plane_resolution,
+        call_s=float(np.median(times[1:])), call_s_each=times[1:], first_call_s=times[0],
+        vs_cpu_n=CROP_CPU_N, vs_cpu_max_abs_err=err, cpu_call_s=cpu_s,
+        logit_min=float(got.min()), logit_max=float(got.max()))
+    if not (err <= ATOL and np.isfinite(got).all()):
+        raise AssertionError(f"crop: eval_points on the card differs from the CPU: {err}")
+    launched = {k: v for k, v in list(train_launches.items()) + list(eval_launches.items())
+                if v}
+    log("crop", kernel_launches=sum(launched.values()))
+    if launched:
+        raise AssertionError(f"crop: the crop path launched kernels: {launched}")
+
 
 def fast_config(name, path, root, data, t2d_ckpt):
     """A *_fast config on the pipeline's set, validated and checkpointed
@@ -2613,7 +2850,7 @@ def fast_phase(root, data, t2d_ckpt):
     resume, (b) their steps' time, memory, launches and syncs beside the
     plain step's, (c) the bfloat16 step against the float32 one, (d)
     remat against plain, (e) cli.generate from the VTacO and VTacOH
-    checkpoints (K1, and K2 on fingertip rows, once per object). Returns
+    checkpoints on one object each (K1, and K2 on fingertip rows). Returns
     (e)'s launches by path."""
     group_norm_bf16_check()
     launches = {}
@@ -2636,10 +2873,12 @@ def fast_phase(root, data, t2d_ckpt):
         torch.cuda.empty_cache()
         if name == "vtaco":
             launches["fast_cli_generate"] = generate_meshes(
-                root, (cfg, ckpt), path, "fast_generate_vtaco", "fused_trunk_gated_cn")
+                root, (cfg, ckpt), path, "fast_generate_vtaco", "fused_trunk_gated_cn",
+                "--max-samples", "1")
         elif name == "vtacoh":
             launches["fast_vtacoh_cli_generate"] = generate_meshes(
-                root, (cfg, ckpt), path, "fast_generate_vtacoh", "fused_trunk_cn:c_img")
+                root, (cfg, ckpt), path, "fast_generate_vtacoh", "fused_trunk_cn:c_img",
+                "--max-samples", "1")
     return launches
 
 
@@ -2666,6 +2905,7 @@ def pipeline_phase():
     launches = generate_stage(root, vt, tac, vh)
     batched = batched_cli_stage(root, vt)
     visualize_stage(root, vt, tac, vh)
+    crop_stage(root, data)
     fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
     return launches, batched, fast
@@ -2713,6 +2953,9 @@ def main():
     h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
     cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
     del h_model, h_gen
+    p_cfg, p_model, p_batch, p_gens = build_planes()
+    planes_mesh, planes_eval = planes_phase(dev, p_cfg, p_model, p_batch, p_gens)
+    del p_model, p_gens
     (cli_launches, h_cli), cli_batched, fast_launches = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),
@@ -2728,7 +2971,8 @@ def main():
     # eval_points (K3/K4) paths, VTacOH's (K2 and K3 on fingertip rows,
     # counted apart as ':c_img') and both generation CLIs
     paths = {"mesh": launches, "eval_points": eval_launches, "vtacoh_mesh": h_mesh,
-             "vtacoh_eval_points": h_eval, "cli_generate": cli_launches,
+             "vtacoh_eval_points": h_eval, "planes_mesh": planes_mesh,
+             "planes_eval_points": planes_eval, "cli_generate": cli_launches,
              "vtacoh_cli_generate": h_cli, **batched_paths,
              "cli_generate_batched": cli_batched, **fast_launches}
     kernels = []

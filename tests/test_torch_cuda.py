@@ -669,3 +669,77 @@ def test_fused_block_has_no_host_sync(cuda, train_cfg):
     assert not syncs, syncs
     out = tr.read_scalars(stacked)
     assert all(v.shape == (4,) and np.isfinite(v).all() for v in out.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gating", ["none", "contact"])
+def test_trunk_kernels_on_plane_features(cuda, gating):
+    """K2 and K1 on features summed from three planes and a grid (the
+    dense decode's dense_feature_volume_cn at nx = 48, and the gather
+    route's scattered_feature_volume_cn at 100,003 points) against their
+    plain versions."""
+    from vtaco_tpu_torch.ops.dense_decode import (dense_feature_volume_cn,
+                                                  scattered_feature_volume_cn)
+
+    dec = random_decoder(cuda)
+    g = torch.Generator().manual_seed(5)
+    fields = {k: torch.randn((1, 24, 24, 32), generator=g).to(cuda)
+              for k in ("xz", "xy", "yz")}
+    fields["grid"] = torch.randn((1, 12, 12, 12, 32), generator=g).to(cuda)
+    tp = FT.extract_trunk_params(dec, with_img=gating == "contact")
+    q, feat, valid = _contacts(cuda, "spread")
+    nx = 48
+    p_dense = dense_query_grid_cn(nx, 1.1, device=cuda)
+    p_pts, _ = _inputs(cuda, 100_003)
+    with torch.no_grad():
+        for p, f in ((p_dense, dense_feature_volume_cn(fields, nx, 1.1, 0.1)),
+                     (p_pts, scattered_feature_volume_cn(fields, p_pts, 0.1))):
+            keep = None
+            if gating == "contact":
+                got = K.fused_trunk_gated_cn(tp, p, f, q, feat, valid)
+                want = FT.trunk_cn(tp, p, f, FT.gate_contact_cn(p, q, feat, valid))
+                d2 = FT.contact_sq_dist(p, q, valid)
+                keep = ~torch.any(torch.abs(d2 - 0.015 ** 2) < 1e-6, dim=0)
+            else:
+                got = K.fused_trunk_cn(tp, p, f)
+                want = FT.trunk_cn(tp, p, f)
+            torch.cuda.synchronize()
+            d = torch.abs(got - want)
+            assert float((d if keep is None else d[keep]).max()) < ATOL
+
+
+@pytest.mark.cuda
+def test_crop_eval_points_card_matches_cpu(cuda, tmp_path):
+    """configs/crop/scene_crop.yaml at small widths (hidden 8, U-Net depth
+    2): eval_points on 50,000 scene points, chunked by 20,000 through the
+    crop decoder, on the card against the CPU from the same weights and
+    test batch; no kernel launches (the crop decode is the module's)."""
+    root, _ = synthetic.generate(str(tmp_path / "data"), n_models=4, n_query=4000,
+                                 n_surface=2000, img_h=16, img_w=12, seed=3)
+    cfg = load_config("configs/crop/scene_crop.yaml", "configs/default.yaml")
+    cfg["data"].update(path=root, points_subsample=512, pointcloud_n=512, query_vol_size=16)
+    enc = cfg["model"]["encoder_kwargs"]
+    enc["hidden_dim"] = 8
+    enc["unet_kwargs"].update(depth=2, start_filts=8)
+    enc["unet3d_kwargs"]["num_levels"] = 1
+    cfg["generation"]["batch_size"] = 20_000
+    ds = get_dataset("test", cfg)
+    torch.manual_seed(0)
+    cpu_model = get_model(cfg, device="cpu", dataset=ds)
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    batch = next(iter(BatchLoader(ds, 1, shuffle=False, num_workers=1)))
+    pts = np.random.default_rng(1).uniform(-0.55, 0.55, (50_000, 3)).astype(np.float32)
+    out = {}
+    before = {k: getattr(K, k).launches for k in ("fused_trunk_cn", "fused_trunk_gated_cn",
+                                                  "fused_trunk_window_cn")}
+    for dev, model in (("cpu", cpu_model), ("cuda", card_model)):
+        enc_in = {"points": torch.as_tensor(batch["inputs"], device=dev),
+                  "index": {k.split(".")[-1]: torch.as_tensor(v[:, 0], device=dev).long()
+                            for k, v in batch.items() if k.startswith("inputs.ind.")}}
+        with torch.no_grad():
+            c = model.encode_inputs(enc_in)
+        out[dev] = get_generator(model, cfg).eval_points(model, pts, c,
+                                                         transfer_dtype=torch.float32)
+    assert {k: getattr(K, k).launches for k in before} == before
+    assert np.isfinite(out["cuda"]).all()
+    assert float(np.abs(out["cuda"] - out["cpu"]).max()) < ATOL

@@ -31,7 +31,10 @@ BatchNorm reducing and normalizing in bfloat16. The two packages' float32
 evaluations agree within a tenth of that gap (R <= 0.1).
 
 `JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_fast_modules.py`
-prints every reading (the port's R and each fault's)."""
+prints every reading (the port's R and each fault's). VTacO_YCB's object
+and hand encoders are checked in tests/test_torch_fast_modules_vtaco.py
+and tactile_test's modules in tests/test_torch_fast_modules_tactile.py,
+so that no file holds one worker long."""
 
 import json
 
@@ -54,7 +57,7 @@ from vtaco_tpu_torch.train.trainer import cpu_reduced_precision_convs
 from bf16_checks import MODULE_GRAD_BAR as GRAD_BAR
 from bf16_checks import MODULE_OUT_BAR as OUT_BAR
 from bf16_checks import bf16_batchnorm, exact_zero
-from test_torch_fast import port_trainer, small, trainer_kw
+from test_torch_fast import port_trainer, share_cores, small, trainer_kw  # noqa: F401
 from test_torch_setup import random_tree
 
 SEEDS = (21, 22, 23)
@@ -64,6 +67,12 @@ METHODS = {"encoder": ("encode_inputs", "inputs"),
            "encoder_img": ("encode_img_inputs", "imgs")}
 CASES = [("vtaco", "encoder"), ("vtaco", "encoder_hand"), ("vtaco", "encoder_img"),
          ("tactile", "encoder_hand"), ("tactile", "encoder_img")]
+# the cases of each file, by name: this file's, test_torch_fast_modules_vtaco.py's
+# and test_torch_fast_modules_tactile.py's; a case in no file or in two fails here
+SPLIT = {"modules": [("vtaco", "encoder_img")],
+         "vtaco": [("vtaco", "encoder"), ("vtaco", "encoder_hand")],
+         "tactile": [("tactile", "encoder_hand"), ("tactile", "encoder_img")]}
+assert sorted(sum(SPLIT.values(), [])) == sorted(CASES), SPLIT
 
 
 def make_synth(root):
@@ -185,8 +194,7 @@ def module_readings(name, mod, synth):
     return {"config": name, "module": mod, "R": ratio, "jax_gap_each": gap}
 
 
-@pytest.mark.parametrize("name,mod", CASES)
-def test_bf16_module_matches_jax(synth, name, mod):
+def check_module(synth, name, mod):
     """The port's bfloat16 module within the bars of the JAX package's
     bfloat16 module (R <= 0.6 per output, <= 0.8 for the gradient), and
     each planted fault beyond them."""
@@ -198,6 +206,11 @@ def test_bf16_module_matches_jax(synth, name, mod):
         if fault != "port":
             assert any(v > (GRAD_BAR if k == "grad" else OUT_BAR) for k, v in got.items()), (
                 fault, r)
+
+
+@pytest.mark.parametrize("name,mod", SPLIT["modules"])
+def test_bf16_module_matches_jax(synth, name, mod):
+    check_module(synth, name, mod)
 
 
 if __name__ == "__main__":

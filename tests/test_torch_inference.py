@@ -325,15 +325,33 @@ def test_pipeline_through_the_clis(synth, tmp_path, capsys):
 @pytest.mark.parametrize("what", ["device_mesh", "points_unfast", "dense_band",
                                   "tensorboard", "profile_dir", "debug_nans"])
 def test_unported_options_raise(synth, tmp_path, what):
-    """Batched serving over a device mesh (ROADMAP item 12), the chunked
-    legacy ``decode_points_batched(fast=False)`` (item 7) and the batched
+    """Batched serving over a device mesh (ROADMAP item 12), the batched
     iso-band transfer ``decode_dense_batched_band`` (item 10), and the
     loop's TensorBoard, profiler and NaN-debug options (item 13), raise
-    instead of running without them."""
+    instead of running without them. The chunked legacy
+    ``decode_points_batched(fast=False)`` (item 7) equals the JAX
+    package's."""
     from vtaco_tpu_torch.train import loop
 
     cfg = _cli_cfg(_small_cfg("configs/VTacO/VTacO_YCB.yaml", *synth), tmp_path / "out")
-    if what in ("device_mesh", "points_unfast", "dense_band"):
+    if what == "points_unfast":
+        from test_torch_setup import build_pair
+
+        pcfg, jmodel, v, tmodel = build_pair()
+        pcfg["generation"]["batch_size"] = 100      # chunks of 100, the last padded
+        jgen, gen = JGen.from_config(jmodel, pcfg), get_generator(tmodel, pcfg)
+        rng = np.random.default_rng(4)
+        g = rng.standard_normal((2, 4, 4, 4, 8)).astype(np.float32)
+        pts = rng.uniform(-0.6, 0.6, (2, 250, 3)).astype(np.float32)
+        want = jgen.decode_points_batched(SimpleNamespace(**v), pts, {"grid": jnp.asarray(g)},
+                                          fast=False, transfer_dtype=jnp.float32)
+        got = gen.decode_points_batched(tmodel, pts, {"grid": torch.as_tensor(g)},
+                                        fast=False, transfer_dtype=torch.float32)
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
+        with pytest.raises(ValueError, match="lattice_reso"):
+            gen.decode_points_batched(tmodel, pts, {"grid": torch.as_tensor(g)},
+                                      fast=False, lattice_reso=8)
+    elif what in ("device_mesh", "dense_band"):
         model = get_model(port_cfg(), device="cpu")
         gen = get_generator(model, port_cfg())
         c = {"grid": torch.zeros(2, 4, 4, 4, 8)}
@@ -343,10 +361,6 @@ def test_unported_options_raise(synth, tmp_path, what):
                 inf.run_batched(model, [], batch_size=2, device_mesh=object())
             with pytest.raises(NotImplementedError, match="device mesh.*item 12"):
                 gen.decode_dense_batched(model, 4, c, device_mesh=object())
-        elif what == "points_unfast":
-            with pytest.raises(NotImplementedError, match="fast=False.*item 7"):
-                gen.decode_points_batched(model, np.zeros((2, 3, 3), np.float32), c,
-                                          fast=False)
         else:
             with pytest.raises(NotImplementedError,
                                match="decode_dense_batched_band.*item 10"):
@@ -358,25 +372,51 @@ def test_unported_options_raise(synth, tmp_path, what):
 
 
 @pytest.mark.parametrize("case", ["planes_dense", "planes_gather", "trainer_no_img"])
-def test_unported_messages_name_the_missing_piece(case):
-    """Each path that is not ported names what is missing and its ROADMAP
-    item: plane fields in the decode (item 8); the loss paths without
-    images (plain, contact, t2d without images: items 5 and 7)."""
+def test_unported_messages_name_the_missing_piece(synth, case):
+    """Plane fields on the dense decode and the gather route (ROADMAP item
+    8; within 1e-5), and a train step without images, the plain loss path
+    (items 5 and 7; loss scalars within 1e-5 relative), equal the JAX
+    package."""
+    from vtaco_tpu.ops import dense_decode as JD
+    from vtaco_tpu.ops import fast_trunk as JFT
+    from vtaco_tpu_torch.ops import fast_trunk as FT
     from vtaco_tpu_torch.ops.dense_decode import dense_feature_volume_cn
     from vtaco_tpu_torch.train.trainer import Trainer
 
-    cfg = port_cfg()
-    cfg["model"]["with_img"] = case != "trainer_no_img"
-    model = get_model(cfg, device="cpu")
-    want = {"trainer_no_img": "plain, contact and t2d-without-images.*items 5 and 7"}.get(
-        case, "plane feature fields.*item 8")
-    with pytest.raises(NotImplementedError, match=want):
-        planes = {"grid": torch.zeros(1, 4, 4, 4, 8), "xz": torch.zeros(1, 4, 4, 8)}
-        if case == "trainer_no_img":
-            Trainer.from_config(model, cfg)
-        elif case == "planes_dense":
-            dense_feature_volume_cn(planes, 8, 1.1, 0.1)
-        else:
-            gen = get_generator(model, cfg)
-            gen._decode_scatter_fast_impl(None, torch.zeros(3, 4), planes, None, None,
-                                          None, "none", torch.float32, False)
+    from test_torch_setup import build_pair
+
+    rng = np.random.default_rng(9)
+    planes = {"grid": rng.standard_normal((1, 4, 4, 4, 8)).astype(np.float32),
+              "xz": rng.standard_normal((1, 4, 4, 8)).astype(np.float32)}
+    jplanes = {k: jnp.asarray(v) for k, v in planes.items()}
+    tplanes = {k: torch.as_tensor(v) for k, v in planes.items()}
+    if case == "planes_dense":
+        np.testing.assert_allclose(dense_feature_volume_cn(tplanes, 8, 1.1, 0.1).numpy(),
+                                   np.asarray(JD.dense_feature_volume_cn(jplanes, 8, 1.1, 0.1)),
+                                   atol=1e-6, rtol=0)
+    elif case == "planes_gather":
+        cfg, jmodel, v, tmodel = build_pair()
+        jgen, gen = JGen.from_config(jmodel, cfg), get_generator(tmodel, cfg)
+        p = rng.uniform(-0.6, 0.6, (3, 400)).astype(np.float32)
+        jtp = JFT.extract_trunk_params(v["params"]["decoder"], tmodel.decoder.n_blocks,
+                                       with_img=False)
+        want = jgen._decode_scatter_fast_impl(
+            jtp, jnp.asarray(p), jplanes, jnp.zeros((1, 3)), jnp.zeros((1, 1)),
+            jnp.zeros((1,), bool), "none", jnp.float32, use_pallas=False)
+        got = gen._decode_scatter_fast_impl(
+            FT.extract_trunk_params(tmodel.decoder, with_img=False), torch.as_tensor(p),
+            tplanes, None, None, None, "none", torch.float32, False)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    else:
+        cfg = _small_cfg("configs/VTacO/VTacO_YCB.yaml", *synth)
+        cfg["model"].update(with_img=False, encoder_img=False, encoder_t2d=False)
+        cfg["training"]["matmul_precision"] = "highest"
+        jmodel, state, tmodel = _pair(cfg, seed=3, damp=False)
+        jtr = JaxTrainer.from_config(jmodel, cfg)
+        batch = _batches(cfg, "train")[0]
+        _, want = jtr.train_step(jtr._state_from_variables(
+            {"params": state.params, "batch_stats": state.batch_stats}), batch)
+        got = Trainer.from_config(tmodel, cfg).train_step(batch)
+        assert set(got) == set(want) == {"loss", "loss_l1", "loss_mano", "loss_pc"}
+        for k in want:
+            assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-7), k

@@ -104,9 +104,22 @@ def test_dense_feature_volume(rng, nx, R):
         np.asarray(jdd.dense_query_grid_cn(nx, 1.1)))
 
 
-def test_dense_feature_volume_rejects_planes():
-    with pytest.raises(NotImplementedError):
-        tdd.dense_feature_volume_cn({"xz": torch.zeros(1, 4, 4, 2)}, 8, 1.1, 0.1)
+def test_dense_feature_volume_rejects_planes(rng):
+    """Plane fields: the dense volume of three planes alone and beside a
+    grid, and their scattered features at arbitrary points, as the JAX
+    package sums them."""
+    fields = {"xz": rng.standard_normal((1, 5, 5, 2)), "xy": rng.standard_normal((1, 6, 6, 2)),
+              "yz": rng.standard_normal((1, 4, 4, 2)),
+              "grid": rng.standard_normal((1, 4, 4, 4, 2))}
+    fields = {k: v.astype(np.float32) for k, v in fields.items()}
+    p = rng.uniform(-0.6, 0.6, (3, 500)).astype(np.float32)
+    for keys in (("xz",), ("xz", "xy", "yz"), ("grid", "xz", "xy", "yz")):
+        tf = {k: T(fields[k]) for k in keys}
+        jf = {k: jnp.asarray(fields[k]) for k in keys}
+        close(tdd.dense_feature_volume_cn(tf, 8, 1.1, 0.1),
+              jdd.dense_feature_volume_cn(jf, 8, 1.1, 0.1))
+        close(tdd.scattered_feature_volume_cn(tf, T(p), 0.1),
+              jdd.scattered_feature_volume_cn(jf, jnp.asarray(p), 0.1))
 
 
 def test_backproject_depth(rng):

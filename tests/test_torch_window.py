@@ -386,15 +386,18 @@ def test_eval_points_sparse_and_overflow_take_gather_route(rng, gens, monkeypatc
 
 
 def test_eval_points_empty_and_unported(gens):
+    """Empty query sets; and ``fast=False``, the chunked legacy decode,
+    equal to the JAX package's."""
     jgen, state, tgen, tmodel, jc, tc = gens
     empty = np.zeros((0, 3), np.float32)
     assert tgen.eval_points_fast(tmodel, empty, tc).shape == (0,)
     assert tgen.eval_points(tmodel, empty, tc).shape == (0,)
     assert np.asarray(jgen.eval_points_fast(state, empty, jc,
                                             use_pallas=False)).shape == (0,)
-    pts = np.zeros((10, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.eval_points(tmodel, pts, tc, fast=False)
+    pts = np.random.default_rng(5).uniform(-0.6, 0.6, (10, 3)).astype(np.float32)
+    want = jgen.eval_points(state, pts, jc, transfer_dtype=jnp.float32, fast=False)
+    got = tgen.eval_points(tmodel, pts, tc, transfer_dtype=torch.float32, fast=False)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
 
 
 def test_coord_quant_config():
@@ -410,6 +413,14 @@ def test_coord_quant_config():
     with pytest.raises(ValueError):
         get_generator(model, cfg)
     cfg["generation"]["coord_quant"] = "auto"
-    cfg["data"]["input_type"] = "pointcloud_crop"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_generator(model, cfg)
+    # crop volumes: the JAX package's
+    cfg["data"].update(input_type="pointcloud_crop", unit_size=0.02, query_vol_size=25)
+    gen, jgen = get_generator(model, cfg), JGen.from_config(None, cfg)
+    assert gen.input_type == "pointcloud_crop"
+    for a, b in zip(gen.input_vol, jgen.input_vol):
+        np.testing.assert_array_equal(a, b)
+    # sliding_window changes nothing that the crop decode reads
+    cfg["generation"]["sliding_window"] = True
+    for a, b in zip(get_generator(model, cfg).input_vol,
+                    JGen.from_config(None, cfg).input_vol):
+        np.testing.assert_array_equal(a, b)

@@ -10,13 +10,15 @@ layout so each module's counterpart is easy to find:
              holds the CUDA kernels (sources in csrc/) with their ctypes
              wrappers
   models/    nn.Modules: ResNet-18, the tactile depth U-Net, UNet2D,
-             UNet3D, LocalPoolPointnet (grid and planes, MANO head), the
-             MANO layer, LocalDecoder and the ConvOccupancyNetwork
+             UNet3D, LocalPoolPointnet (grid and planes, MANO head) and its
+             crop form, the MANO layer, LocalDecoder (with the contact
+             head) and PatchLocalDecoder, and the ConvOccupancyNetwork
              composite with its hand encoder and nested t2d model
-  data/      npz fields, transforms, Shapes3dDataset, the batch loader and
+  data/      npz fields (the crop fields among them), transforms,
+             Shapes3dDataset with its crop volumes, the batch loader and
              the synthetic dataset generator
-  train/     contact sampling, the Trainer (the t2d_img and tactile loss
-             paths) and the training loop
+  train/     contact sampling, the Trainer (every loss path) and the
+             training loop
   generate/  Generator3D (dense decode + marching cubes + metrics, hand
              meshes, predicted tactile clouds), the loop's visualization
              (LoopGenerator) and the Inferencer, which reconstructs a split

@@ -61,7 +61,7 @@ def main(argv=None):
 
     dataset = get_dataset(args.split, cfg, return_idx=True)
     torch.manual_seed(0)
-    model = get_model(cfg, device="cpu" if args.cpu else "cuda")
+    model = get_model(cfg, device="cpu" if args.cpu else "cuda", dataset=dataset)
     loader = BatchLoader(dataset, 1, shuffle=False,
                          num_workers=cfg["training"]["n_workers_val"])
 

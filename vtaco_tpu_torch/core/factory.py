@@ -1,26 +1,41 @@
 """Model and generator factory (port of vtaco_tpu/core/factory.py:44-183).
 
-Builds every submodule of the VTacO configs: the object ``encoder``
-(pointnet_local_pool, grid field), the hand ``encoder_hand``
+Builds every submodule of the shipped configs: the object ``encoder``
+(pointnet_local_pool, grid field; pointnet_crop_local_pool, the crop
+form), the hand ``encoder_hand``
 (pointnet_local_pool on planes, with its MANO head) and ``mano_layer``,
 the tactile ``encoder_img`` (Resnet18, or the depth U-Net of the tactile
 configs), the nested tactile-to-depth model ``encoder_t2d`` (a hand
-encoder and the depth U-Net) and the ``decoder`` (simple_local). An
-``encoder`` or ``decoder`` set to false (or null) is not built, as in the
-tactile depth-stack configs.
+encoder and the depth U-Net) and the ``decoder`` (simple_local, with
+the contact head under ``model.with_contact``; simple_local_crop). An
+``encoder`` or ``decoder`` set to false (or null) is not built, as in
+the tactile depth-stack configs.
+
+As in the JAX package, ``data.unit_size`` and ``model.local_coord`` /
+``model.pos_encoding`` overwrite the entries of the encoder, hand
+encoder and decoder kwargs, and a ``pointcloud_crop`` model takes its
+feature resolution from the dataset it is built for: the train crop's
+(``query_vol_size`` + the receptive field - 1, rounded up for the U-Net)
+for the train split or ``generation.sliding_window``, else the whole
+scene's (``dataset.total_reso``). Unlike the JAX package, get_model
+leaves ``cfg`` as it is.
 """
 
 from __future__ import annotations
 
+import copy
+
 from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork
-from vtaco_tpu_torch.models.decoder import LocalDecoder
+from vtaco_tpu_torch.models.decoder import LocalDecoder, PatchLocalDecoder
 from vtaco_tpu_torch.models.layers import Resnet18, TactileUNet
 from vtaco_tpu_torch.models.mano import ManoLayer
-from vtaco_tpu_torch.models.pointnet import LocalPoolPointnet
+from vtaco_tpu_torch.models.pointnet import LocalPoolPointnet, PatchLocalPoolPointnet
+from vtaco_tpu_torch.ops.geometry import crop_levels, update_reso
 
-encoder_dict = {"pointnet_local_pool": LocalPoolPointnet, "Resnet18": Resnet18,
-                "UNet": TactileUNet}
-decoder_dict = {"simple_local": LocalDecoder}
+encoder_dict = {"pointnet_local_pool": LocalPoolPointnet,
+                "pointnet_crop_local_pool": PatchLocalPoolPointnet,
+                "Resnet18": Resnet18, "UNet": TactileUNet}
+decoder_dict = {"simple_local": LocalDecoder, "simple_local_crop": PatchLocalDecoder}
 
 
 def _lookup(table, name, what):
@@ -51,24 +66,45 @@ def _hand_encoder(name, kw, dim, padding, c_dim=None):
             int(kw.get("out_dim") or 0), kw.get("manolayer_kwargs"))
 
 
-def get_model(cfg, device="cuda", return_aux=False):
+def _crop_resolution(cfg, dataset):
+    """The feature resolution of a pointcloud_crop model built for
+    ``dataset``."""
+    if getattr(dataset, "split", None) == "train" or cfg["generation"].get("sliding_window"):
+        recep_field = crop_levels(cfg["model"]["encoder_kwargs"])[0]
+        return update_reso(cfg["data"]["query_vol_size"] + recep_field - 1, dataset.depth)
+    return dataset.total_reso
+
+
+def get_model(cfg, device="cuda", return_aux=False, dataset=None):
     """Build the ConvOccupancyNetwork for cfg on ``device``, in eval mode,
     with PyTorch's default initialization (seed it with torch.manual_seed,
     or load weights with core.weights.load_jax_params). With
     ``return_aux`` it returns (model, aux), aux carrying
     ``t2d_pretrained_file``: the checkpoint the trainer grafts the
-    pretrained tactile-to-depth weights from, or None."""
-    mcfg = cfg["model"]
-    if mcfg.get("with_contact"):
-        raise NotImplementedError("model.with_contact (the contact-logit "
-                                  "head) is not ported yet (ROADMAP.md)")
+    pretrained tactile-to-depth weights from, or None. ``dataset``
+    (data.core.Shapes3dDataset) sets a crop model's resolution."""
+    mcfg = copy.deepcopy(cfg["model"])
+    prop = {k: mcfg[k] for k in ("local_coord", "pos_encoding") if k in mcfg}
+    if "unit_size" in cfg["data"]:
+        prop["unit_size"] = cfg["data"]["unit_size"]
+    for kwname in ("encoder_kwargs", "encoder_hand_kwargs", "decoder_kwargs"):
+        if isinstance(mcfg.get(kwname), dict):
+            mcfg[kwname].update(prop)
+    if cfg["data"].get("input_type") == "pointcloud_crop" and dataset is not None:
+        enc_kw = mcfg["encoder_kwargs"]
+        reso = _crop_resolution(cfg, dataset)
+        if "grid" in enc_kw["plane_type"]:
+            enc_kw["grid_resolution"] = reso
+        if set(enc_kw["plane_type"]) & {"xz", "xy", "yz"}:
+            enc_kw["plane_resolution"] = reso
     dim, c_dim = cfg["data"]["dim"], mcfg["c_dim"]
     padding = cfg["data"]["padding"]
 
     decoder = encoder = None
     if mcfg.get("decoder") not in (False, None):
         kw = dict(mcfg.get("decoder_kwargs") or {})
-        kw.update(dim=dim, c_dim=c_dim, padding=padding)
+        kw.update(dim=dim, c_dim=c_dim, padding=padding,
+                  with_contact=bool(mcfg.get("with_contact")))
         decoder = _lookup(decoder_dict, mcfg["decoder"], "decoder")(**kw)
 
     if mcfg.get("encoder") not in (False, None):

@@ -3,9 +3,19 @@ and the data-field factory of vtaco_tpu/core/factory.py:192-218).
 
 ``Shapes3dDataset`` reads the reference's directory-per-category layout:
 model lists from ``<split>.lst``, an optional ``metadata.yaml``, and each
-sample as the flattened union of its fields' dicts; a sample whose field
-fails to load is dropped. ``BatchLoader`` is a shuffling batcher whose
-worker threads prefetch fixed-shape numpy batch dicts.
+sample as the flattened union of its fields' dicts (a nested dict, such
+as the crop fields' per-plane ``ind`` and ``normalized``, flattens to
+``<field>.<key>.<plane>``); a sample whose field fails to load is
+dropped. ``BatchLoader`` is a shuffling batcher whose worker threads
+prefetch fixed-shape numpy batch dicts.
+
+With ``data.input_type: pointcloud_crop`` every sample is cut to a crop
+volume (``get_vol_info``): in the train split a cube of the crop
+resolution times ``unit_size`` around a centre drawn uniformly within the
+cloud's extent from numpy's global random state, in the other splits the
+whole scene's volume (``decide_total_volume_range``); the crop fields
+receive that volume in place of the category index, and the sample
+carries ``pointcloud_crop`` True.
 """
 
 from __future__ import annotations
@@ -26,17 +36,24 @@ from vtaco_tpu_torch.data.transforms import (
     SubsamplePointcloud,
     SubsamplePoints,
 )
+from vtaco_tpu_torch.ops.geometry import (
+    crop_levels,
+    decide_total_volume_range,
+    update_reso,
+)
 
 logger = logging.getLogger(__name__)
 
 
 class Shapes3dDataset:
     def __init__(self, dataset_folder, fields, split=None, categories=None,
-                 no_except=True, transform=None):
+                 no_except=True, transform=None, cfg=None):
         self.dataset_folder = dataset_folder
         self.fields = fields
         self.no_except = no_except
         self.transform = transform
+        self.cfg = cfg
+        self.split = split
 
         if categories is None:
             categories = [c for c in sorted(os.listdir(dataset_folder))
@@ -64,6 +81,45 @@ class Shapes3dDataset:
                     models_c = [m for m in f.read().split("\n") if m]
             self.models += [{"category": c, "model": m} for m in models_c]
 
+        self.crop = cfg is not None and cfg["data"].get("input_type") == "pointcloud_crop"
+        if self.crop:
+            recep_field, self.depth = crop_levels(cfg["model"]["encoder_kwargs"])
+            query_vol_metric = (100000 if cfg["generation"].get("sliding_window")
+                                else cfg["data"]["padding"] + 1)
+            (self.total_input_vol, self.total_query_vol,
+             self.total_reso) = decide_total_volume_range(
+                query_vol_metric, recep_field, cfg["data"]["unit_size"], self.depth)
+
+    def get_vol_info(self, model_path):
+        """The crop volume of one sample: {"plane_type", "reso", "input_vol",
+        "query_vol"} (volumes as [lower (3,), upper (3,)])."""
+        cfg = self.cfg
+        query_vol_size = cfg["data"]["query_vol_size"]
+        unit_size = cfg["data"]["unit_size"]
+        field_name = cfg["data"]["pointcloud_file"]
+        recep_field = crop_levels(cfg["model"]["encoder_kwargs"])[0]
+        if cfg["data"].get("multi_files") is None:
+            file_path = os.path.join(model_path, field_name)
+        else:
+            num = np.random.randint(cfg["data"]["multi_files"])
+            file_path = os.path.join(model_path, field_name,
+                                     "%s_%02d.npz" % (field_name, num))
+        with np.load(file_path) as z:
+            p = z["points"]
+        if self.split == "train":
+            p_c = np.array([np.random.uniform(p[:, i].min(), p[:, i].max())
+                            for i in range(3)], np.float32)
+            reso = update_reso(query_vol_size + recep_field - 1, self.depth)
+            input_vol_metric = reso * unit_size
+            query_vol_metric = query_vol_size * unit_size
+            input_vol = [p_c - input_vol_metric / 2, p_c + input_vol_metric / 2]
+            query_vol = [p_c - query_vol_metric / 2, p_c + query_vol_metric / 2]
+        else:
+            reso = self.total_reso
+            input_vol, query_vol = self.total_input_vol, self.total_query_vol
+        return {"plane_type": cfg["model"]["encoder_kwargs"]["plane_type"], "reso": reso,
+                "input_vol": input_vol, "query_vol": query_vol}
+
     def __len__(self):
         return len(self.models)
 
@@ -73,6 +129,9 @@ class Shapes3dDataset:
         c_idx = self.metadata[category]["idx"]
         model_path = os.path.join(self.dataset_folder, category, model)
         data = {}
+        if self.crop:
+            c_idx = self.get_vol_info(model_path)
+            data["pointcloud_crop"] = True
         for field_name, field in self.fields.items():
             try:
                 field_data = field.load(model_path, idx, c_idx)
@@ -88,6 +147,9 @@ class Shapes3dDataset:
                         data[field_name] = np.asarray(v, np.float32)
                     elif k == "name":
                         data[f"{field_name}.{k}"] = v
+                    elif isinstance(v, dict):
+                        for sub, sv in v.items():
+                            data[f"{field_name}.{k}.{sub}"] = np.asarray(sv)
                     else:
                         data[f"{field_name}.{k}"] = np.asarray(v, np.float32)
             else:
@@ -187,13 +249,16 @@ class BatchLoader:
 
 def get_data_fields(mode, cfg):
     """The query-point fields of a split: points (subsampled to
-    data.points_subsample) and, for val/test, points_iou."""
+    data.points_subsample; the crop points field for pointcloud_crop)
+    and, for val/test, points_iou."""
     if cfg["data"].get("voxels_file") is not None:
         raise NotImplementedError("data.voxels_file (VoxelsField) is not ported "
                                   "yet (ROADMAP.md)")
     flds = {}
     if cfg["data"].get("points_file") is not None:
-        flds["points"] = F.PointsField(
+        field_cls = (F.PatchPointsField if cfg["data"]["input_type"] == "pointcloud_crop"
+                     else F.PointsField)
+        flds["points"] = field_cls(
             cfg["data"]["points_file"], SubsamplePoints(cfg["data"]["points_subsample"]),
             unpackbits=cfg["data"]["points_unpackbits"],
             multi_files=cfg["data"].get("multi_files"))
@@ -212,8 +277,11 @@ def get_dataset(mode, cfg, return_idx=False):
                          "test": "test_split"}[mode]]
     flds = get_data_fields(mode, cfg)
     input_type = cfg["data"]["input_type"]
-    if input_type == "pointcloud":
-        flds["inputs"] = F.PointCloudField(
+    cloud_field = {"pointcloud": F.PointCloudField,
+                   "partial_pointcloud": F.PartialPointCloudField,
+                   "pointcloud_crop": F.PatchPointCloudField}.get(input_type)
+    if cloud_field is not None:
+        flds["inputs"] = cloud_field(
             cfg["data"]["pointcloud_file"],
             Compose([SubsamplePointcloud(cfg["data"]["pointcloud_n"]),
                      PointcloudNoise(cfg["data"]["pointcloud_noise"])]),
@@ -222,8 +290,8 @@ def get_dataset(mode, cfg, return_idx=False):
         flds["inputs"] = F.IndexField()
     elif input_type is not None:
         raise NotImplementedError(f"data.input_type {input_type!r} is not ported "
-                                  "yet (ROADMAP.md)")
+                                  "yet (ROADMAP.md, item 5)")
     if return_idx:
         flds["idx"] = F.IndexField()
     return Shapes3dDataset(cfg["data"]["path"], flds, split=split,
-                           categories=cfg["data"]["classes"])
+                           categories=cfg["data"]["classes"], cfg=cfg)

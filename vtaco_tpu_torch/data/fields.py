@@ -1,6 +1,7 @@
 """npz data fields with the reference's on-disk contract (port of
-vtaco_tpu/data/fields.py:25-147: Field, IndexField, PointsField,
-PointCloudField).
+vtaco_tpu/data/fields.py:25-270: Field, IndexField, PointsField,
+PointCloudField, PartialPointCloudField, and the crop fields
+PatchPointsField and PatchPointCloudField).
 
 Each field's ``load(model_path, idx, category)`` returns a dict whose
 ``None`` key is the field's main array; the dataset flattens the other
@@ -15,6 +16,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from vtaco_tpu_torch.ops.geometry import coord2index, normalize_coord
 
 
 class Field:
@@ -116,4 +119,100 @@ class PointCloudField(Field):
         }
         if self.transform is not None:
             data = self.transform(data)
+        return data
+
+
+class PartialPointCloudField(Field):
+    """A partial cloud: the points within a random length (between
+    ``part_ratio`` and all of the extent) from the low end of a random
+    axis, with their normals."""
+
+    def __init__(self, file_name, transform=None, multi_files=None, part_ratio=0.7):
+        self.file_name = file_name
+        self.transform = transform
+        self.multi_files = multi_files
+        self.part_ratio = part_ratio
+
+    def load(self, model_path, idx, category):
+        d = _load(model_path, self.file_name, self.multi_files)
+        points = d["points"].astype(np.float32)
+        normals = d["normals"].astype(np.float32)
+        side = np.random.randint(3)
+        xb = [points[:, side].min(), points[:, side].max()]
+        length = np.random.uniform(self.part_ratio * (xb[1] - xb[0]), xb[1] - xb[0])
+        ind = (points[:, side] - xb[0]) <= length
+        data = {None: points[ind], "normals": normals[ind]}
+        if self.transform is not None:
+            data = self.transform(data)
+        return data
+
+
+class PatchPointsField(Field):
+    """Crop query points: the points inside the crop's query volume with
+    their occupancies (and zero contact labels, for the subsampling), and
+    ``normalized``: {plane: the points' coords in the crop's input volume}.
+    ``vol`` is the dataset's crop volume dict (Shapes3dDataset.get_vol_info)."""
+
+    def __init__(self, file_name, transform=None, unpackbits=False, multi_files=None):
+        self.file_name = file_name
+        self.transform = transform
+        self.unpackbits = unpackbits
+        self.multi_files = multi_files
+
+    def load(self, model_path, idx, vol):
+        d = _load(model_path, self.file_name, self.multi_files)
+        points = d["points"]
+        if points.dtype == np.float16:
+            points = points.astype(np.float32)
+            points += 1e-4 * np.random.randn(*points.shape)
+        occ = d["occupancies"]
+        if self.unpackbits:
+            occ = np.unpackbits(occ)[: points.shape[0]]
+        occ = occ.astype(np.float32)
+        ind = np.ones(len(points), bool)
+        for i in range(3):
+            ind &= ((points[:, i] >= vol["query_vol"][0][i])
+                    & (points[:, i] <= vol["query_vol"][1][i]))
+        data = {None: points[ind].astype(np.float32), "occ": occ[ind]}
+        if self.transform is not None:
+            data.setdefault("contact", np.zeros_like(data["occ"]))
+            data = self.transform(data)
+        data["normalized"] = {key: normalize_coord(data[None].copy(), vol["input_vol"],
+                                                   plane=key)
+                              for key in vol["plane_type"]}
+        return data
+
+
+class PatchPointCloudField(Field):
+    """Crop input cloud: points outside the crop's input volume are zeroed,
+    flagged in ``mask`` and sent to the overflow cell reso^k of every
+    field's scatter index ``ind`` ({plane: (1, N)}), which the crop
+    encoder pools into and drops."""
+
+    def __init__(self, file_name, transform=None, transform_add_noise=None,
+                 multi_files=None):
+        self.file_name = file_name
+        self.transform = transform
+        self.multi_files = multi_files
+
+    def load(self, model_path, idx, vol):
+        d = _load(model_path, self.file_name, self.multi_files)
+        points = d["points"].astype(np.float32)
+        data = {None: points, "normals": d["normals"].astype(np.float32)}
+        if self.transform is not None:
+            data = self.transform(data)
+            points = data[None]
+        inside = np.ones(len(points), bool)
+        for i in range(3):
+            inside &= ((points[:, i] >= vol["input_vol"][0][i])
+                       & (points[:, i] <= vol["input_vol"][1][i]))
+        mask = ~inside
+        data["mask"] = mask
+        points[mask] = 0.0
+        index = {}
+        for key in vol["plane_type"]:
+            index[key] = coord2index(points.copy(), vol["input_vol"], reso=vol["reso"],
+                                     plane=key)
+            index[key][:, mask] = vol["reso"] ** (3 if key == "grid" else 2)
+        data["ind"] = index
         return data

@@ -1,10 +1,11 @@
 """Mesh generation and occupancy decode (port of
-vtaco_tpu/generate/generator.py: ``from_config`` :249-314,
+vtaco_tpu/generate/generator.py: ``from_config`` :249-314, the chunked
+module decode ``_decode_chunk_impl`` :380 and ``_gate_chunk`` :415,
 ``_finalize_logits`` :476-490, ``_decode_dense_fast_impl`` :492-517,
 ``_decode_scatter_fast_impl`` :601-635, ``_decode_scatter_window_impl``
 :637-699, ``_trunk_fast`` :701-749, ``eval_points_dense`` :751, query-set
 detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
-:1288-1478, ``eval_points`` :1480-1533, ``_prep_contact_gates``
+:1288-1478, ``eval_points`` :1480-1593, ``_prep_contact_gates``
 :1597-1629, ``_build_gates`` :2175-2210, ``generate_obj_mesh_wnf``
 :2212-2293 through its full-volume branch, the batched decodes
 ``decode_dense_batched`` :1704-1794 and ``decode_points_batched``
@@ -25,7 +26,19 @@ cube to the dense decode, a lattice to the corner gather + K1/K2, any
 other set to the sorted window route, whose kernel
 (``fused_trunk_window_cn``: K3, with the fingertip rows or none, or K4
 with contact gating) interpolates and decodes in one pass. On CPU tensors
-the same wrappers run their plain PyTorch versions.
+the same wrappers run their plain PyTorch versions. Plane feature
+fields take the same routes but the window route (as in the JAX package,
+whose window kernel reads the grid only): their features are summed into
+the (C, N) features that K1 and K2 read.
+
+``eval_points(fast=False)`` is the JAX package's legacy decode: the
+decoder module on chunks of ``points_batch_size`` points (the last one
+padded), gated per chunk (``_gate_chunk``, the direct distances); above
+one chunk every chunk is decoded on the device before one transfer. A
+decoder the fast trunk cannot reproduce (anything but LocalDecoder)
+takes it for every decode, and crop models (``pointcloud_crop``) always
+do: their queries are normalized into the whole scene's input volume
+(``vol_info``) per chunk and decoded by the crop decoder, ungated.
 
 The batched decodes serve B objects at once, ungated, as the JAX package
 runs K2 under ``vmap``: one ``fused_trunk_cn_batched`` launch covers every
@@ -58,11 +71,12 @@ from vtaco_tpu_torch.ops.cuda.decode import (
     fused_trunk_gated_cn,
     fused_trunk_window_cn,
 )
+from vtaco_tpu_torch.models.decoder import LocalDecoder
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
     dense_query_grid_cn,
     device_scalar,
-    scattered_grid_features_cn,
+    scattered_feature_volume_cn,
     supercell_keys,
     window_blocks,
     window_overflow,
@@ -70,7 +84,10 @@ from vtaco_tpu_torch.ops.dense_decode import (
 from vtaco_tpu_torch.ops.geometry import (
     R_from_PYR,
     axisang_to_euler_xyz,
+    crop_levels,
+    decide_total_volume_range,
     norm_pc_1,
+    normalize_coord,
     pc_cam_to_world,
 )
 from vtaco_tpu_torch.train.contact import (
@@ -84,9 +101,6 @@ from vtaco_tpu_torch.utils import meshio
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
-_FIELDS = ("grid", "xz", "xy", "yz")
-_NO_PLANES = ("plane feature fields in the decode are not ported yet "
-              "(ROADMAP.md, item 8)")
 _NO_MESH = "over a device mesh is not ported yet (ROADMAP.md, item 12)"
 
 
@@ -103,11 +117,17 @@ def _host(out):
     return out.float().cpu().numpy()
 
 
-def _grid_only(c):
-    """The (B, R, R, R, C) grid of a feature dict without planes."""
-    if set(c) & set(_FIELDS) != {"grid"}:
-        raise NotImplementedError(_NO_PLANES)
-    return c["grid"]
+def _legacy_transfer(td):
+    """The transfer dtype of the legacy decodes: a plain cast, where the
+    fast routes' int8 is scaled; int8 becomes bfloat16 there, as in the JAX
+    package (a raw int8 cast would truncate the logits)."""
+    td = _transfer(td)
+    return torch.bfloat16 if td == "int8" else td
+
+
+def _object(c, b):
+    """Object b's fields of batched feature fields."""
+    return {k: v[b] for k, v in c.items()}
 
 
 class Generator3D:
@@ -115,7 +135,8 @@ class Generator3D:
                  with_img=False, encode_t2d=False, contact_per_finger=128,
                  depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
                  transfer_dtype="auto", band_transfer="auto", coord_quant="auto",
-                 upsampling_steps=0):
+                 upsampling_steps=0, points_batch_size=100000, input_type=None,
+                 vol_info=None):
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
@@ -126,7 +147,15 @@ class Generator3D:
         the JAX package does for its host link. 'auto' resolves to off,
         true turns it on.
         ``upsampling_steps``: MISE's refinement levels
-        (``generate_obj_mesh_mise``)."""
+        (``generate_obj_mesh_mise``).
+        ``points_batch_size``: the chunk of the legacy decode
+        (``eval_points(fast=False)``).
+        ``input_type``, ``vol_info``: the crop volumes of a
+        ``pointcloud_crop`` model (``from_config``): vol_info is
+        decide_total_volume_range's (input volume, query volume,
+        resolution), whose input volume normalizes the crop decode's
+        queries. The crop decode covers the whole scene, with or without
+        ``generation.sliding_window``, as the JAX package's does."""
         if isinstance(mc_level, bool) or not (
                 mc_level in ("midpoint", "mean")
                 or isinstance(mc_level, (int, float))):
@@ -162,6 +191,9 @@ class Generator3D:
         self.window_tile = 1024
         self.window_S = 128
         self.upsampling_steps = upsampling_steps
+        self.points_batch_size = points_batch_size
+        self.input_type = input_type
+        self.input_vol = vol_info[0] if vol_info is not None else None
         # decode_dense_batched: a flight of more points than this runs in
         # sub-batches under it (the JAX package's lax.map branch), which
         # caps the memory of one launch
@@ -170,13 +202,16 @@ class Generator3D:
     @classmethod
     def from_config(cls, model, cfg, **kw):
         gen = cfg["generation"]
-        if cfg["data"].get("input_type") == "pointcloud_crop":
-            raise NotImplementedError("crop volumes are not ported yet "
-                                      "(ROADMAP.md)")
         depth_origin = None
         dpath = cfg["data"].get("depth_origin")
         if dpath and os.path.exists(dpath):
             depth_origin = np.loadtxt(dpath).astype(np.float32)
+        vol_info = None
+        if cfg["data"].get("input_type") == "pointcloud_crop":
+            unit_size = cfg["data"]["unit_size"]
+            recep_field, depth = crop_levels(cfg["model"]["encoder_kwargs"])
+            vol_info = decide_total_volume_range(cfg["data"]["padding"] + 1,
+                                                 recep_field, unit_size, depth)
         return cls(
             model,
             resolution0=gen["resolution_0"],
@@ -185,6 +220,9 @@ class Generator3D:
             with_img=cfg["model"]["with_img"],
             encode_t2d=bool(cfg["model"]["encoder_t2d"]),
             depth_origin=depth_origin,
+            points_batch_size=gen.get("batch_size", 100000),
+            input_type=cfg["data"]["input_type"],
+            vol_info=vol_info,
             **{"mc_level": gen.get("mc_level", "midpoint"),
                "transfer_dtype": gen.get("transfer_dtype", "auto"),
                "band_transfer": gen.get("band_transfer", "auto"),
@@ -192,6 +230,67 @@ class Generator3D:
                "legacy_gt_depth": cfg["training"].get("legacy_gt_depth", True),
                **kw},
         )
+
+    @staticmethod
+    def _fast_capable(model):
+        """The fast routes (the channels-first trunk, K1-K4, the batched
+        decodes) reproduce LocalDecoder, and only it."""
+        return isinstance(model.decoder, LocalDecoder)
+
+    # ------------------------------------------------------------------
+    # the legacy decode: the decoder module on chunks of points
+    @staticmethod
+    def _gate_chunk(pts, gating, gate_pts, gate_feat, gate_valid):
+        """(n, C) tactile rows of (n, 3) points from the direct distances:
+        'tips' (gate_pts (5, 3)): the nearest fingertip's feature within
+        0.05, if that tip touches; 'contact' (gate_pts (5, K, 3)): the
+        feature of the last finger with a valid contact within 0.015;
+        zeros elsewhere."""
+        if gating == "tips":
+            d = torch.linalg.norm(pts[:, None, :] - gate_pts[None], dim=-1)
+            dmin, assign = torch.min(d, dim=1)
+            valid = gate_valid[assign] & (dmin < 0.05)
+            return torch.where(valid[:, None], gate_feat[assign], 0.0)
+        d = torch.linalg.norm(pts[:, None, None, :] - gate_pts[None], dim=-1)
+        within = torch.any((d < 0.015) & gate_valid[None], dim=-1)      # (n, 5)
+        last = 4 - torch.argmax(torch.flip(within, [1]).to(torch.uint8), dim=1)
+        return torch.where(torch.any(within, dim=1)[:, None], gate_feat[last], 0.0)
+
+    def _decode_chunk(self, model, pts, c, gating, gate_pts, gate_feat, gate_valid,
+                      p_n=None):
+        """(n, 3) device points → (n,) logits through the decoder module;
+        a crop model's with ``p_n``, the points' {field: coords in the
+        scene's input volume}, ungated."""
+        if p_n is not None:
+            return model.decode({"p": pts[None], "p_n": p_n}, c)[0]
+        if gating == "none":
+            return model.decode(pts[None], c)[0]
+        c_img = self._gate_chunk(pts, gating, gate_pts, gate_feat, gate_valid)
+        return model.decode_img(pts[None], c, c_img[None])[0]
+
+    def _eval_points_chunked(self, model, pointsf, c, gating, gate_pts, gate_feat,
+                             gate_valid, transfer_dtype):
+        """The legacy decode of (N, 3) host points → host (N,) float32, in
+        chunks of points_batch_size (above one chunk, the last one padded
+        with zeros) and one transfer."""
+        dev = next(model.parameters()).device
+        n, bs = pointsf.shape[0], self.points_batch_size
+        if n == 0:
+            return np.zeros(0, np.float32)
+        k = -(-n // bs)
+        host = np.zeros((k * bs if k > 1 else n, 3), np.float32)
+        host[:n] = np.asarray(pointsf, np.float32)
+        pts = torch.as_tensor(host, device=dev)
+        p_n = None
+        if self.input_type == "pointcloud_crop":
+            p_n = {key: torch.as_tensor(normalize_coord(host, self.input_vol, plane=key),
+                                        device=dev) for key in c}
+        out = torch.cat([
+            self._decode_chunk(model, pts[i:i + bs], c, gating, gate_pts, gate_feat,
+                               gate_valid,
+                               p_n and {key: v[None, i:i + bs] for key, v in p_n.items()})
+            for i in range(0, len(host), bs)])
+        return out[:n].to(_legacy_transfer(transfer_dtype)).float().cpu().numpy()
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -246,7 +345,16 @@ class Generator3D:
                           gate_feat=None, gate_valid=None, dtype=torch.float32,
                           transfer_dtype=torch.bfloat16):
         """Dense nx³ decode. Returns host (nx³,) float32 logits flattened
-        x-slowest, rounded through ``transfer_dtype``."""
+        x-slowest, rounded through ``transfer_dtype``. A decoder the fast
+        trunk cannot reproduce decodes the grid's points through
+        ``eval_points(fast=False)``."""
+        if not self._fast_capable(model):
+            box = 1 + self.padding
+            ax = np.linspace(-0.5, 0.5, nx, dtype=np.float32)
+            gx, gy, gz = np.meshgrid(ax, ax, ax, indexing="ij")
+            pf = box * np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1)
+            return self.eval_points(model, pf, c, gating, gate_pts, gate_feat,
+                                    gate_valid, transfer_dtype=transfer_dtype, fast=False)
         return self._eval_points_dense_ordered(
             model, nx, True, c, gating, gate_pts, gate_feat, gate_valid,
             transfer_dtype, dtype)
@@ -374,13 +482,9 @@ class Generator3D:
     def _decode_scatter_fast_impl(self, tp, p_cn, c, gate_pts, gate_feat,
                                   gate_valid, gating, dtype, leaky,
                                   out_dtype=None):
-        """The gather route: corner-gather features at the (3, N) world
-        coords, then the trunk of the dense path (K1/K2)."""
-        if set(c) & set(_FIELDS) != {"grid"}:
-            raise NotImplementedError(_NO_PLANES)
-        g = c["grid"]
-        g = g[0] if g.ndim == 5 else g
-        feats = scattered_grid_features_cn(g, p_cn, self.padding, dtype)
+        """The gather route: corner-gather every field's features at the
+        (3, N) world coords, then the trunk of the dense path (K1/K2)."""
+        feats = scattered_feature_volume_cn(c, p_cn, self.padding, dtype)
         logits = self._trunk_fast(tp, p_cn, feats, gate_pts, gate_feat,
                                   gate_valid, gating, dtype, leaky)
         return self._finalize_logits(logits, out_dtype)
@@ -429,7 +533,7 @@ class Generator3D:
         nonzero overflow count from the kernel's keys."""
         if leaky or gating not in ("none", "tips", "contact"):
             return None
-        if set(c) & set(_FIELDS) != {"grid"}:
+        if set(c) != {"grid"}:
             return None
         g = c["grid"]
         g = g[0] if g.ndim == 5 else g
@@ -534,15 +638,18 @@ class Generator3D:
                     gate_feat=None, gate_valid=None,
                     transfer_dtype=torch.bfloat16, fast=None):
         """Occupancy logits at (N, 3) host points → host (N,) float32 (the
-        reference's public decode API, generation.py:338-383), through
-        :meth:`eval_points_fast`: whole up to ``scatter_slice_points``
-        points; above that a complete cube goes to the dense decode whole
-        and any other set in slices. ``fast=False``, the chunked legacy
-        decode, is not ported."""
-        if fast is False:
-            raise NotImplementedError("eval_points(fast=False), the chunked "
-                                      "legacy decode, is not ported yet "
-                                      "(ROADMAP.md)")
+        reference's public decode API, generation.py:338-383). ``fast``
+        None takes :meth:`eval_points_fast` for a LocalDecoder outside
+        crop mode: whole up to ``scatter_slice_points`` points; above that
+        a complete cube goes to the dense decode whole and any other set in
+        slices. ``fast=False``, crop models and other decoders take the
+        legacy chunked decode (``_eval_points_chunked``)."""
+        crop = self.input_type == "pointcloud_crop"
+        if fast is None:
+            fast = not crop and self._fast_capable(model)
+        if not fast or crop:
+            return self._eval_points_chunked(model, pointsf, c, gating, gate_pts,
+                                             gate_feat, gate_valid, transfer_dtype)
         kw = dict(gating=gating, gate_pts=gate_pts, gate_feat=gate_feat,
                   gate_valid=gate_valid, transfer_dtype=transfer_dtype)
         n = pointsf.shape[0]
@@ -587,22 +694,28 @@ class Generator3D:
         ``batched_vmap_limit`` points or more. ``dtype`` bfloat16 stores
         the streamed operands as bfloat16; K2 computes in float32.
         ``return_device=True`` returns the finalized device tensor ((q,
-        scale) for int8) without waiting for it. ``device_mesh`` (the
-        objects sharded over cards) is not ported."""
+        scale) for int8) without waiting for it. ``c_batched`` holds the
+        grid and/or planes. ``device_mesh`` (the objects sharded over
+        cards) is not ported."""
         if device_mesh is not None:
             raise NotImplementedError(f"decode_dense_batched {_NO_MESH}")
-        grid = _grid_only(c_batched)
+        if not self._fast_capable(model):
+            raise NotImplementedError(
+                "decode_dense_batched needs a LocalDecoder (the fast trunk cannot "
+                f"reproduce {type(model.decoder).__name__}); decode per object "
+                "through generate_obj_mesh_wnf or eval_points")
         decoder = model.decoder
         tp = FT.extract_trunk_params(decoder, with_img=False)
-        B, n = grid.shape[0], nx ** 3
+        first = next(iter(c_batched.values()))
+        B, n, dev = first.shape[0], nx ** 3, first.device
         box = 1 + self.padding
         per = B if B * n < self.batched_vmap_limit else max(
             1, (self.batched_vmap_limit - 1) // n)
-        p_cn = dense_query_grid_cn(nx, box, device=grid.device)
-        logits = torch.empty((B, n), dtype=torch.float32, device=grid.device)
+        p_cn = dense_query_grid_cn(nx, box, device=dev)
+        logits = torch.empty((B, n), dtype=torch.float32, device=dev)
         for s in range(0, B, per):
             objs = range(s, min(s + per, B))
-            feats = torch.stack([dense_feature_volume_cn({"grid": grid[b]}, nx, box,
+            feats = torch.stack([dense_feature_volume_cn(_object(c_batched, b), nx, box,
                                                          self.padding, dtype)
                                  for b in objs])
             logits[s:s + len(objs)] = self._trunk_batched(tp, p_cn, feats, dtype,
@@ -642,14 +755,25 @@ class Generator3D:
         query_cn fills the rest with each object's last point). Only the
         M real slots are decoded: the JAX package's size buckets pad with
         the last slot, so they change no value and no int8 scale.
-        ``fast=False`` (the chunked legacy decode) and ``device_mesh`` are
-        not ported."""
+        ``fast=False`` (the default for crop models) decodes each object's
+        points through the decoder module in chunks of points_batch_size
+        (zero-padded), ungated. ``device_mesh`` is not ported."""
         if device_mesh is not None:
             raise NotImplementedError(f"decode_points_batched {_NO_MESH}")
-        if fast is False:
-            raise NotImplementedError("decode_points_batched(fast=False), the chunked "
-                                      "legacy decode, is not ported yet (ROADMAP.md, "
-                                      "item 7)")
+        if fast is None:
+            fast = self.input_type != "pointcloud_crop"
+        if not fast:
+            if lattice_reso is not None:
+                raise ValueError("lattice_reso requires the fast path")
+            if coord_quant:
+                raise ValueError("coord_quant needs the fast non-lattice path")
+            return self._decode_points_batched_chunked(model, pts_b, c_batched,
+                                                       transfer_dtype)
+        if not self._fast_capable(model):
+            raise NotImplementedError(
+                "decode_points_batched's fast path reproduces LocalDecoder only; "
+                f"got {type(model.decoder).__name__} (pass fast=False for the "
+                "module decode)")
         if pts_cn is not None:
             if lattice_reso is None or n_real is None:
                 raise ValueError("pts_cn takes lattice_reso and n_real")
@@ -661,23 +785,46 @@ class Generator3D:
             coord_quant = lattice_reso is None and self.coord_quant
         elif coord_quant and lattice_reso is not None:
             raise ValueError("coord_quant needs the non-lattice path")
-        grid = _grid_only(c_batched)
         B, _, M = pts.shape
         if M == 0:
             return np.zeros((B, 0), np.float32)
         decoder = model.decoder
         tp = FT.extract_trunk_params(decoder, with_img=False)
-        dev = grid.device
+        dev = next(iter(c_batched.values())).device
         if coord_quant:
             p = self._world_coords(self._quantize(pts, 1 + self.padding, dev),
                                    coord_quant=True)
         else:
             p = self._world_coords(torch.as_tensor(np.ascontiguousarray(pts), device=dev),
                                    lattice_reso)
-        feats = torch.stack([scattered_grid_features_cn(grid[b], p[b], self.padding)
+        feats = torch.stack([scattered_feature_volume_cn(_object(c_batched, b), p[b],
+                                                         self.padding)
                              for b in range(B)])
         logits = self._trunk_batched(tp, p, feats, torch.float32, decoder.leaky)
         return _host(self._finalize_logits(logits, _transfer(transfer_dtype)))
+
+    def _decode_points_batched_chunked(self, model, pts_b, c_batched, transfer_dtype):
+        """decode_points_batched(fast=False): (B, M, 3) host points → host
+        (B, M) float32, each object's chunks of points_batch_size through
+        the decoder module (the last chunk zero-padded), one transfer."""
+        if self.input_type == "pointcloud_crop":
+            raise NotImplementedError(
+                "decode_points_batched on a crop model (pointcloud_crop): the JAX "
+                "package's chunk decode hands the crop decoder bare points and "
+                "fails (F6 (c), ROADMAP.md §3)")
+        pts_b = np.asarray(pts_b, np.float32)
+        B, M = pts_b.shape[:2]
+        bs = self.points_batch_size
+        k = max(1, -(-M // bs))
+        dev = next(model.parameters()).device
+        pts = torch.zeros((B, k * bs, 3), dtype=torch.float32, device=dev)
+        pts[:, :M] = torch.as_tensor(pts_b, device=dev)
+        out = torch.stack([
+            torch.cat([model.decode(pts[b:b + 1, i:i + bs],
+                                    {f: v[b:b + 1] for f, v in c_batched.items()})[0]
+                       for i in range(0, k * bs, bs)])
+            for b in range(B)])
+        return out[:, :M].to(_legacy_transfer(transfer_dtype)).float().cpu().numpy()
 
     # ------------------------------------------------------------------
     def _prep_contact_gates(self, gt_depths, pred_depths, d_origin, touch,
@@ -775,7 +922,15 @@ class Generator3D:
         ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``: fingertip
         gating reads ``points.mano`` and ``points.wrist``). It runs
         on the device that holds ``model``'s parameters.
-        Returns ((verts, faces), emd, chamfer)."""
+        Returns ((verts, faces), emd, chamfer). A crop batch
+        (``pointcloud_crop``) raises: it holds no object scan, which the JAX
+        package reads there and fails (F6 (b), ROADMAP.md §3)."""
+        if "inputs.pc_ply" not in data and (
+                self.input_type == "pointcloud_crop" or "pointcloud_crop" in data):
+            raise NotImplementedError(
+                "generate_obj_mesh_wnf on a crop batch (pointcloud_crop): it holds "
+                "no object scan (inputs.pc_ply), which the JAX package reads and "
+                "fails (F6 (b), ROADMAP.md §3)")
         dev = next(model.parameters()).device
         box_size = 1 + self.padding
         nx = self.resolution0 * 4

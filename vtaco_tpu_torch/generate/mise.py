@@ -370,7 +370,7 @@ def multires_decode_batched(generator, model, c_batched, resolution0,
     if device_mesh is not None:
         raise NotImplementedError("multires_decode_batched over a device mesh is "
                                   "not ported yet (ROADMAP.md, item 12)")
-    B = c_batched["grid"].shape[0]
+    B = next(iter(c_batched.values())).shape[0]
     st = _stats(stats)
     n0 = resolution0 + 1
     t0 = time.perf_counter()

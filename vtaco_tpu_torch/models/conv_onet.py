@@ -1,6 +1,7 @@
 """Composite convolutional occupancy network (port of
 vtaco_tpu/models/conv_onet.py: encode_inputs, encode_hand_inputs,
-encode_hand_mano, encode_img_inputs, encode_t2d, decode, decode_img).
+encode_hand_mano, encode_img_inputs, encode_t2d, decode, decode_img,
+decode_contact).
 
 Submodules keep the reference's names: the object ``encoder``, the hand
 encoder ``encoder_hand`` (with the parameter-free ``mano_layer``), the
@@ -32,7 +33,9 @@ class ConvOccupancyNetwork(nn.Module):
         self.hand_out_dim = hand_out_dim   # encoder_hand's out_dim (51 runs MANO)
 
     def encode_inputs(self, inputs):
-        """Object feature field {'grid': (B, R, R, R, C)} from (B, N, 3)."""
+        """The object's feature fields ({'grid': (B, R, R, R, C)} and/or
+        planes (B, R, R, C)) from (B, N, 3) points, or for a crop encoder
+        from the dict {"points", "index"}."""
         return self.encoder(inputs)
 
     def encode_hand_inputs(self, inputs):
@@ -67,7 +70,13 @@ class ConvOccupancyNetwork(nn.Module):
         return pred_depth, c_hand
 
     def decode(self, p, c):
+        """Occupancy logits at (B, N, 3) points (a crop decoder: the dict
+        {"p", "p_n"})."""
         return self.decoder(p, c)
+
+    def decode_contact(self, p, c):
+        """(occupancy logits, contact logits) (``with_contact``)."""
+        return self.decoder.forward_contact(p, c)
 
     def decode_img(self, p, c, c_img):
         return self.decoder.forward_img(p, c, c_img)

@@ -1,15 +1,18 @@
-"""Decode inputs: grid features at the query points, channels-first
-(port of vtaco_tpu/ops/dense_decode.py:25-143 and 146-241).
+"""Decode inputs: the feature fields at the query points, channels-first
+(port of vtaco_tpu/ops/dense_decode.py:25-143, 146-241 and 284-336).
 
 The mesh-extraction queries form a regular nx³ grid, so trilinear
 sampling of the (R, R, R, C) feature grid factorizes into three 1D
-align-corners interpolations, each a matmul with a fixed (nx, R) matrix.
-These are plain large products, left to ``torch.einsum`` as the JAX
-package leaves them to XLA. Outputs are channels-first (C, N) with N
-flattened z-slowest, the layout the decoder trunk streams.
+align-corners interpolations, each a matmul with a fixed (nx, R) matrix,
+and bilinear sampling of a (R, R, C) plane into two, broadcast over the
+plane's normal axis. These are plain large products, left to
+``torch.einsum`` as the JAX package leaves them to XLA. Outputs are
+channels-first (C, N) with N flattened z-slowest, the layout the decoder
+trunk streams; the fields are summed in the order grid, xz, xy, yz, as
+the decoder's ``sample_features`` sums them.
 
 Arbitrary query points take the corner gather instead
-(``scattered_grid_features_cn``), and the sorted window route keys them
+(``scattered_feature_volume_cn``), and the sorted window route keys them
 by super-cell (``supercell_keys``). Keys must equal the JAX package's bit
 for bit, since the window plan and its overflow count depend on them, so
 the coordinate math divides by a ``device_scalar``.
@@ -19,6 +22,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from vtaco_tpu_torch.ops.geometry import PLANE_AXES
+
+PLANES = ("xz", "xy", "yz")
 
 
 def _axis_interp_matrix(nx: int, R: int, box_size: float, padding: float,
@@ -44,26 +51,45 @@ def _axis_interp_matrix(nx: int, R: int, box_size: float, padding: float,
 
 def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
                             padding: float, dtype=torch.float32):
-    """(C, nx³) features of the ``grid`` field at the dense query grid, N
-    flattened (z slowest, y, x fastest). The grid is (1, Z, Y, X, C) or
-    (Z, Y, X, C), channel-last as the encoder returns it."""
-    extra = set(c_planes) - {"grid"}
-    if extra:
-        raise NotImplementedError(
-            f"plane feature fields {sorted(extra)} in the decode are not "
-            "ported yet (ROADMAP.md, item 8)")
-    g = c_planes["grid"]
-    if g.ndim == 5:
-        g = g[0]
-    g = g.to(dtype)
-    R = g.shape[0]
-    W = torch.as_tensor(_axis_interp_matrix(nx, R, box_size, padding, True),
-                        dtype=dtype, device=g.device)
-    g = g.permute(3, 0, 1, 2)                           # (C, Z, Y, X)
-    g = torch.einsum("iz,czyx->ciyx", W, g)
-    g = torch.einsum("jy,ciyx->cijx", W, g)
-    g = torch.einsum("kx,cijx->cijk", W, g)
-    return g.reshape(g.shape[0], -1)
+    """(C, nx³) features of every field at the dense query grid, summed, N
+    flattened (z slowest, y, x fastest). Fields are channel-last as the
+    encoder returns them, with or without the batch axis of one: the grid
+    (Z, Y, X, C), planes (rows: the second coordinate, columns: the
+    first, C)."""
+    acc = 0
+    if "grid" in c_planes:
+        g = c_planes["grid"]
+        if g.ndim == 5:
+            g = g[0]
+        g = g.to(dtype)
+        W = torch.as_tensor(_axis_interp_matrix(nx, g.shape[0], box_size, padding, True),
+                            dtype=dtype, device=g.device)
+        g = g.permute(3, 0, 1, 2)                           # (C, Z, Y, X)
+        g = torch.einsum("iz,czyx->ciyx", W, g)
+        g = torch.einsum("jy,ciyx->cijx", W, g)
+        g = torch.einsum("kx,cijx->cijk", W, g)
+        acc = acc + g.reshape(g.shape[0], -1)
+    for key in PLANES:
+        if key not in c_planes:
+            continue
+        p = c_planes[key]
+        if p.ndim == 4:
+            p = p[0]
+        p = p.to(dtype)                                     # (b, a, C)
+        W = torch.as_tensor(_axis_interp_matrix(nx, p.shape[0], box_size, padding, False),
+                            dtype=dtype, device=p.device)
+        p = p.permute(2, 0, 1)                              # (C, b, a)
+        p = torch.einsum("ia,cba->cbi", W, p)
+        p = torch.einsum("jb,cbi->cji", W, p)               # (C, b, a) at the grid
+        C = p.shape[0]
+        if key == "xz":      # (C, z, x): broadcast over y
+            vol = p[:, :, None, :]
+        elif key == "xy":    # (C, y, x): broadcast over z
+            vol = p[:, None, :, :]
+        else:                # yz, (C, z, y): broadcast over x
+            vol = p[:, :, :, None]
+        acc = acc + vol.expand(C, nx, nx, nx).reshape(C, -1)
+    return acc
 
 
 def dense_query_grid_cn(nx: int, box_size: float, device="cuda"):
@@ -166,3 +192,54 @@ def scattered_grid_features_cn(g, p_cn, padding: float, dtype=torch.float32):
     c0 = c00 * (1 - wy) + c01 * wy
     c1 = c10 * (1 - wy) + c11 * wy
     return c0 * (1 - wz) + c1 * wz
+
+
+def scattered_plane_features_cn(pl, plane: str, p_cn, padding: float,
+                                dtype=torch.float32):
+    """(H, W, C) plane + (3, N) world coords → (C, N) bilinear features:
+    ``interp_plane(plane, normalize_coordinate(p))`` semantics (the 2-D
+    epsilon; columns index the plane's first axis, rows its second). The
+    base corner is clamped to dim-2; the corners are combined along the
+    columns first, as the JAX package combines them."""
+    H, W, C = pl.shape
+    a_ax, b_ax = PLANE_AXES[plane]
+    p_cn = p_cn.to(torch.float32)
+    div = device_scalar(1 + padding + 10e-6, p_cn.device)
+    top = device_scalar(1 - 10e-6, p_cn.device)
+    uv = []
+    for ax in (a_ax, b_ax):
+        u = p_cn[ax] / div + 0.5
+        uv.append(torch.where(u >= 1.0, top, torch.clamp(u, min=0.0)))
+    x = torch.clamp(uv[0] * (W - 1), 0.0, W - 1)
+    y = torch.clamp(uv[1] * (H - 1), 0.0, H - 1)
+    x0 = torch.clamp(torch.floor(x), max=W - 2)
+    y0 = torch.clamp(torch.floor(y), max=H - 2)
+    wx = (x - x0).to(dtype)[None]
+    wy = (y - y0).to(dtype)[None]
+    pf = pl.to(dtype).reshape(-1, C)
+    row = y0.long() * W + x0.long()
+
+    def corner(dy, dx):
+        return pf[row + dy * W + dx].T
+
+    c0 = corner(0, 0) * (1 - wx) + corner(0, 1) * wx
+    c1 = corner(1, 0) * (1 - wx) + corner(1, 1) * wx
+    return c0 * (1 - wy) + c1 * wy
+
+
+def scattered_feature_volume_cn(c_planes: dict, p_cn, padding: float,
+                                dtype=torch.float32):
+    """The sum of every field's features at arbitrary (3, N) world coords,
+    channels-first (C, N): the scattered counterpart of
+    dense_feature_volume_cn (the decoder's ``sample_features``)."""
+    acc = 0
+    if "grid" in c_planes:
+        g = c_planes["grid"]
+        acc = acc + scattered_grid_features_cn(g[0] if g.ndim == 5 else g, p_cn,
+                                               padding, dtype)
+    for key in PLANES:
+        if key in c_planes:
+            p = c_planes[key]
+            acc = acc + scattered_plane_features_cn(p[0] if p.ndim == 4 else p, key,
+                                                    p_cn, padding, dtype)
+    return acc

@@ -3,13 +3,17 @@
 Same contracts as the JAX functions, on torch tensors: the outlier-only
 remap of the normalizations, the ``x + R*(y + R*z)`` flat cell index, the
 reference's bespoke camera extrinsics, and the axis-angle rotations of the
-MANO layer.
+MANO layer. The crop helpers at the end (``normalize_coord``,
+``coord2index``, ``update_reso``, ``decide_total_volume_range``) are host
+numpy, as the JAX package's are: the crop data fields and the crop
+volumes call them before anything reaches the device.
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 # plane axis pairs of the tri-plane feature fields
@@ -151,3 +155,75 @@ def axisang_to_euler_xyz(rotvec):
     a = torch.atan2(-R[1, 2], R[2, 2])
     c = torch.atan2(-R[0, 1], R[0, 0])
     return torch.stack([a, b, c])
+
+
+# ---------------------------------------------------------------------------
+# crop volumes (pointcloud_crop), host numpy: copies of the JAX package's
+# helpers (vtaco_tpu/ops/geometry.py:207-265), quirks included
+
+
+def normalize_coord(p, vol_range, plane="xz"):
+    """(N, 3) points → coords in [0, 1] of the crop volume ``vol_range``
+    ([lower (3,), upper (3,)]), projected to ``plane`` (N, 2), or (N, 3)
+    for 'grid'. Points outside the volume fall outside [0, 1]."""
+    p = np.asarray(p, np.float32).copy()
+    lo, hi = np.asarray(vol_range[0]), np.asarray(vol_range[1])
+    p = (p - lo) / (hi - lo)
+    if plane in PLANE_AXES:
+        return p[:, list(PLANE_AXES[plane])]
+    return p
+
+
+def coord2index(p, vol_range, reso=None, plane="xz"):
+    """(1, N) int64 flat cell index ``x + reso*y (+ reso²*z)`` of points in
+    a crop volume. Only an index above reso^k is clamped to the overflow
+    cell reso^k: a point on the upper face of the volume lands in the next
+    row, and one below the volume keeps its negative or wrapped index, as
+    in the reference."""
+    x = np.floor(normalize_coord(p, vol_range, plane=plane) * reso).astype(np.int64)
+    if x.shape[1] == 2:
+        index = x[:, 0] + reso * x[:, 1]
+        index[index > reso ** 2] = reso ** 2
+    else:
+        index = x[:, 0] + reso * (x[:, 1] + reso * x[:, 2])
+        index[index > reso ** 3] = reso ** 3
+    return index[None]
+
+
+def update_reso(reso, depth):
+    """``reso`` rounded up to a multiple of 2^(depth-1), so that a U-Net
+    of ``depth`` levels halves it evenly."""
+    base = 2 ** (int(depth) - 1)
+    if not float(reso / base).is_integer():
+        for i in range(base):
+            if float((reso + i) / base).is_integer():
+                reso = reso + i
+                break
+    return reso
+
+
+def crop_levels(enc_kw):
+    """(receptive field, U-Net depth) that size a crop encoder's volumes
+    (its ``encoder_kwargs``): 2^(UNet3D levels + 2), and the plane U-Net's
+    depth where it has one, else the UNet3D's levels."""
+    recep_field = 2 ** (enc_kw["unet3d_kwargs"]["num_levels"] + 2)
+    depth = (enc_kw["unet_kwargs"]["depth"] if enc_kw.get("unet")
+             else enc_kw["unet3d_kwargs"]["num_levels"])
+    return recep_field, depth
+
+
+def decide_total_volume_range(query_vol_metric, recep_field, unit_size, unet_depth):
+    """The whole-scene crop volumes: ([lower, upper] of the input volume,
+    [lower, upper] of the query volume, the input resolution), centred at
+    the origin. The resolution is ``query_vol_metric / unit_size +
+    recep_field - 1`` truncated and rounded up by update_reso (1 above
+    10,000)."""
+    reso = query_vol_metric / unit_size + recep_field - 1
+    reso = update_reso(int(reso), unet_depth)
+    input_vol_metric = reso * unit_size
+    p_c = np.array([0.0, 0.0, 0.0], np.float32)
+    lb_i, ub_i = p_c - input_vol_metric / 2, p_c + input_vol_metric / 2
+    lb_q, ub_q = p_c - query_vol_metric / 2, p_c + query_vol_metric / 2
+    if reso > 10000:
+        reso = 1
+    return [lb_i, ub_i], [lb_q, ub_q], reso

@@ -161,7 +161,7 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                            num_workers=tcfg["n_workers_val"])
 
     torch.manual_seed(seed)
-    model, aux = get_model(cfg, device=device, return_aux=True)
+    model, aux = get_model(cfg, device=device, return_aux=True, dataset=train_dataset)
     bank = build_mesh_bank(cfg, device)
     trainer = Trainer.from_config(model, cfg, mesh_bank=bank, seed=seed)
     if aux["t2d_pretrained_file"]:

@@ -1,7 +1,9 @@
-"""Trainer: the train and eval steps of the VTacO t2d_img loss path, the
-VTacOH img loss path and the tactile depth-stack pretraining (port of
-vtaco_tpu/train/trainer.py:71-860, ``compute_loss_t2d_img``,
-``compute_loss_img`` and ``compute_loss_tactile``).
+"""Trainer: the train and eval steps of every loss path of the JAX
+package (port of vtaco_tpu/train/trainer.py:71-860): ``t2d_img``
+(VTacO), ``t2d`` (the same without images), ``img`` (VTacOH), the plain
+and contact paths (``compute_loss``, ``compute_loss_contact``; the
+scene_crop config), and the tactile depth-stack pretraining
+(``compute_loss_tactile``).
 
 The tactile path (``model.train_tactile``, configs/tactile/) trains the
 depth U-Net and the sensor-pose head alone: the L1 distance of the
@@ -58,8 +60,18 @@ the device from a data.device_data.DeviceDataset, with one host read of
 the K steps' scalars; ``make_fused_eval_fn`` and ``evaluate_device``
 validate a device-resident split the same way.
 
-The JAX package's other loss paths (plain, contact, t2d without images)
-are not ported yet (ROADMAP.md).
+The t2d path without images (``model.with_img`` false with a
+tactile-to-depth model) is the t2d_img step with the decoder's plain head
+on the contact sample. The plain path encodes the object (and, where the
+model has one, the hand: its MANO losses join the loss) and decodes the
+batch's own query points against their labels; with ``model.with_contact``
+the decoder's contact head adds the mean sigmoid cross-entropy against
+``points.contact``. Its eval step decodes the whole ``points_iou`` set. A
+crop batch (``pointcloud_crop``: the loader's ``inputs.ind.<field>`` and
+``points.normalized.<field>``) trains through the crop encoder's and
+decoder's dict forms; its eval step raises (F6 (a), ROADMAP.md §3): the
+JAX package's eval step hands the crop encoder the bare cloud there and
+fails, so nothing defines the crop model's IoU.
 """
 
 from __future__ import annotations
@@ -72,6 +84,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vtaco_tpu_torch.models.layers import frozen_batch_stats
@@ -92,7 +105,8 @@ TF32 = {"default": True, "fastest": True, "bfloat16": True, "high": True,
 # the model method → the top-level module whose parameters it runs
 METHOD_MODULE = {"encode_inputs": "encoder", "encode_hand_inputs": "encoder_hand",
                  "encode_img_inputs": "encoder_img", "encode_t2d": "encoder_t2d",
-                 "decode": "decoder", "decode_img": "decoder"}
+                 "decode": "decoder", "decode_img": "decoder",
+                 "decode_contact": "decoder"}
 # the eval sample's base seed (the JAX package folds PRNGKey(12345))
 EVAL_SEED = 12345
 # batch keys of a device-resident sample (data.device_data) → the step's keys
@@ -174,7 +188,7 @@ class Trainer:
     boundaries. Train and eval steps run at ``matmul_precision``."""
 
     def __init__(self, model, optimizer=None, *, lr=1e-4, opt="Adam",
-                 num_sample=2048, threshold=0.5, with_img=False,
+                 num_sample=2048, threshold=0.5, with_img=False, with_contact=False,
                  train_tactile=False, encode_t2d=False, pretrained_t2d=True,
                  mesh_bank: Optional[MeshBank] = None,
                  depth_origin: Optional[np.ndarray] = None, legacy_gt_depth=True,
@@ -184,11 +198,6 @@ class Trainer:
         if matmul_precision not in TF32:
             raise ValueError(f"training.matmul_precision {matmul_precision!r} is "
                              f"none of {sorted(TF32)}")
-        if not (train_tactile or with_img):
-            raise NotImplementedError(
-                "Only the t2d_img, img and tactile loss paths are ported; the "
-                "plain, contact and t2d-without-images loss paths (model.with_img "
-                "false) are not ported yet (ROADMAP.md, items 5 and 7)")
         if compute_dtype is not None:
             if not isinstance(compute_dtype, str):
                 compute_dtype = str(compute_dtype).replace("torch.", "")
@@ -212,6 +221,8 @@ class Trainer:
         self.optimizer = optimizer
         self.num_sample = num_sample
         self.threshold = threshold
+        self.with_img = with_img
+        self.with_contact = with_contact
         self.train_tactile = train_tactile
         self.encode_t2d = encode_t2d
         self.pretrained_t2d = pretrained_t2d
@@ -245,7 +256,8 @@ class Trainer:
         return cls(
             model, lr=tcfg["lr"], opt=tcfg.get("opt", "Adam"),
             num_sample=cfg["data"]["num_sample"], threshold=cfg["test"]["threshold"],
-            with_img=mcfg["with_img"], train_tactile=mcfg["train_tactile"],
+            with_img=mcfg["with_img"], with_contact=mcfg["with_contact"],
+            train_tactile=mcfg["train_tactile"],
             encode_t2d=bool(mcfg["encoder_t2d"]), pretrained_t2d=pretrained_t2d,
             mesh_bank=mesh_bank, depth_origin=depth_origin,
             **{"legacy_gt_depth": tcfg.get("legacy_gt_depth", True),
@@ -258,8 +270,10 @@ class Trainer:
     # ------------------------------------------------------------------
     def prepare_batch(self, batch):
         """Loader batch dict → tensors on the trainer's device, with the
-        samples' padded ground-truth meshes on the t2d paths (the img path
-        takes the dataset's labels)."""
+        samples' padded ground-truth meshes on the t2d paths (the other
+        paths take the dataset's labels). A crop batch adds
+        ``inputs_index`` ({field: (B, N) int64}) and ``points_normalized``
+        ({field: (B, N, 2|3)})."""
         def put(key, dtype=torch.float32):
             v = batch[key]   # a host array, or a tensor (a device-resident batch)
             v = v if isinstance(v, torch.Tensor) else np.asarray(v)
@@ -267,14 +281,27 @@ class Trainer:
 
         a = {"points": put("points"), "occ": put("points.occ"),
              "inputs": put("inputs")}
-        for k in ("mano", "pc_hand", "wrist", "cam_pos", "cam_rot"):
-            a[k] = put(f"points.{k}")
-        a["pc_ply"] = put("inputs.pc_ply")
-        a["imgs"] = put("inputs.img")
-        a["depths"] = put("inputs.depth")
-        a["touch_success"] = put("inputs.touch_success") > 0.5
+        if "points.mano" in batch:
+            for k in ("mano", "pc_hand", "wrist", "cam_pos", "cam_rot"):
+                a[k] = put(f"points.{k}")
+        if "points.contact" in batch:
+            a["contact"] = put("points.contact")
+        if "inputs.pc_ply" in batch:
+            a["pc_ply"] = put("inputs.pc_ply")
+        if "inputs.img" in batch:
+            a["imgs"] = put("inputs.img")
+            a["depths"] = put("inputs.depth")
+            a["touch_success"] = put("inputs.touch_success") > 0.5
         if "points_iou" in batch:
             a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
+        ind = {k.split(".")[-1]: put(k, torch.int64)[:, 0]
+               for k in batch if k.startswith("inputs.ind.")}
+        if ind:
+            a["inputs_index"] = ind
+        normalized = {k.split(".")[-1]: put(k)
+                      for k in batch if k.startswith("points.normalized.")}
+        if normalized:
+            a["points_normalized"] = normalized
         if self.train_tactile or not self.encode_t2d:
             return a
         if self.mesh_bank is None:
@@ -388,8 +415,9 @@ class Trainer:
         return loss, scalars
 
     def _compute_loss(self, a, draws=None, generator=None):
-        """The t2d_img loss at the model's train/eval mode: (loss,
-        {name: scalar}, {"c", "c_img", "depth_for_contact"})."""
+        """The t2d_img loss (without images: the t2d loss) at the model's
+        train/eval mode: (loss, {name: scalar}, {"c", "c_img",
+        "depth_for_contact"}); c_img is None without images."""
         m = self.model
         B = a["points"].shape[0]
         self._mark("start")
@@ -409,10 +437,9 @@ class Trainer:
         self._mark("contact_labels")
         c = self._call("encode_inputs", a["inputs"])
         c_hand = self._call("encode_hand_inputs", a["inputs"])
-        c_img = self._call("encode_img_inputs", a["imgs"])
+        c_img = self._call("encode_img_inputs", a["imgs"]) if self.with_img else None
         self._mark("encoders")
-        logits = self._call("decode_img", sample.points, c,
-                            C.scatter_finger_features(c_img, sample, init="ones"))
+        logits = self._decode_sample(sample, c, c_img)
         loss_l1 = torch.mean(torch.abs(logits - occ))
         loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
         loss_pc = torch.mean((c_hand["mano_verts"] - a["pc_hand"]) ** 2)
@@ -429,6 +456,50 @@ class Trainer:
         self._mark("decode")
         return loss, scalars, {"c": c, "c_img": c_img,
                                "depth_for_contact": depth_for_contact}
+
+    def _decode_sample(self, sample, c, c_img):
+        """The decoder on a t2d contact sample: with images each point
+        takes its finger's tactile feature (ones elsewhere), without them
+        the plain head."""
+        if c_img is None:
+            return self._call("decode", sample.points, c)
+        return self._call("decode_img", sample.points, c,
+                          C.scatter_finger_features(c_img, sample, init="ones"))
+
+    def _compute_loss_plain(self, a):
+        """The plain loss (with ``with_contact``, the contact loss) at the
+        model's train/eval mode, crop batches in the crop modules' dict
+        forms: (loss, {name: scalar})."""
+        m = self.model
+        self._mark("start")
+        enc_in, p_in = a["inputs"], a["points"]
+        if "inputs_index" in a:
+            enc_in = {"points": a["inputs"], "index": a["inputs_index"]}
+        if "points_normalized" in a:
+            p_in = {"p": a["points"], "p_n": a["points_normalized"]}
+        c = self._call("encode_inputs", enc_in)
+        c_hand = (self._call("encode_hand_inputs", a["inputs"])
+                  if m.encoder_hand is not None else None)
+        self._mark("encoders")
+        scalars = {}
+        if self.with_contact:
+            logits, pred_contact = self._call("decode_contact", p_in, c)
+            loss_contact = F.binary_cross_entropy_with_logits(
+                pred_contact.float(), a["contact"])
+            scalars["loss_contact"] = loss_contact
+        else:
+            logits = self._call("decode", p_in, c)
+            loss_contact = 0.0
+        loss_l1 = torch.mean(torch.abs(logits - a["occ"]))
+        if c_hand is not None:
+            loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
+            loss_pc = torch.mean((c_hand["mano_verts"] - a["pc_hand"]) ** 2)
+        else:
+            loss_mano = loss_pc = loss_l1.new_zeros(())
+        loss = loss_l1 + loss_mano + loss_pc + loss_contact
+        scalars.update(loss=loss, loss_l1=loss_l1, loss_mano=loss_mano, loss_pc=loss_pc)
+        self._mark("decode")
+        return loss, scalars
 
     def _compute_loss_img(self, a, draws=None, generator=None):
         """The img loss (VTacOH) at the model's train/eval mode: (loss,
@@ -479,8 +550,10 @@ class Trainer:
                     loss, scalars = self._compute_loss_tactile(a)
                 elif self.encode_t2d:
                     loss, scalars, _ = self._compute_loss(a, draws)
-                else:
+                elif self.with_img:
                     loss, scalars, _ = self._compute_loss_img(a, draws)
+                else:
+                    loss, scalars = self._compute_loss_plain(a)
             finally:
                 self._params = None
             self.optimizer.zero_grad(set_to_none=True)
@@ -511,9 +584,17 @@ class Trainer:
                 _, scalars, enc = self._compute_loss(a, draws, generator)
                 sample, occ = self._labelled_sample(a, enc["depth_for_contact"],
                                                     iou_draws, generator)
-                logits = self._call(
-                    "decode_img", sample.points, enc["c"],
-                    C.scatter_finger_features(enc["c_img"], sample, init="ones"))
+                logits = self._decode_sample(sample, enc["c"], enc["c_img"])
+            elif not self.with_img:
+                if "inputs_index" in a:
+                    raise NotImplementedError(
+                        "the eval step on a crop batch (pointcloud_crop): the JAX "
+                        "package's IoU hands the crop encoder the bare cloud and "
+                        "fails (F6 (a), ROADMAP.md §3)")
+                _, scalars = self._compute_loss_plain(a)
+                occ = a["occ_iou"]
+                logits = self._call("decode", a["points_iou"],
+                                    self._call("encode_inputs", a["inputs"]))
             else:
                 _, scalars, enc = self._compute_loss_img(a, draws, generator)
                 occ = a["occ_iou"]
@@ -527,11 +608,13 @@ class Trainer:
         return out
 
     def eval_step(self, batch, draws=None, iou_draws=None, generator=None):
-        """Loss scalars and an IoU in eval mode: on the t2d path of the
+        """Loss scalars and an IoU in eval mode: on the t2d paths of the
         decode on a second winding-labelled contact sample (as the JAX
         package draws the loss's sample and the IoU's from different keys),
         on the img path of the decode on the whole ``points_iou`` set, each
-        point's tactile feature assigned by fingertip proximity. ``iou``
+        point's tactile feature assigned by fingertip proximity, on the
+        plain and contact paths of the plain decode on ``points_iou``
+        (a crop batch raises, F6 (a)). ``iou``
         with the reference's mean threshold, ``iou_fixed`` at the value
         threshold. The draws come from ``generator``, by default one seeded
         by the trainer's seed and step, so one validation sees the same
