@@ -8,6 +8,12 @@ ends:
      CUDA versions; TF32 is turned off for matmuls and cuDNN, since the JAX
      reference computes in IEEE float32.
   2. build: nvcc compiles every CUDA source of the package (in parallel).
+  host_engines (after the build): the native host engines (g++ at first
+     use) on the card's host: marching cubes on a 129^3 field against
+     _marching_cubes_numpy (the same triangle soup; both times), on a
+     513^3 field on min(cpu_count, 8) x-slabs against one thread (the
+     same soup and vertex count: the weld), and the lattice encode of
+     the shuffled 128^3 lattice against its numpy form (the same nodes).
   3. kernels: K2 and K1 against their plain PyTorch versions at the
      flagship shapes (N = 128^3 query points, C = hidden = 32, 5 blocks,
      K = 128 contacts per finger), max abs error <= 1e-4: c_img rows, bf16
@@ -43,6 +49,13 @@ ends:
      breakdown of a mesh by stage (over MESH_REPS meshes), and the dense
      logits of each mode held against the plain PyTorch trunk on the same
      inputs.
+  f7 (before 5): generation.matmul_precision. With PyTorch's own TF32
+     flags for the phase (cuDNN's on, cuBLAS's off), VTacO_YCB's encode
+     and contact gates at full width (Generator3D._encode_sample) at
+     'highest' within 1e-6 relative of the same with both flags off (the
+     UNet3D grid, the ResNet-18 features), and at 'default' (TF32) more
+     than 1e-5 away, the control that the check sees TF32; the flags
+     are put back after.
   6. eval_points: the same model and batch, Generator3D.eval_points at
      float32 transfer on (a) 2^21, (b) 100,000 and (d) 2^19 uniform points
      in [-0.54, 0.54]^3 and (c) the shuffled 128^3 lattice, ungated and
@@ -138,7 +151,8 @@ ends:
      object and a hand mesh per object, K1 (VTacO) or K2 on fingertip rows
      (VTacOH) launched once per object and nothing else (every counter
      zeroed just before, read just after: these launches join the
-     kernel's count), and each object's wall time (mesh + hand mesh).
+     kernel's count), and each object's wall time (mesh + hand mesh) and
+     its native marching cubes' time.
      (e) the same CLI on the tactile config from (a)'s checkpoint: one
      cloud of 5 x 320 x 240 points per sample. (h) cli.generate
      --batched 2 on VTacO_YCB's test split, then on its train split (six
@@ -213,12 +227,13 @@ import numpy as np
 import torch
 import yaml
 
+from vtaco_tpu_torch import native
 from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
 from vtaco_tpu_torch.data import synthetic
 from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
-from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
+from vtaco_tpu_torch.generate.marching_cubes import _marching_cubes_numpy, marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.cuda import build
@@ -239,7 +254,7 @@ from vtaco_tpu_torch.ops.dense_decode import (
     window_overflow,
 )
 from vtaco_tpu_torch.models.layers import BatchNorm2d, frozen_batch_stats
-from vtaco_tpu_torch.train.trainer import matmul_precision
+from vtaco_tpu_torch.core.precision import matmul_precision
 from vtaco_tpu_torch.utils.syncs import host_syncs
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -1770,7 +1785,8 @@ def batched_cli_stage(root, vt):
         Generator3D.decode_dense_batched, inf.host_map = timed_decode, timed_host_map
         zero_counters()
         try:
-            with timed_methods(inf.Inferencer, ("run_batched",)) as t:
+            with timed_methods(inf.Inferencer, ("run_batched",)) as t, \
+                    timed_methods(type(native.mc), ("marching_cubes",), sync=False) as mc:
                 line, files, seconds = cli_generate(
                     root, cfg, ckpt, f"generate_batched_{split}", "--split", split,
                     "--batched", str(BATCH_CLI))
@@ -1787,6 +1803,7 @@ def batched_cli_stage(root, vt):
             flights=n_flights, decode_ms_each=decode_ms,
             decode_enqueue_ms_each=[h for _, _, h in flights],
             host_work_s_each=[h for h, _ in host_work],
+            marching_cubes_s_each=mc["marching_cubes"],
             next_flight_running_at_host_work=overlapped, **line,
             **{f"launches_{k}": v for k, v in launches.items() if v})
         if not (n >= 1 and line["batched"] == BATCH_CLI and np.isfinite(line["cd_mean"])
@@ -2125,9 +2142,10 @@ def vtacoh_stage(root, data):
 
 
 @contextlib.contextmanager
-def timed_methods(cls, names):
+def timed_methods(cls, names, sync=True):
     """Wall time of every call of ``cls``'s methods ``names`` (synchronized
-    at its end), collected in the yielded {name: [seconds]}."""
+    at its end unless ``sync`` is false: host work that must not wait for
+    the card), collected in the yielded {name: [seconds]}."""
     times = {n: [] for n in names}
     orig = {n: getattr(cls, n) for n in names}
 
@@ -2135,7 +2153,8 @@ def timed_methods(cls, names):
         def call(*args, **kw):
             t0 = time.perf_counter()
             out = orig[n](*args, **kw)
-            torch.cuda.synchronize()
+            if sync:
+                torch.cuda.synchronize()
             times[n].append(time.perf_counter() - t0)
             return out
         return call
@@ -2188,7 +2207,8 @@ def generate_meshes(root, cfg_ckpt, config, run, kernel, *extra):
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
-    with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "generate_hand_mesh")) as t:
+    with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "generate_hand_mesh")) as t, \
+            timed_methods(type(native.mc), ("marching_cubes",), sync=False) as mc:
         line, files, seconds = cli_generate(root, cfg, ckpt, run, *extra)
     launches = read_counters()
     n = line["n"]
@@ -2196,7 +2216,8 @@ def generate_meshes(root, cfg_ckpt, config, run, kernel, *extra):
     per_object = [a + b for a, b in zip(mesh_s, hand_s)]
     log("generate", config=config, nx=128, cli_s=seconds,
         object_s_median=float(np.median(per_object)), object_s_each=per_object,
-        mesh_s_each=mesh_s, hand_mesh_s_each=hand_s, **line,
+        mesh_s_each=mesh_s, hand_mesh_s_each=hand_s,
+        marching_cubes_s_each=mc["marching_cubes"], **line,
         **{f"launches_{k}": v for k, v in launches.items()})
     if not (n >= 1 and np.isfinite(line["cd_mean"]) and np.isfinite(line["emd_mean"])):
         raise AssertionError(f"generate: bad result line {line}")
@@ -2882,6 +2903,129 @@ def fast_phase(root, data, t2d_ckpt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the host engines and generation.matmul_precision (F7)
+
+def canon(verts, faces):
+    """A mesh as its sorted triangle soup (vertex order aside), to 1e-5."""
+    tri = verts[faces].reshape(len(faces), -1)
+    return np.round(tri[np.lexsort(tri.T[::-1])], 5)
+
+
+def bumpy_field(n):
+    """An n^3 float32 field whose 0 level is a bumpy ellipsoid spanning
+    most of the box."""
+    x = np.linspace(-1, 1, n, dtype=np.float32)
+    X, Y, Z = x[:, None, None], x[None, :, None], x[None, None, :]
+    r = np.sqrt(X ** 2 / 0.8 + Y ** 2 + Z ** 2 / 0.6)
+    return (0.8 - r + 0.05 * np.sin(7 * X) * np.sin(5 * Y) * np.sin(3 * Z)).astype(np.float32)
+
+
+def host_call(fn, *args):
+    """(fn's result, its seconds on the host clock) of one call."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def host_engines_phase():
+    """The native host engines on the card's host, against their plain
+    references: marching cubes at 129^3 against _marching_cubes_numpy
+    (the same triangle soup, both times), the x-slab threads at 513^3
+    against one thread (equal vertex counts, the same soup), and the
+    lattice encode of the shuffled 128^3 lattice against its numpy form
+    (the same nodes)."""
+    native.mc._ensure()
+    native.geom._ensure()
+    vol = bumpy_field(LATTICE_NX + 1)
+    (vn, fn), numpy_s = host_call(_marching_cubes_numpy, vol, 0.0)
+    (vc, fc), native_s = host_call(native.mc.marching_cubes, vol, 0.0)
+    (v1, f1), one_s = host_call(native.mc.marching_cubes, vol, 0.0, 1)
+    ok = (len(vc), len(fc)) == (len(vn), len(fn)) == (len(v1), len(f1))
+    ok = ok and np.allclose(canon(vc, fc), canon(vn, fn), atol=1e-5, rtol=0)
+    ok = ok and np.allclose(canon(v1, f1), canon(vn, fn), atol=1e-5, rtol=0)
+    log("host_engines", engine="marching_cubes", nx=LATTICE_NX + 1, verts=len(vc),
+        faces=len(fc), native_s=native_s, native_1thread_s=one_s, numpy_s=numpy_s,
+        equal_to_numpy=bool(ok), cpus=os.cpu_count())
+    if not ok:
+        raise AssertionError("native marching cubes disagrees with the numpy reference")
+    nx = 4 * LATTICE_NX + 1
+    vol = bumpy_field(nx)
+    threads = max(1, min(os.cpu_count() or 1, 8))
+    (vt, ft), slab_s = host_call(native.mc.marching_cubes, vol, 0.0)
+    (v1, f1), one_s = host_call(native.mc.marching_cubes, vol, 0.0, 1)
+    ok = (len(vt), len(ft)) == (len(v1), len(f1))     # no duplicate survives the weld
+    ok = ok and np.allclose(canon(vt, ft), canon(v1, f1), atol=1e-5, rtol=0)
+    log("host_engines", engine="marching_cubes", nx=nx, threads=threads, verts=len(vt),
+        faces=len(ft), native_s=slab_s, native_1thread_s=one_s, welded=bool(ok))
+    if not ok:
+        raise AssertionError(f"marching cubes on {threads} slabs differs from one thread")
+    del vol, vt, ft, v1, f1
+    from vtaco_tpu_torch.generate.generator import Generator3D
+
+    R, box = LATTICE_NX - 1, 1.1
+    ii = np.random.default_rng(0).permutation(LATTICE_NX ** 3)
+    ii = np.stack(np.unravel_index(ii, (LATTICE_NX,) * 3), axis=1)
+    p = (box * (ii / R - 0.5)).astype(np.float32)
+    (got, resid), enc_s = host_call(Generator3D._lattice_encode_host, p, box, R, len(p))
+    (want, resid_np), enc_np_s = host_call(Generator3D._lattice_encode_numpy, p, box, R, len(p))
+    ok = np.array_equal(got, want) and np.array_equal(got, ii.T) and resid <= 1e-3
+    log("host_engines", engine="lattice_encode", points=len(p), native_s=enc_s,
+        numpy_s=enc_np_s, residual=resid, residual_numpy=resid_np, equal_to_numpy=bool(ok))
+    if not ok:
+        raise AssertionError("the native lattice encode disagrees with the numpy form")
+
+
+def rel_err(a, b):
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def f7_phase(cfg, model, batch):
+    """generation.matmul_precision under PyTorch's own TF32 flags (cuDNN's
+    on, cuBLAS's off): VTacO_YCB's encode and contact gates at full width
+    through Generator3D._encode_sample at 'highest' against the same with
+    both flags off (within 1e-6 relative: the UNet3D grid and the
+    ResNet-18 features), and at 'default' (TF32) as the control that the
+    check sees TF32 (more than 1e-5 relative). The script's flags are put
+    back after."""
+    own = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    gens = {}
+    for prec in ("highest", "default"):
+        c = json.loads(json.dumps(cfg))
+        c["generation"]["matmul_precision"] = prec
+        gens[prec] = get_generator(model, c)
+    out = {}
+    # deterministic algorithms: the object encoder's scatter-mean adds with
+    # atomics, which alone moves the grid by a few 1e-6 between two runs
+    # of one configuration (11A); the ops without a deterministic kernel
+    # are logged
+    with deterministic() as nondeterministic:
+        try:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+            defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            for prec, gen in gens.items():
+                gen._encode_sample(model, batch, 0)                    # warm
+                out[prec] = gen._encode_sample(model, batch, 0)
+                if (torch.backends.cuda.matmul.allow_tf32,
+                        torch.backends.cudnn.allow_tf32) != defaults:
+                    raise AssertionError(f"f7: {prec} did not restore the process's flags")
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            ref = gens["highest"]._encode_sample(model, batch, 0)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = own
+    errs = {prec: {"grid": rel_err(c["grid"], ref[0]["grid"]),
+                   "c_img": rel_err(g[2], ref[1][2])}
+            for prec, (c, g) in out.items()}
+    ok = (max(errs["highest"].values()) <= 1e-6 and min(errs["default"].values()) > 1e-5
+          and out["highest"][1][0] == "contact")
+    log("f7", process_flags="pytorch defaults (matmul off, cudnn on)",
+        highest_vs_flags_off=errs["highest"], default_vs_flags_off=errs["default"],
+        nondeterministic_ops=nondeterministic, ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"f7: matmul_precision does not set the TF32 flags: {errs}")
+
+
 def pipeline_phase():
     """The paper's three stages through the port's entry points at full
     width on one synthetic set: (a) pretrain the tactile depth stack,
@@ -2940,10 +3084,12 @@ def main():
             if any(k in line for k in ("entry", "registers", "spill", "smem")):
                 print(f"[ptxas {src}] {line.strip()}")
 
+    host_engines_phase()
     rows = kernel_phase(dev, peak)
     rows.update(window_kernel_phase(dev, peak))
     rows["fused_trunk_cn_batched"] = batched_kernel_phase(dev, peak)
     cfg, model, batch, gens = build_model()
+    f7_phase(cfg, model, batch)
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
     batched_paths = batched_phase(dev, peak, cfg, model)

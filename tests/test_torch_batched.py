@@ -237,18 +237,6 @@ def served(tmp_path_factory):
     return (root, cfg) + _pair(cfg, seed=23)
 
 
-def _jax_numpy_marching_cubes(monkeypatch):
-    """The JAX package's marching cubes on its numpy path, whose vertex
-    order the port's copy keeps: the 2048 vertices drawn for chamfer are
-    then the same."""
-    from vtaco_tpu.native import mc
-
-    def unavailable(*a, **k):
-        raise RuntimeError("numpy path")
-
-    monkeypatch.setattr(mc, "marching_cubes", unavailable)
-
-
 def _float32_transfers(monkeypatch):
     """Both packages' ``decode_dense_batched`` at float32 transfers, for
     the comparisons of ``run_batched`` (see test_run_batched_matches_jax)."""
@@ -272,7 +260,6 @@ def test_run_batched_matches_jax(served, monkeypatch, tmp_path):
     8,192 on this split; a vertex count then differs, and with it every
     one of the chamfer's 2048 draws.)"""
     _, cfg, jmodel, state, tmodel = served
-    _jax_numpy_marching_cubes(monkeypatch)
     batches = _batches(cfg, "test")
     assert len(batches) == 3
     names = [b["points.name"][0] for b in batches]
@@ -330,7 +317,6 @@ def test_batched_cli_matches_jax(served, monkeypatch, capsys):
     from vtaco_tpu_torch.cli.generate import main as port_main
 
     root, cfg, jmodel, state, tmodel = served
-    _jax_numpy_marching_cubes(monkeypatch)
     _float32_transfers(monkeypatch)
     for cls in (JaxDataset, Shapes3dDataset):
         # each item's input subsample and noise from its own seed: the JAX

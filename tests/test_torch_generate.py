@@ -7,11 +7,13 @@ exact float32 transfers and no iso-band; the port runs its plain trunk on
 the CPU. Each touching finger presses at most ``contact_per_finger``
 pixels, so both sides gate with the same contact set.
 
-The JAX marching cubes may take its native extractor, whose vertex order
-differs from the numpy one, so meshes are compared as sets of triangles
-(in voxel units, to 1e-4), and the 2048-vertex subsample behind chamfer
-and EMD is compared only where it is the whole mesh; above that, the two
-packages' metrics are compared on one and the same vertex array.
+Meshes are compared as sets of triangles (in voxel units, to 1e-4), and
+the 2048-vertex subsample behind chamfer and EMD is compared only where
+it is the whole mesh; above that, the two packages' metrics are compared
+on one and the same vertex array. Both packages' marching cubes take
+their native extractors, which emit the vertices in one order, and
+``test_mesh_metrics_equal_jax_above_2048_vertices`` holds the metrics of
+a mesh of more than 2048 vertices directly.
 
 The two packages' value grids differ by a few 1e-6 (float32 sums in
 another order, mostly in the encoder's convolutions). Equal meshes need
@@ -186,6 +188,34 @@ def test_generate_obj_mesh_wnf_matches_jax(pair, nx, mode, batch_seed):
         assert abs(tmetrics.earth_mover_distance(pts[0], sample)
                    - jmetrics.earth_mover_distance(pts[0], sample)) <= 1e-6
     assert np.isfinite(tcd) and np.isfinite(temd)
+
+
+def test_mesh_metrics_equal_jax_above_2048_vertices(pair):
+    """With both packages' marching cubes native, the vertices come in one
+    order, the 2048-vertex sample behind chamfer and EMD is the same draw,
+    and the metrics agree directly on a mesh of more than 2048 vertices."""
+    from vtaco_tpu import native as jax_native
+
+    assert jax_native.mc._ensure() is not None   # JAX's extractor loads
+    cfg, jmodel, v, tmodel = pair
+    cfg = copy.deepcopy(cfg)
+    nx = 64
+    cfg["generation"]["resolution_0"] = nx // 4
+    cfg["model"]["with_img"] = False
+    data = make_batch(np.random.default_rng(0))
+
+    class State:
+        params = v["params"]
+        batch_stats = v["batch_stats"]
+
+    jgen = JGen.from_config(jmodel, cfg, band_transfer=False, transfer_dtype="float32")
+    tgen = get_generator(tmodel, cfg)
+    np.random.seed(0)
+    (jv, _), jemd, jcd = jgen.generate_obj_mesh_wnf(State(), data)
+    np.random.seed(0)
+    (tv, _), temd, tcd = tgen.generate_obj_mesh_wnf(tmodel, data)
+    assert len(tv) == len(jv) > 2048
+    assert abs(tcd - jcd) <= 1e-6 and abs(temd - jemd) <= 1e-6, (tcd, jcd, temd, jemd)
 
 
 @pytest.mark.parametrize("out", ["int8", "bfloat16", "float32"])

@@ -324,13 +324,16 @@ def test_pipeline_through_the_clis(synth, tmp_path, capsys):
 
 @pytest.mark.parametrize("what", ["device_mesh", "points_unfast", "dense_band",
                                   "tensorboard", "profile_dir", "debug_nans"])
-def test_unported_options_raise(synth, tmp_path, what):
-    """Batched serving over a device mesh (ROADMAP item 12), the batched
-    iso-band transfer ``decode_dense_batched_band`` (item 10), and the
-    loop's TensorBoard, profiler and NaN-debug options (item 13), raise
+def test_unported_options_raise(synth, tmp_path, what, monkeypatch):
+    """Batched serving over a device mesh (ROADMAP item 12) and the batched
+    iso-band transfer ``decode_dense_batched_band`` (item 10) raise
     instead of running without them. The chunked legacy
     ``decode_points_batched(fast=False)`` (item 7) equals the JAX
-    package's."""
+    package's. The loop's TensorBoard, profiler and NaN-debug options,
+    which raised until they were ported, now run a step: event files
+    beside the jsonl log, a profiler trace in profile_dir (its window
+    moved to the first step here), and a finite run under debug_nans
+    (tests/test_torch_utils.py plants a NaN)."""
     from vtaco_tpu_torch.train import loop
 
     cfg = _cli_cfg(_small_cfg("configs/VTacO/VTacO_YCB.yaml", *synth), tmp_path / "out")
@@ -366,9 +369,21 @@ def test_unported_options_raise(synth, tmp_path, what):
                                match="decode_dense_batched_band.*item 10"):
                 gen.decode_dense_batched_band(model, 4, c)
     else:
-        cfg["training"][what] = "prof" if what == "profile_dir" else True
-        with pytest.raises(NotImplementedError, match=f"training.{what}.*item 13"):
-            loop.train(cfg, max_iters=1, device="cpu")
+        import functools
+
+        from vtaco_tpu_torch.utils.profiling import ProfiledRegion
+
+        prof = str(tmp_path / "prof")
+        cfg["training"][what] = prof if what == "profile_dir" else True
+        monkeypatch.setattr(loop, "ProfiledRegion",
+                            functools.partial(ProfiledRegion, start_step=1, stop_step=1))
+        _, it = loop.train(cfg, max_iters=1, device="cpu")
+        assert it == 1
+        logs = os.listdir(os.path.join(cfg["training"]["out_dir"], "logs"))
+        assert "metrics.jsonl" in logs
+        assert any(f.startswith("events.out.tfevents") for f in logs) == (what == "tensorboard")
+        assert os.listdir(prof) == ["trace_1_1.json"] if what == "profile_dir" else (
+            not os.path.exists(prof))
 
 
 @pytest.mark.parametrize("case", ["planes_dense", "planes_gather", "trainer_no_img"])

@@ -187,13 +187,19 @@ def test_marching_cubes_matches_numpy_reference(rng):
     X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
     vol = (0.6 - np.sqrt(X ** 2 + Y ** 2 + Z ** 2)
            + 0.05 * rng.standard_normal(X.shape)).astype(np.float32)
+    # the port's marching cubes is native: the same mesh as the numpy
+    # reference, its vertices in the scan's order (tests/test_marching_cubes.py's
+    # soup comparison)
+    from test_marching_cubes import _canon
+
     v, f = marching_cubes(vol, 0.1, gradient="descent")
     vn, fn = _marching_cubes_numpy(vol, 0.1)
-    np.testing.assert_array_equal(v, vn)
-    np.testing.assert_array_equal(f, fn)
+    assert (len(v), len(f)) == (len(vn), len(fn))
+    np.testing.assert_allclose(_canon(v, f), _canon(vn, fn), atol=1e-5)
     va, fa = marching_cubes(vol)
-    np.testing.assert_array_equal(
-        fa, _marching_cubes_numpy(vol, (vol.min() + vol.max()) / 2.0)[1][:, ::-1])
+    vb, fb = _marching_cubes_numpy(vol, (vol.min() + vol.max()) / 2.0)
+    assert (len(va), len(fa)) == (len(vb), len(fb))
+    np.testing.assert_allclose(_canon(va, fa[:, ::-1]), _canon(vb, fb), atol=1e-5)
 
 
 @pytest.mark.parametrize("n2", [500, 2048])

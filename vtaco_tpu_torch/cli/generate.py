@@ -14,7 +14,9 @@ the run goes on from the untrained initialization. Runs on the first
 CUDA device unless ``--cpu`` is given. ``--batched B`` reconstructs the
 object meshes B at a time, pipelined and ungated
 (``Inferencer.run_batched``: one K2 launch per flight); its last line is
-``{"split", "n", "cd_mean", "batched"}``.
+``{"split", "n", "cd_mean", "batched"}``. At start it keeps large host
+allocations on the heap (utils.host.enable_heap_reuse), as the JAX CLI
+does.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
 from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.generate.inferencer import Inferencer
+from vtaco_tpu_torch.utils.host import enable_heap_reuse
 
 DEFAULT_CFG = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -51,6 +54,7 @@ def main(argv=None):
                     help="Pipelined B-object batched reconstruction "
                          "(plain occupancy decode; no tactile gating).")
     args = ap.parse_args(argv)
+    enable_heap_reuse()    # recycle grid-sized host buffers (utils/host.py)
 
     cfg = load_config(args.config, DEFAULT_CFG)
     if args.data_root:

@@ -47,6 +47,14 @@ points with its corner-gathered features). ``generate_obj_mesh_mise``
 refines a coarse dense decode where the surface passes
 (generate/mise.py).
 
+Every model forward of the generator (the encoders, the gates, the
+decodes, the hand mesh, the tactile clouds) runs under the TF32 flags
+that ``generation.matmul_precision`` names ('highest' by default: IEEE
+float32, as the reference computes), and ``generation.use_pallas`` false
+routes the decodes to the plain trunk instead of the kernels. Marching
+cubes and the lattice encode of query sets run in the native host engines
+(native/mc.cpp, native/geom.cpp).
+
 The hand mesh is the MANO prediction moved from the canonical wrist frame
 into the object's normalized frame; the tactile clouds back-project the
 depth U-Net's predicted maps through each sensor's camera. LoopGenerator
@@ -55,6 +63,7 @@ is the training loop's periodic visualization.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -62,6 +71,8 @@ import time
 import numpy as np
 import torch
 
+from vtaco_tpu_torch import native
+from vtaco_tpu_torch.core.precision import TF32, matmul_precision as _precision
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
@@ -130,18 +141,38 @@ def _object(c, b):
     return {k: v[b] for k, v in c.items()}
 
 
+def _at_precision(fn):
+    """Run a Generator3D method under the TF32 flags its
+    ``matmul_precision`` names, restoring the process's own after."""
+    @functools.wraps(fn)
+    def run(self, *args, **kw):
+        with _precision(self.matmul_precision):
+            return fn(self, *args, **kw)
+    return run
+
+
 class Generator3D:
     def __init__(self, model, resolution0=16, padding=0.1,
                  with_img=False, encode_t2d=False, contact_per_finger=128,
                  depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
                  transfer_dtype="auto", band_transfer="auto", coord_quant="auto",
                  upsampling_steps=0, points_batch_size=100000, input_type=None,
-                 vol_info=None):
+                 vol_info=None, matmul_precision="highest", use_pallas="auto"):
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
         ``band_transfer``: the iso-band transfer (generate/band.py) is not
         ported; 'auto' resolves to off and true raises.
+        ``matmul_precision``: the JAX precision name every model forward of
+        the generator runs at: 'highest' (the default, as the JAX
+        package's) turns cuBLAS's and cuDNN's TF32 off, as the reference
+        computes in IEEE float32; 'default' allows TF32 on the card.
+        ``use_pallas``: 'auto' and true decode through the CUDA kernels
+        (K1-K4, K2 batched); false through the plain trunk, the port of
+        the XLA trunk that the JAX package routes false to (no window
+        route; the gather route takes those points). It is a user's
+        choice, not a fallback: under 'auto' a kernel that does not build
+        raises.
         ``coord_quant``: round non-lattice query coords of ``eval_points``
         to uint16 steps of the box (error ≤ box/2¹⁶/2) before decoding, as
         the JAX package does for its host link. 'auto' resolves to off,
@@ -170,10 +201,18 @@ class Generator3D:
         if coord_quant not in ("auto", True, False):
             raise ValueError("generation.coord_quant must be 'auto', true, or "
                              f"false; got {coord_quant!r}")
+        if matmul_precision not in TF32:
+            raise ValueError(f"generation.matmul_precision {matmul_precision!r} is "
+                             f"none of {sorted(TF32)}")
+        if use_pallas not in ("auto", True, False):
+            raise ValueError("generation.use_pallas must be 'auto', true, or "
+                             f"false; got {use_pallas!r}")
         if band_transfer is True:
             raise NotImplementedError("band_transfer (generate/band.py) is not "
                                       "ported yet (ROADMAP.md, item 10)")
         self.model = model
+        self.matmul_precision = matmul_precision
+        self.use_kernels = use_pallas is not False
         self.resolution0 = resolution0
         self.padding = padding
         self.with_img = with_img
@@ -223,7 +262,9 @@ class Generator3D:
             points_batch_size=gen.get("batch_size", 100000),
             input_type=cfg["data"]["input_type"],
             vol_info=vol_info,
-            **{"mc_level": gen.get("mc_level", "midpoint"),
+            **{"matmul_precision": gen.get("matmul_precision", "highest"),
+               "use_pallas": gen.get("use_pallas", "auto"),
+               "mc_level": gen.get("mc_level", "midpoint"),
                "transfer_dtype": gen.get("transfer_dtype", "auto"),
                "band_transfer": gen.get("band_transfer", "auto"),
                "coord_quant": gen.get("coord_quant", "auto"),
@@ -309,14 +350,14 @@ class Generator3D:
                     gating, dtype, leaky):
         """(3, N) coords + (C, N) features → (N,) logits. K1 for contact
         gating; K2 without, or with the (C, N) c_img rows of fingertip
-        gating (``gate_tips_cn``, computed first); the plain trunk only for
-        leaky decoders (the kernels hardcode ReLU), as the JAX package
-        routes them."""
+        gating (``gate_tips_cn``, computed first); the plain trunk for leaky
+        decoders (the kernels hardcode ReLU) and under ``use_pallas``
+        false, as the JAX package routes them."""
         store = dtype if dtype != torch.float32 else None
         c_img = None
         if gating == "tips":
             c_img = FT.gate_tips_cn(p_cn, gate_pts, gate_feat, gate_valid)
-        if not leaky:
+        if self.use_kernels and not leaky:
             if gating == "contact":
                 return fused_trunk_gated_cn(tp, p_cn, feats, gate_pts,
                                             gate_feat, gate_valid,
@@ -324,7 +365,7 @@ class Generator3D:
             return fused_trunk_cn(tp, p_cn, feats, c_img, store_dtype=store)
         if gating == "contact":
             c_img = FT.gate_contact_cn(p_cn, gate_pts, gate_feat, gate_valid)
-        return FT.trunk_cn(tp, p_cn, feats, c_img, dtype=dtype, leaky=True)
+        return FT.trunk_cn(tp, p_cn, feats, c_img, dtype=dtype, leaky=leaky)
 
     def _decode_dense_fast_impl(self, tp, c, gate_pts, gate_feat, gate_valid,
                                 nx, gating, dtype, leaky, out_dtype=None,
@@ -341,6 +382,7 @@ class Generator3D:
             logits = logits.reshape(nx, nx, nx).permute(2, 1, 0).reshape(-1)
         return self._finalize_logits(logits, out_dtype)
 
+    @_at_precision
     def eval_points_dense(self, model, nx, c, gating="none", gate_pts=None,
                           gate_feat=None, gate_valid=None, dtype=torch.float32,
                           transfer_dtype=torch.bfloat16):
@@ -403,9 +445,17 @@ class Generator3D:
     @staticmethod
     def _lattice_encode_host(p, box, reso, npad):
         """(N, 3) f32 world coords → ((3, npad) uint8/int16 lattice nodes,
-        max residual in lattice units). A caller that accepts the residual
+        max residual in lattice units), in one native pass
+        (native.geom.lattice_encode). A caller that accepts the residual
         snaps each point to its nearest node; NaN, inf or out-of-range
         coords force a rejection."""
+        return native.geom.lattice_encode(p, box, reso, npad)
+
+    @staticmethod
+    def _lattice_encode_numpy(p, box, reso, npad):
+        """The plain numpy form of _lattice_encode_host, the tests'
+        reference: equal nodes on lattice inputs, residuals within float32
+        rounding."""
         n = len(p)
         w = np.asarray(p, np.float32).T * (reso / box) + 0.5 * reso
         r = np.rint(w)
@@ -528,10 +578,11 @@ class Generator3D:
         """The sorted window route for (3, n) world coords on the device:
         sort by super-cell, decode, un-sort. Returns the finalized logits in
         the caller's order, or None where the JAX package takes the gather
-        route: a leaky decoder (the kernels hardcode ReLU), plane features,
+        route: ``use_pallas`` false, a leaky decoder (the kernels hardcode
+        ReLU), plane features,
         a non-cubic or tiny grid, NaN coords, no plan that fits, or a
         nonzero overflow count from the kernel's keys."""
-        if leaky or gating not in ("none", "tips", "contact"):
+        if not self.use_kernels or leaky or gating not in ("none", "tips", "contact"):
             return None
         if set(c) != {"grid"}:
             return None
@@ -556,6 +607,7 @@ class Generator3D:
         return self._finalize_logits(out, out_dtype)
 
     @torch.inference_mode()
+    @_at_precision
     def eval_points_fast(self, model, pointsf, c, gating="none", gate_pts=None,
                          gate_feat=None, gate_valid=None,
                          transfer_dtype=torch.bfloat16, dtype=torch.float32,
@@ -634,6 +686,7 @@ class Generator3D:
             tp, p, c, *gates, gating, dtype, decoder.leaky, td))
 
     @torch.inference_mode()
+    @_at_precision
     def eval_points(self, model, pointsf, c, gating="none", gate_pts=None,
                     gate_feat=None, gate_valid=None,
                     transfer_dtype=torch.bfloat16, fast=None):
@@ -669,19 +722,20 @@ class Generator3D:
 
     # ------------------------------------------------------------------
     # batched serving: B objects per call, ungated
-    @staticmethod
-    def _trunk_batched(tp, p_cn, feats, dtype, leaky):
+    def _trunk_batched(self, tp, p_cn, feats, dtype, leaky):
         """(3, N) shared or (B, 3, N) coords + (B, C, N) features → (B, N)
         logits: one batched K2 launch; the plain trunk per object for
-        leaky decoders (the kernels hardcode ReLU)."""
-        if not leaky:
+        leaky decoders (the kernels hardcode ReLU) and under
+        ``use_pallas`` false."""
+        if self.use_kernels and not leaky:
             store = dtype if dtype != torch.float32 else None
             return fused_trunk_cn_batched(tp, p_cn, feats, store_dtype=store)
         return torch.stack([FT.trunk_cn(tp, p_cn if p_cn.dim() == 2 else p_cn[b],
-                                        feats[b], dtype=dtype, leaky=True)
+                                        feats[b], dtype=dtype, leaky=leaky)
                             for b in range(len(feats))])
 
     @torch.inference_mode()
+    @_at_precision
     def decode_dense_batched(self, model, nx, c_batched, device_mesh=None,
                              dtype=torch.float32, return_device=False,
                              transfer_dtype=torch.bfloat16):
@@ -736,6 +790,7 @@ class Generator3D:
                                   "(ROADMAP.md, item 10)")
 
     @torch.inference_mode()
+    @_at_precision
     def decode_points_batched(self, model, pts_b, c_batched, device_mesh=None,
                               transfer_dtype=torch.bfloat16, fast=None,
                               lattice_reso=None, coord_quant=None, pts_cn=None,
@@ -857,6 +912,7 @@ class Generator3D:
             val_f.append(valid)
         return torch.stack(pts_f), torch.stack(val_f)
 
+    @_at_precision
     def _build_gates(self, model, imgs, depths, touch, pc_ply, cam_pos,
                      cam_rot, seed=0, *, inputs=None, mano_gt=None, wrist=None):
         """The tactile gates of a B=1 sample, as ``(gating, gate_pts,
@@ -890,6 +946,7 @@ class Generator3D:
             pc_ply[0], H, W, seed=seed)
         return "contact", gate_pts, c_img[0], gate_valid
 
+    @_at_precision
     def _encode_sample(self, model, data, seed, gates=True):
         """A B=1 loader batch → (its encoded feature grid, its tactile gates
         from ``_build_gates``, or no gating when ``gates`` is false)."""
@@ -914,6 +971,7 @@ class Generator3D:
             mano_gt=hand.get("mano"), wrist=hand.get("wrist"))
 
     @torch.inference_mode()
+    @_at_precision
     def generate_obj_mesh_wnf(self, model, data, seed=0):
         """Dense-grid decode + marching cubes + metrics for a B=1 batch.
 
@@ -965,6 +1023,7 @@ class Generator3D:
         return (verts, faces), emd, cd
 
     @torch.inference_mode()
+    @_at_precision
     def generate_obj_mesh_mise(self, model, data, resolution0=None,
                                upsampling_steps=None, seed=0, stats=None):
         """A B=1 batch's mesh by MISE refinement (generate/mise.py): a
@@ -999,6 +1058,7 @@ class Generator3D:
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
+    @_at_precision
     def generate_hand_mesh(self, model, data):
         """The hand encoder's MANO prediction for a B=1 batch as a mesh in
         the object's normalized frame: the canonical-frame vertices less
@@ -1025,6 +1085,7 @@ class Generator3D:
         return norm_pc_1(x.T + wrist_pos, pc_ply).numpy(), faces
 
     @torch.inference_mode()
+    @_at_precision
     def generate_tactile_pc(self, model, data):
         """The depth U-Net's predicted maps (denormalized: × 0.005 + 0.019)
         back-projected through each sensor's camera into the world, then

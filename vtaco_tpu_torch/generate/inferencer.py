@@ -17,6 +17,9 @@ batched encode and one batched dense decode (one K2 launch), the logits'
 copy to pinned host memory started at once, then the next flight launched
 before this one's host work (threaded marching cubes, mesh files, one
 batched chamfer on the device), so that the host work overlaps the card's.
+
+Every model forward runs at the generator's ``matmul_precision``
+(``generation.matmul_precision``, 'highest' by default: no TF32).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vtaco_tpu_torch.core.precision import matmul_precision
 from vtaco_tpu_torch.generate.generator import Generator3D
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.generate.mise import host_map
@@ -109,7 +113,7 @@ class Inferencer:
         rng = np.random.default_rng(0)
 
         def dispatch(inputs_list, names_b, objs):
-            with torch.inference_mode():
+            with torch.inference_mode(), matmul_precision(gen.matmul_precision):
                 inputs = torch.as_tensor(np.stack(inputs_list), device=dev)
                 c = model.encode_inputs(inputs)
                 logits = gen.decode_dense_batched(model, nx, c, dtype=dtype,

@@ -1,5 +1,13 @@
-"""Marching cubes, vectorized numpy with shared edge vertices (copy of
-vtaco_tpu/generate/marching_cubes.py:27-115, without the native C++ path).
+"""Marching cubes (port of vtaco_tpu/generate/marching_cubes.py:27-115).
+
+``marching_cubes`` runs the native extractor (native/mc.cpp), as the JAX
+package does by default: one thread below 128³ points, x-slabs on
+min(cpu_count, 8) threads from 128³ up, its vertices in the scan's order.
+That order decides which vertices the generator's 2048-vertex metric
+sample draws, so the port's chamfer and EMD equal the JAX package's on
+the same grid. A failed build raises. ``_marching_cubes_numpy`` is the
+plain reference the tests hold the extractor against: the same mesh, its
+vertices sorted by edge key.
 
 Vertices lie on cube edges at the linear-interpolation crossing; each
 global edge produces one shared vertex, so closed isosurfaces give
@@ -11,6 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from vtaco_tpu_torch import native
 from vtaco_tpu_torch.generate.mc_tables import (
     CORNER_OFFSETS,
     EDGE_CORNERS,
@@ -26,7 +35,7 @@ def marching_cubes(volume, level=None, gradient="ascent"):
     volume = np.ascontiguousarray(volume, np.float32)
     if level is None:
         level = (float(volume.min()) + float(volume.max())) / 2.0
-    verts, faces = _marching_cubes_numpy(volume, level)
+    verts, faces = native.mc.marching_cubes(volume, level)
     if gradient == "ascent":
         faces = faces[:, ::-1]
     return verts, faces

@@ -1,8 +1,8 @@
 """MISE-style multi-resolution isosurface extraction (port of
 vtaco_tpu/generate/mise.py: ``host_map`` :28-42, the grid helpers :45-72,
 ``MultiGridExtractorNumpy`` :89-162, ``MultiGridExtractorNative``
-:165-297, ``multires_decode`` :402-500 and ``multires_decode_batched``
-:503-658).
+:165-297, ``DelaunayMeshExtractor`` :314-400, ``multires_decode`` :402-500
+and ``multires_decode_batched`` :503-658).
 
 A grid of occupancy values is kept where only the points next to
 "active" (boundary-possible) voxels are evaluated; the resolution doubles
@@ -274,6 +274,94 @@ class MultiGridExtractorNative:
 
 
 MultiGridExtractor = MultiGridExtractorNative
+
+
+class DelaunayMeshExtractor:
+    """Mesh extraction from scattered implicit-function samples via
+    Delaunay tetrahedralization (scipy), on the host.
+
+    Counterpart of src/utils/mesh.py:104-199: simplices whose corners mix
+    occupied/unoccupied are "active"; each crossing edge is subdivided at
+    the linear iso-crossing; triangles are oriented by the sign of the
+    tetrahedron volume against the reference corner's occupancy.
+    """
+
+    def __init__(self, points, values, threshold=0.0):
+        from scipy.spatial import Delaunay
+
+        self.points = np.asarray(points, np.float64)
+        self.values = np.asarray(values, np.float64)
+        self.threshold = threshold
+        self.delaunay = Delaunay(self.points)
+
+    def active_simplices(self):
+        occ = self.values >= self.threshold
+        simplices = self.delaunay.simplices
+        s_occ = occ[simplices]
+        active = np.any(s_occ, axis=1) & np.any(~s_occ, axis=1)
+        return simplices[active]
+
+    def update(self, points, values, reduce_to_active=True):
+        from scipy.spatial import Delaunay
+
+        if reduce_to_active:
+            keep = np.unique(self.active_simplices().ravel())
+            self.points = self.points[keep]
+            self.values = self.values[keep]
+        self.points = np.concatenate([self.points, points], axis=0)
+        self.values = np.concatenate([self.values, values], axis=0)
+        self.delaunay = Delaunay(self.points)
+
+    def query(self, size):
+        """Volume-weighted random samples inside active simplices
+        (src/utils/mesh.py:183-214)."""
+        tets = self.points[self.active_simplices()]
+        vecs = tets[:, :3, :] - tets[:, 3:, :]
+        vols = np.abs(np.linalg.det(vecs) / 6.0)
+        probs = vols / vols.sum()
+        pick = np.random.choice(len(tets), p=probs, size=size)
+        w = np.random.dirichlet([1, 1, 1, 1], size=size)[:, :, None]
+        return (w * tets[pick]).sum(axis=1)
+
+    def extract_mesh(self):
+        from itertools import combinations
+
+        thr = self.threshold
+        verts, tris = [], []
+        edge_vertex = {}
+        for simplex in np.sort(self.active_simplices(), axis=1):
+            cut = []
+            for i1, i2 in combinations(simplex, 2):
+                v1, v2 = self.values[i1], self.values[i2]
+                if (v1 < thr) != (v2 < thr):
+                    key = (i1, i2)
+                    if key not in edge_vertex:
+                        tau = (thr - v1) / (v2 - v1)
+                        p = (1 - tau) * self.points[i1] + tau * self.points[i2]
+                        edge_vertex[key] = len(verts)
+                        verts.append(p)
+                    cut.append(edge_vertex[key])
+            if len(cut) not in (3, 4):
+                continue
+            p0 = self.points[simplex[0]]
+            v0 = self.values[simplex[0]]
+
+            def emit(i1, i2, i3):
+                vol = np.linalg.det(
+                    np.stack([verts[i1], verts[i2], verts[i3]]) - p0
+                ) / 6.0
+                if vol * (v0 - thr) <= 0:
+                    tris.append((i1, i2, i3))
+                else:
+                    tris.append((i1, i3, i2))
+
+            emit(cut[0], cut[1], cut[2])
+            if len(cut) == 4:
+                emit(cut[1], cut[2], cut[3])
+        return (
+            np.asarray(verts, np.float32).reshape(-1, 3),
+            np.asarray(tris, np.int32).reshape(-1, 3),
+        )
 
 
 def _stats(stats):

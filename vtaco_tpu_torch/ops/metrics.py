@@ -1,10 +1,17 @@
 """Metrics (port of vtaco_tpu/ops/metrics.py: compute_iou :17-37,
-chamfer_distance :39-58 and earth_mover_distance :97-104)."""
+chamfer_distance :39-58, the host KD-tree chamfer :61-94 and
+earth_mover_distance :97-104).
+
+The KD-tree chamfer runs on the host in the native KD-tree
+(native/geom.cpp, the JAX package's replacement for the reference's
+pykdtree); a failed build raises."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from vtaco_tpu_torch import native
 
 
 def compute_iou(occ1, occ2, threshold=0.5, legacy_mean_threshold=True):
@@ -22,15 +29,50 @@ def compute_iou(occ1, occ2, threshold=0.5, legacy_mean_threshold=True):
     return inter / union
 
 
-def chamfer_distance(points1, points2):
+def chamfer_distance(points1, points2, use_kdtree=False, give_id=False):
     """Symmetric squared chamfer distance, (B, T, 3) tensors → (B,).
 
     Keeps the reference's quirk: when points2 has fewer than 2048 points,
-    points1 is truncated to the same count."""
+    points1 is truncated to the same count. ``use_kdtree`` computes it on
+    the host instead (chamfer_distance_kdtree, no truncation), with
+    ``give_id`` as there."""
+    if use_kdtree:
+        return chamfer_distance_kdtree(points1, points2, give_id=give_id)
     if points2.shape[1] < 2048:
         points1 = points1[:, : points2.shape[1], :]
     d = torch.sum((points1[:, :, None, :] - points2[:, None, :, :]) ** 2, dim=-1)
     return torch.min(d, dim=1).values.mean(dim=1) + torch.min(d, dim=2).values.mean(dim=1)
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _nearest_host(points, queries):
+    """(M,) squared distances and indices of each query's nearest point in
+    the native KD-tree (the JAX package's _nearest_host, without its scipy
+    fallback)."""
+    return native.geom.nearest(points, queries)
+
+
+def chamfer_distance_kdtree(points1, points2, give_id=False):
+    """Host KD-tree chamfer of (B, T1, 3) and (B, T2, 3) points (tensors or
+    arrays) → (B,) float64 numpy: the mean squared distance from points1
+    to points2 plus the reverse. ``give_id`` returns (chamfer1, chamfer2,
+    (B, T1) indices into points2, (B, T2) indices into points1)."""
+    p1, p2 = _host(points1), _host(points2)
+    B = p1.shape[0]
+    c1, c2 = np.zeros(B), np.zeros(B)
+    idx12, idx21 = [], []
+    for b in range(B):
+        d12, i12 = _nearest_host(p2[b], p1[b])
+        d21, i21 = _nearest_host(p1[b], p2[b])
+        c1[b], c2[b] = np.mean(d12), np.mean(d21)
+        idx12.append(i12)
+        idx21.append(i21)
+    if give_id:
+        return c1, c2, np.stack(idx12), np.stack(idx21)
+    return c1 + c2
 
 
 def earth_mover_distance(points1, points2):

@@ -1,5 +1,6 @@
 """Winding numbers: occupancy labels computed on the device inside the
-train and eval steps (port of vtaco_tpu/ops/winding.py:50-213).
+train and eval steps (port of vtaco_tpu/ops/winding.py:50-213), and
+``winding_number_host``, the host form in the native extension.
 
 The generalized winding number is the triangle solid-angle sum (van
 Oosterom & Strackee) over 4π. Every point-dependent quantity of the
@@ -23,6 +24,8 @@ import math
 
 import numpy as np
 import torch
+
+from vtaco_tpu_torch import native
 
 
 def _dot(a, b):
@@ -72,6 +75,13 @@ def winding_number_batch(verts, faces, points, face_chunk: int = 4096):
 def winding_number(verts, faces, points, face_chunk: int = 4096):
     """(V, 3), (F, 3), (P, 3) → (P,)."""
     return winding_number_batch(verts[None], faces[None], points[None], face_chunk)[0]
+
+
+def winding_number_host(verts, faces, points):
+    """Winding numbers of (P, 3) host points, (P,) float32, on the host in
+    the native extension (native/geom.cpp): the same solid-angle formula,
+    accumulated in float64, for label precompute and host-side checks."""
+    return native.geom.winding_number(verts, faces, points)
 
 
 def pad_mesh(verts: np.ndarray, faces: np.ndarray, v_max: int, f_max: int):

@@ -7,11 +7,20 @@ hook, generate.generator.make_loop_generator in the CLI; a failed
 visualization is printed and training goes on); model_best selection by
 the configured metric; and the ``exit_after`` preemption contract (save
 model.ckpt, exit with code 3). Metrics stream to stdout and to
-``<out_dir>/logs/metrics.jsonl``. The pretrained tactile-to-depth
-parameters are grafted from ``encoder_t2d_kwargs.model_file`` before a
-resume, so a resumed checkpoint's own encoder_t2d wins. TensorBoard
-events, ``profile_dir`` traces and ``debug_nans`` are not ported and
-raise.
+``<out_dir>/logs/metrics.jsonl``, and with ``training.tensorboard`` also to
+TensorBoard event files in ``<out_dir>/logs`` through tensorboardX (where
+it is not installed, a warning and jsonl only). The pretrained
+tactile-to-depth parameters are grafted from
+``encoder_t2d_kwargs.model_file`` before a resume, so a resumed
+checkpoint's own encoder_t2d wins.
+
+Observability (utils/profiling.py): ``training.profile_dir`` writes a
+torch.profiler trace of iterations 10 to 20 there (fused blocks
+included: the trace starts with the first block that reaches 10);
+``training.debug_nans`` runs the loop in autograd's anomaly mode and stops
+it with FloatingPointError, naming the iteration, at the first step whose
+loss is not finite or whose backward pass makes a NaN. The train steps
+already read their scalars on the host, so the check adds no sync.
 
 With ``data.on_device`` the train and val splits are stacked on the
 device (data.device_data) and validation runs through
@@ -26,6 +35,7 @@ iteration. A block's ``exit_after`` check comes after its last step.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -42,21 +52,51 @@ from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.ops.winding import MeshBank
 from vtaco_tpu_torch.train.trainer import Trainer
 from vtaco_tpu_torch.utils import meshio
+from vtaco_tpu_torch.utils.profiling import (ProfiledRegion, StepTimer, check_finite,
+                                             debug_nans)
 
 
 class JsonlLogger:
-    """Scalar logger writing one JSON object per line."""
+    """Scalar logger writing one JSON object per line, and with
+    ``tensorboard`` TensorBoard event files beside it (the reference's
+    ``SummaryWriter(os.path.join(out_dir, 'logs'))``) through tensorboardX
+    where it is installed."""
 
-    def __init__(self, path):
+    def __init__(self, path, tensorboard=False):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         self.f = open(path, "a")
+        self.tb = None
+        if tensorboard:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                print("Warning: training.tensorboard=true but tensorboardX "
+                      "is not installed; writing jsonl only")
+            else:
+                self.tb = SummaryWriter(os.path.dirname(path))
 
     def add_scalar(self, tag, value, step):
         self.f.write(json.dumps({"tag": tag, "value": float(value), "it": int(step)}) + "\n")
         self.f.flush()
+        if self.tb is not None:
+            self.tb.add_scalar(tag, float(value), int(step))
 
     def close(self):
         self.f.close()
+        if self.tb is not None:
+            self.tb.close()
+
+
+@contextlib.contextmanager
+def _nan_errors(enable, its):
+    """Under ``debug_nans``: anomaly mode's NaN in a backward pass becomes
+    FloatingPointError naming the step's iterations ``its``."""
+    try:
+        yield
+    except RuntimeError as e:
+        if enable and "returned nan values" in str(e):
+            raise FloatingPointError(f"training.debug_nans: {e} (iteration {its})") from e
+        raise
 
 
 def build_mesh_bank(cfg, device="cuda") -> Optional[MeshBank]:
@@ -117,10 +157,6 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     Returns (trainer, it) on a normal stop; raises SystemExit(3) after
     saving once ``exit_after`` seconds have passed."""
     tcfg = cfg["training"]
-    for key in ("tensorboard", "profile_dir", "debug_nans"):
-        if tcfg.get(key):
-            raise NotImplementedError(f"training.{key} is not ported yet "
-                                      "(ROADMAP.md, item 13)")
     out_dir = tcfg["out_dir"]
     batch_size = tcfg["batch_size"]
     print_every, validate_every = tcfg["print_every"], tcfg["validate_every"]
@@ -183,14 +219,17 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
 
     print("Total number of parameters: %d" % sum(p.numel() for p in model.parameters()))
     print("output path: ", out_dir)
-    logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"))
+    logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"),
+                         tensorboard=tcfg.get("tensorboard", False))
     generator = generator_factory(model, cfg, bank) if generator_factory else None
     n_points, n_cloud = cfg["data"]["points_subsample"], cfg["data"]["pointcloud_n"]
     fused_val = None
     if val_dds is not None and val_dds.n_models:
         fused_val = trainer.make_fused_eval_fn(val_dds, n_points, n_cloud)
+    nans = bool(tcfg.get("debug_nans"))
+    profiler = ProfiledRegion(tcfg.get("profile_dir"))
+    timer = StepTimer()
     t0 = time.time()
-    t_last, it_last = t0, it
     stop = False
 
     def save(filename):
@@ -202,17 +241,17 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
         already holds the whole block, so an exit_after save there would
         record an ``it`` behind it; and its steps/s as ``rate``, since its
         steps are logged together after it."""
-        nonlocal metric_val_best, stop, t_last, it_last
+        nonlocal metric_val_best, stop
+        timer.tick()
+        if nans:
+            check_finite(scalars, it)
         for k, v in scalars.items():
             logger.add_scalar(f"train/{k}", v, it)
         if print_every > 0 and it % print_every == 0:
-            now = time.time()
-            if rate is None:
-                rate = (it - it_last) / max(now - t_last, 1e-9)
             msg = ", ".join(f"{k}={v:.4f}" for k, v in scalars.items())
             print("[Epoch %02d] it=%03d, %s, %.2f it/s, time: %.2fs"
-                  % (epoch_it, it, msg, rate, now - t0))
-            t_last, it_last = now, it
+                  % (epoch_it, it, msg, timer.steps_per_sec if rate is None else rate,
+                     time.time() - t0))
         if validate_every > 0 and it % validate_every == 0:
             if fused_val is not None:
                 eval_dict = trainer.evaluate_device(fused_val, val_dds.n_models)
@@ -245,7 +284,9 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
             stop = True
 
     fused_k = int(tcfg.get("steps_per_dispatch", 1) or 1)
-    try:
+
+    def run():
+        nonlocal it, epoch_it
         if val_dds is not None and fused_k > 1:
             fused = trainer.make_fused_train_fn(train_loader.ds, n_points, n_cloud)
             steps_per_epoch = max(1, train_loader.ds.n_models // batch_size)
@@ -263,8 +304,11 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                 k = fused_k if dist_to_cadence(it) >= fused_k else 1
                 logger.add_scalar("train/steps_per_block", k, it + 1)
                 t_block = time.time()
-                scal = trainer.read_scalars(fused(train_loader.take_ids(k),
-                                                  train_loader.next_key()))
+                profiler.maybe_start(it + 1)
+                with _nan_errors(nans, f"{it + 1}-{it + k}"):
+                    scal = trainer.read_scalars(fused(train_loader.take_ids(k),
+                                                      train_loader.next_key()))
+                profiler.maybe_stop(it + 1)
                 rate = k / max(time.time() - t_block, 1e-9)
                 for j in range(k):
                     it += 1
@@ -278,9 +322,17 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                 epoch_it += 1
                 for batch in train_loader:
                     it += 1
-                    post_step(trainer.train_step(batch))
+                    profiler.maybe_start(it)
+                    with _nan_errors(nans, it):
+                        scalars = trainer.train_step(batch)
+                    profiler.maybe_stop(it)
+                    post_step(scalars)
                     if stop:
                         break
+
+    try:
+        with debug_nans(nans):
+            run()
         save("model.ckpt")
     finally:
         logger.close()

@@ -87,6 +87,7 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vtaco_tpu_torch.core.precision import TF32, matmul_precision
 from vtaco_tpu_torch.models.layers import frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
@@ -98,10 +99,6 @@ DEPTH_REST = 0.0215
 # as in the reference)
 DEPTH_SCALE = 0.005
 CAM_FOV = 60.0
-# JAX precision name → TF32 allowed on the card (jax.lax.Precision on a GPU:
-# DEFAULT and HIGH use TF32 where the card has it, HIGHEST full float32)
-TF32 = {"default": True, "fastest": True, "bfloat16": True, "high": True,
-        "bfloat16_3x": True, "tensorfloat32": True, "highest": False, "float32": False}
 # the model method → the top-level module whose parameters it runs
 METHOD_MODULE = {"encode_inputs": "encoder", "encode_hand_inputs": "encoder_hand",
                  "encode_img_inputs": "encoder_img", "encode_t2d": "encoder_t2d",
@@ -132,19 +129,6 @@ def cpu_reduced_precision_convs(active):
         yield
     finally:
         torch.backends.mkldnn.enabled = old
-
-
-@contextlib.contextmanager
-def matmul_precision(name):
-    """Set cuBLAS's and cuDNN's TF32 flags from a JAX precision name for
-    the block, then restore the process's own. Float32 work on the CPU is
-    unaffected."""
-    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = TF32[name]
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
 def _minmax_norm(x):

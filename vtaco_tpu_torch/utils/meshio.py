@@ -1,6 +1,8 @@
-"""Triangle mesh IO and procedural meshes (a copy of the JAX-free parts of
-vtaco_tpu/utils/meshio.py: read_off, write_off, write_ply, read_obj,
-icosphere, box; read_triangle_mesh parses in numpy).
+"""Triangle mesh IO and procedural meshes (port of
+vtaco_tpu/utils/meshio.py:16-235): OFF, OBJ and PLY readers and writers,
+icosphere, box. ``read_triangle_mesh`` parses OFF and OBJ in the native
+reader (native/geom.cpp) unless asked not to; the Python readers are its
+reference.
 """
 
 from __future__ import annotations
@@ -45,8 +47,9 @@ def write_off(path, verts, faces):
             f.write("3 %d %d %d\n" % (face[0], face[1], face[2]))
 
 
-def write_ply(path, points):
-    """ASCII point-cloud PLY, one ``%.6f %.6f %.6f`` line per point."""
+def write_ply(path, points, text=True):
+    """ASCII point-cloud PLY, one ``%.6f %.6f %.6f`` line per point
+    (``text`` is the reference's argument; the file is always ASCII)."""
     points = np.asarray(points).reshape(-1, 3)
     with open(path, "w") as f:
         f.write("ply\nformat ascii 1.0\ncomment vertices\n")
@@ -72,14 +75,89 @@ def read_obj(path):
     return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
 
 
-def read_triangle_mesh(path):
-    """(verts (V, 3) float32, faces (F, 3) int32) of an OFF or OBJ file."""
+def write_obj(path, verts, faces):
+    with open(path, "w") as f:
+        for v in np.asarray(verts):
+            f.write("v %.6f %.6f %.6f\n" % (v[0], v[1], v[2]))
+        for face in np.asarray(faces, np.int64):
+            f.write("f %d %d %d\n" % (face[0] + 1, face[1] + 1, face[2] + 1))
+
+
+def read_triangle_mesh(path, native=True):
+    """(verts (V, 3) float32, faces (F, 3) int32) of an OFF, OBJ or ASCII
+    PLY file, by extension (igl.read_triangle_mesh's counterpart). OFF and
+    OBJ go through the native parser with ``native`` (a failed build
+    raises), through the Python readers without."""
     ext = os.path.splitext(path)[1].lower()
+    if native and ext in (".off", ".obj"):
+        from vtaco_tpu_torch import native as native_ext
+
+        return native_ext.geom.read_triangle_mesh(path)
     if ext == ".off":
         return read_off(path)
     if ext == ".obj":
         return read_obj(path)
+    if ext == ".ply":
+        return read_ply(path)
     raise ValueError(f"unsupported mesh format: {path}")
+
+
+def write_triangle_mesh(path, verts, faces):
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".off":
+        return write_off(path, verts, faces)
+    if ext == ".obj":
+        return write_obj(path, verts, faces)
+    if ext == ".ply":
+        return write_ply_mesh(path, verts, faces)
+    raise ValueError(f"unsupported mesh format: {path}")
+
+
+def write_ply_mesh(path, verts, faces):
+    verts = np.asarray(verts)
+    faces = np.asarray(faces, np.int64)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write("element vertex %d\n" % len(verts))
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("element face %d\n" % len(faces))
+        f.write("property list uchar int vertex_indices\n")
+        f.write("end_header\n")
+        for v in verts:
+            f.write("%.6f %.6f %.6f\n" % (v[0], v[1], v[2]))
+        for face in faces:
+            f.write("3 %d %d %d\n" % (face[0], face[1], face[2]))
+
+
+def read_ply(path):
+    """ASCII PLY reader: (verts (V, 3) float32, faces (F, 3) int32, fans
+    of its polygons); a binary PLY raises ValueError."""
+    with open(path, "rb") as f:
+        header = []
+        while True:
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{path}: PLY header has no end_header")
+            header.append(line.decode().strip())
+            if header[-1] == "end_header":
+                break
+        if any("binary" in h for h in header):
+            raise ValueError("binary PLY not supported")
+        nv = nf = 0
+        for h in header:
+            t = h.split()
+            if t[:2] == ["element", "vertex"]:
+                nv = int(t[2])
+            elif t[:2] == ["element", "face"]:
+                nf = int(t[2])
+        verts = [[float(x) for x in f.readline().split()[:3]] for _ in range(nv)]
+        faces = []
+        for _ in range(nf):
+            t = [int(x) for x in f.readline().split()]
+            for j in range(2, t[0]):
+                faces.append((t[1], t[j], t[j + 1]))
+    return (np.asarray(verts, np.float32).reshape(-1, 3),
+            np.asarray(faces, np.int32).reshape(-1, 3))
 
 
 # --- simple procedural meshes (used by the synthetic dataset + tests) -----
