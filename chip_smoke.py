@@ -203,6 +203,25 @@ ends:
      CROP_CPU_N of them. Counters are zeroed before the CLI and before
      eval_points: the crop path launches no kernel, as in the JAX
      package.
+     (j) families, after (i): the other model families of the registry
+     (family_config), VTacO_YCB at full width with one family's keys
+     changed: fam_r50 (ResNet-50 images), fam_pn2 (PointNet++ and the
+     point decoder), fam_vox (32^3 binvox inputs written from each
+     object's query points, the voxel encoder on the 64^3 grid), fam_att
+     (the attention decoder on 2048-point chunks) each through cli.train's
+     loop for FAMILY_ITERS steps (fam_vox validates iou_voxels),
+     FAMILY_TIMED warm steps, one 'highest' step against the CPU's
+     float32 step (TRAIN_RTOL, GRAD_COS), and cli.generate on one test
+     object with its encode, gates, decode, marching cubes and EMD split;
+     fam_pn2's CLIs raise F8 (d) (the JAX package's Trainer cannot
+     initialize the point decoder), so it trains through the Trainer and
+     meshes through the Generator instead: K1 launches once for
+     fam_r50 and nothing for fam_pn2 and fam_att (their decoders run no
+     kernel, as in the JAX package); fam_vox's cli.generate raises F8 (c)
+     (a voxel batch holds no object scan) and its eval_points on the 128^3
+     lattice launches K2 once; fam_r34 (ResNet-34) only its step against
+     the CPU. Counters are zeroed before each CLI call and eval_points;
+     these launches join the kernels' count as fam_*.
 Then one JSON line describing the kernels (K2's and K3's launches by
 mode, and their c_img mode's reading; K2 batched's row with the time of
 4 single-object launches beside it), and last the line
@@ -236,6 +255,7 @@ from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.generate.marching_cubes import _marching_cubes_numpy, marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
+from vtaco_tpu_torch.ops.geometry import make_3d_grid
 from vtaco_tpu_torch.ops.cuda import build
 from vtaco_tpu_torch.ops.cuda import decode as K
 from vtaco_tpu_torch.train import contact as C
@@ -260,6 +280,7 @@ from vtaco_tpu_torch.utils.syncs import host_syncs
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from bf16_checks import (CARD_BAR, CARD_OUTPUTS_LOGGED, bf16_batchnorm,  # noqa: E402
                          exact_zero, step_bars)
+from voxel_files import write_voxels  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-4
@@ -336,6 +357,13 @@ CROP_ITERS, CROP_EVAL_N, CROP_CPU_N = 4, 1 << 21, 1 << 18
 # planes phase: the triplane VTacO_YCB's plane resolution and the points of
 # its eval_points call (the gather route)
 PLANES_RESO, PLANES_EVAL_N = 64, 100_000
+# families phase: the model families in turn (family_config), cli.train's
+# steps per family (validated and checkpointed at the last), the warm
+# steps timed after them, the voxel grid's side and the attention
+# decoder's chunk (points_subsample and generation.batch_size; also its
+# input_size, which neither package reads)
+FAMILIES = ("r50", "r34", "pn2", "vox", "att")
+FAMILY_ITERS, FAMILY_TIMED, VOX_RES, FAMILY_ATT_CHUNK = 2, 3, 32, 2048
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # NVIDIA H100 data sheet, dense rates: float32 on the CUDA cores (an FMA is
@@ -3026,14 +3054,265 @@ def f7_phase(cfg, model, batch):
         raise AssertionError(f"f7: matmul_precision does not set the TF32 flags: {errs}")
 
 
+def family_config(name, root, data, t2d_ckpt):
+    """VTacO_YCB at full width, its graft from (a)'s checkpoint, with only
+    the family's keys changed (tests/families.py makes the same changes at
+    the tests' widths): r34/r50 the image encoder; pn2 PointNet++ and the
+    point decoder without images or t2d model (the plain loss path); vox
+    32³ voxel inputs, the voxel encoder on the 64³ grid with VTacO_YCB's
+    UNet3D, and no hand encoder, images or t2d model (the JAX package
+    fails on a voxel batch with any of them, F8 (c)); att the attention
+    decoder on chunks of 2048 points."""
+    cfg = pipeline_config("configs/VTacO/VTacO_YCB.yaml", root, data, f"fam_{name}")
+    cfg["model"]["encoder_t2d_kwargs"]["model_file"] = t2d_ckpt
+    cfg["generation"]["mc_level"] = "mean"
+    cfg["training"].update(validate_every=FAMILY_ITERS, checkpoint_every=FAMILY_ITERS)
+    m = cfg["model"]
+    if name in ("r34", "r50"):
+        m["encoder_img"] = {"r34": "Resnet34", "r50": "Resnet50"}[name]
+    elif name == "pn2":
+        m.update(encoder="pointnet_plus_plus", decoder="simple_local_point",
+                 with_img=False, encoder_t2d=False)
+    elif name == "vox":
+        cfg["data"].update(input_type="voxels", voxels_file="model.binvox")
+        m.update(encoder="voxel_simple_local", encoder_hand=False, with_img=False,
+                 encoder_t2d=False)
+        m["encoder_kwargs"] = {"plane_type": ["grid"], "grid_resolution": 64,
+                               "unet3d": True,
+                               "unet3d_kwargs": m["encoder_kwargs"]["unet3d_kwargs"]}
+    elif name == "att":
+        m["decoder"] = "attention_local"
+        m["decoder_kwargs"]["input_size"] = FAMILY_ATT_CHUNK
+        cfg["data"]["points_subsample"] = FAMILY_ATT_CHUNK
+        cfg["generation"]["batch_size"] = FAMILY_ATT_CHUNK
+    return cfg
+
+
+def family_against_cpu(name, cfg, trainer, batch):
+    """One 'highest' step of the family on the card against the CPU's
+    float32 step (step_against_cpu), to TRAIN_RTOL and GRAD_COS."""
+    rel, cos, ratio, cpu_s = step_against_cpu(cfg, trainer, batch, torch.float32)
+    log("families", family=name, vs_cpu="loss_rel_err", cpu_step_s=cpu_s, **rel)
+    log("families", family=name, vs_cpu="grad_cosine", **cos)
+    log("families", family=name, vs_cpu="grad_norm_ratio", **ratio)
+    if max(rel.values()) > TRAIN_RTOL or min(cos.values()) < GRAD_COS:
+        raise AssertionError(f"families: {name}'s card step differs from the CPU "
+                             f"step: {rel} {cos}")
+
+
+def family_train(name, cfg):
+    """cli.train's loop for FAMILY_ITERS steps (validated and checkpointed
+    at the last), the validation's metrics, then family_steps. Returns the
+    checkpoint's absolute path."""
+    t0 = time.perf_counter()
+    (trainer, it), _ = printed(loop.train, cfg, max_iters=FAMILY_ITERS, device="cuda",
+                               seed=0)
+    torch.cuda.synchronize()
+    out_dir = cfg["training"]["out_dir"]
+    ckpt = os.path.abspath(os.path.join(out_dir, "model.ckpt"))
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"families: {name}'s loop wrote no checkpoint")
+    family_validate(name, cfg, trainer, loop_iters=it, loop_s=time.perf_counter() - t0)
+    family_steps(name, cfg, trainer)
+    return ckpt
+
+
+def family_validate(name, cfg, trainer, **fields):
+    """The trainer's validation on the val split, logged with ``fields``."""
+    val = trainer.evaluate(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                       shuffle=False, num_workers=2))
+    log("families", family=name, **fields,
+        params=sum(p.numel() for p in trainer.model.parameters()),
+        **{f"val_{k}": v for k, v in val.items()})
+    if name == "vox" and not 0 <= val.get("iou_voxels", -1) <= 1:
+        raise AssertionError(f"families: vox validated no iou_voxels: {val}")
+
+
+def family_steps(name, cfg, trainer):
+    """FAMILY_TIMED warm steps and their peak memory, then the step against
+    the CPU."""
+    loader = BatchLoader(get_dataset("train", cfg), cfg["training"]["batch_size"],
+                         num_workers=4, seed=1)
+    batches = take(loader, FAMILY_TIMED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for b in batches[:FAMILY_TIMED]:
+        t0 = time.perf_counter()
+        trainer.train_step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    log("families", family=name, matmul_precision=trainer.matmul_precision,
+        step_s=float(np.median(times)), step_s_each=times,
+        train_peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    family_against_cpu(name, cfg, trainer, batches[-1])
+
+
+def family_pn2(root, cfg):
+    """fam_pn2 without its CLIs: the JAX package's train loop and generation
+    CLI fail on the point decoder (its Trainer initializes through
+    decode_img), and the port's raise there (F8 (d)), which is checked
+    first. Then the Trainer's FAMILY_ITERS steps and validation, the
+    family_steps, and one test object's mesh through the Generator (the
+    chunked module decode) as family_generate times and counts it."""
+    try:
+        printed(loop.train, cfg, max_iters=1, device="cuda", seed=0)
+    except NotImplementedError as e:
+        if "F8 (d)" not in str(e):
+            raise
+    else:
+        raise AssertionError("families: cli.train trained simple_local_point")
+    try:
+        cli_generate(root, cfg, "model.ckpt", "fam_pn2_cli", "--max-samples", "1")
+    except NotImplementedError as e:
+        if "F8 (d)" not in str(e):
+            raise
+    else:
+        raise AssertionError("families: cli.generate served simple_local_point")
+    log("families", family="pn2", cli_train="raises F8 (d)", cli_generate="raises F8 (d)")
+    torch.manual_seed(0)
+    model = get_model(cfg)
+    trainer = Trainer.from_config(model, cfg, mesh_bank=loop.build_mesh_bank(cfg, "cuda"))
+    loader = BatchLoader(get_dataset("train", cfg), cfg["training"]["batch_size"],
+                         num_workers=4, seed=0)
+    t0 = time.perf_counter()
+    for b in take(loader, FAMILY_ITERS):
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    family_validate("pn2", cfg, trainer, trainer_iters=FAMILY_ITERS,
+                    trainer_s=time.perf_counter() - t0)
+    family_steps("pn2", cfg, trainer)
+    return family_generate("pn2", root, cfg, serve=lambda: generator_mesh(cfg, model))
+
+
+def generator_mesh(cfg, model):
+    """One test object's object mesh through the Generator in eval mode:
+    ({"n", "emd_mean", "cd_mean"}, None, the seconds it took)."""
+    model.eval()
+    gen = get_generator(model, cfg)
+    batch = next(iter(BatchLoader(get_dataset("test", cfg, return_idx=True), 1,
+                                  shuffle=False, num_workers=1)))
+    t0 = time.perf_counter()
+    _, emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    return {"n": 1, "emd_mean": emd, "cd_mean": cd}, None, time.perf_counter() - t0
+
+
+def family_generate(name, root, cfg, ckpt=None, serve=None):
+    """cli.generate on one test object from the family's checkpoint (or
+    ``serve()``, which returns what cli_generate does, with no files), the
+    mesh's time and its encode, gates, decode, marching cubes and EMD
+    split, its peak memory,
+    and the launches (counters zeroed just before, read just after):
+    K1 once for fam_r50, nothing for the others. A voxel batch raises F8
+    (c) instead, as the JAX package fails there."""
+    from vtaco_tpu_torch.generate.generator import Generator3D
+    from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork
+
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    run = f"fam_{name}_generate"
+    with timed_methods(Generator3D, ("generate_obj_mesh_wnf", "_build_gates",
+                                     "eval_points_dense")) as t, \
+            timed_methods(ConvOccupancyNetwork, ("encode_inputs",)) as te, \
+            timed_methods(type(native.mc), ("marching_cubes",), sync=False) as mc, \
+            timed_methods(metrics, ("earth_mover_distance",), sync=False) as emd:
+        try:
+            line, files, seconds = serve() if serve else cli_generate(
+                root, cfg, ckpt, run, "--max-samples", "1")
+        except NotImplementedError as e:
+            if name != "vox" or "F8 (c)" not in str(e):
+                raise
+            log("families", family=name, cli_generate="raises F8 (c)")
+            return read_counters()
+    launches = read_counters()
+    log("families", family=name, cli_s=seconds, mesh_s=t["generate_obj_mesh_wnf"],
+        encode_s=te["encode_inputs"], gates_s=t["_build_gates"],
+        decode_s=t["eval_points_dense"], marching_cubes_s=mc["marching_cubes"],
+        emd_s=emd["earth_mover_distance"], mesh_peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, **line,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if name == "vox":
+        raise AssertionError("families: cli.generate meshed a voxel batch")
+    if line["n"] != 1 or not np.isfinite(line["cd_mean"]) or (files is not None and not any(
+            f.endswith("_obj.off") for f in files)):
+        raise AssertionError(f"families: {name}'s cli.generate gave {line} {files}")
+    if name == "r50":
+        launched_only("families", launches, {"fused_trunk_gated_cn": 1})
+    elif any(launches.values()):
+        raise AssertionError(f"families: {name} launched {launches}; its decoder "
+                             "runs no kernel")
+    return launches
+
+
+def family_lattice(cfg, ckpt):
+    """fam_vox's eval_points on the 128³ lattice of the box (the complete
+    cube: the dense route, K2 ungated) from its checkpoint, on one test
+    object. Returns the launches (counters zeroed just before)."""
+    model = get_model(cfg)
+    CheckpointIO(cfg["training"]["out_dir"], model=model).load(ckpt)
+    model.eval()
+    gen = get_generator(model, cfg)
+    batch = next(iter(BatchLoader(get_dataset("test", cfg, return_idx=True), 1,
+                                  shuffle=False, num_workers=1)))
+    with torch.no_grad():
+        c = model.encode_inputs(torch.as_tensor(np.asarray(batch["inputs"]),
+                                                device=next(model.parameters()).device))
+    pts = (1 + gen.padding) * make_3d_grid((-0.5,) * 3, (0.5,) * 3, (LATTICE_NX,) * 3)
+    zero_counters()
+    t0 = time.perf_counter()
+    vals = gen.eval_points(model, pts, c)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    log("families", family="vox", eval_points=len(pts), eval_points_s=time.perf_counter() - t0,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if vals.shape != (len(pts),) or not np.isfinite(vals).all():
+        raise AssertionError("families: vox's lattice eval_points gave bad logits")
+    launched_only("families", launches, {"fused_trunk_cn": 1})
+    return launches
+
+
+def families_phase(root, data, t2d_ckpt):
+    """(j) The other model families (ROADMAP item 11) at full width on the
+    pipeline's set: fam_r34's step against the CPU; for fam_r50, fam_vox
+    and fam_att cli.train, the step against the CPU and cli.generate on
+    one test object; fam_pn2 the same through the Trainer and the
+    Generator, its CLIs raising F8 (d) (family_pn2); fam_vox's lattice
+    eval_points. Returns the launches by path."""
+    t0 = time.perf_counter()
+    write_voxels(data[0], VOX_RES)
+    paths = {}
+    for name in FAMILIES:
+        cfg = family_config(name, root, data, t2d_ckpt)
+        if name == "r34":
+            torch.manual_seed(0)
+            model = get_model(cfg)
+            trainer = Trainer.from_config(model, cfg,
+                                          mesh_bank=loop.build_mesh_bank(cfg, "cuda"))
+            loader = BatchLoader(get_dataset("train", cfg),
+                                 cfg["training"]["batch_size"], num_workers=4, seed=1)
+            family_against_cpu(name, cfg, trainer, take(loader, 1)[0])
+            del model, trainer
+            continue
+        if name == "pn2":
+            paths["fam_pn2_generate"] = family_pn2(root, cfg)
+            continue
+        ckpt = family_train(name, cfg)
+        paths[f"fam_{name}_cli_generate"] = family_generate(name, root, cfg, ckpt)
+        if name == "vox":
+            paths["fam_vox_eval_points"] = family_lattice(cfg, ckpt)
+        torch.cuda.empty_cache()
+    log("families", seconds=time.perf_counter() - t0)
+    return paths
+
+
 def pipeline_phase():
     """The paper's three stages through the port's entry points at full
     width on one synthetic set: (a) pretrain the tactile depth stack,
     (b) train VTacO_YCB with its graft, (c) train VTacOH_YCB, (d, e)
     reconstruct through the generation CLI, (f) the loop's visualization,
-    (h) cli.generate --batched, (g) the *_fast configs. Returns the kernel
-    launches of the CLI's VTacO and VTacOH paths, of its batched path, and
-    of the fast phase's by path."""
+    (h) cli.generate --batched, (i) crop, (j) the other model families, (g) the
+    *_fast configs. Returns the kernel launches of the CLI's VTacO and
+    VTacOH paths, of its batched path, and of the families' and the fast
+    phase's by path."""
     root = os.path.join(REPO, "out", "chip_smoke_pipeline")
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3050,9 +3329,10 @@ def pipeline_phase():
     batched = batched_cli_stage(root, vt)
     visualize_stage(root, vt, tac, vh)
     crop_stage(root, data)
+    families = families_phase(root, data, tac[1])
     fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
-    return launches, batched, fast
+    return launches, batched, dict(fast, **families)
 
 
 def main():

@@ -42,6 +42,8 @@ from vtaco_tpu_torch.train import contact as C
 from vtaco_tpu_torch.train import loop
 from vtaco_tpu_torch.train.trainer import Trainer
 
+from voxel_files import write_voxels
+
 ATOL = 1e-4
 
 
@@ -743,3 +745,112 @@ def test_crop_eval_points_card_matches_cpu(cuda, tmp_path):
     assert {k: getattr(K, k).launches for k in before} == before
     assert np.isfinite(out["cuda"]).all()
     assert float(np.abs(out["cuda"] - out["cpu"]).max()) < ATOL
+
+
+# ---------------------------------------------------------------------------
+# the other model families (no kernel of their own): modules and steps on
+# the card against the CPU at 'highest'
+
+def _family_modules():
+    from vtaco_tpu_torch.models import decoder as D
+    from vtaco_tpu_torch.models import fusion, layers, pointnetpp, voxels
+
+    g = torch.Generator().manual_seed(5)
+    imgs = torch.rand(4, 3, 48, 64, generator=g)
+    cloud = torch.rand(2, 600, 3, generator=g) - 0.5
+    fea = torch.randn(2, 600, 8, generator=g)
+    q = torch.rand(2, 300, 3, generator=g) * 1.1 - 0.55
+    vox = (torch.rand(2, 32, 32, 32, generator=g) > 0.7).float()
+    grid = {"grid": torch.randn(2, 8, 8, 8, 8, generator=g)}
+    c_img = torch.randn(2, 300, 8, generator=g)
+    u3 = dict(num_levels=2, f_maps=8, in_channels=8, out_channels=8)
+    return {
+        "Resnet50": (layers.Resnet50(16), (imgs,)),
+        "Resnet34": (layers.Resnet34(16), (imgs,)),
+        "PointNetPlusPlus": (pointnetpp.PointNetPlusPlus(c_dim=8), (cloud,)),
+        "LocalPointDecoder": (D.LocalPointDecoder(c_dim=8, hidden_size=16), (q, (cloud, fea))),
+        "LocalVoxelEncoder": (voxels.LocalVoxelEncoder(
+            c_dim=8, plane_type=["grid"], grid_resolution=16, unet3d=True,
+            unet3d_kwargs=u3), (vox,)),
+        "VoxelEncoder": (voxels.VoxelEncoder(c_dim=8), (vox,)),
+        "TransformerFusion": (fusion.TransformerFusion(d_model=8, num_layers=2,
+                                                       key_feature_dim=4),
+                              (c_img, q, torch.randn(2, 300, 8, generator=g), q)),
+        "AttentionDecoder": (D.AttentionDecoder(c_dim=8, hidden_size=16),
+                             (q, grid, c_img)),
+    }
+
+
+def _to(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return type(x)(_to(v, dev) for v in x)
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in _leaves(x[k])]
+    return [t for v in x for t in _leaves(v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Resnet50", "Resnet34", "PointNetPlusPlus",
+                                  "LocalPointDecoder", "LocalVoxelEncoder",
+                                  "VoxelEncoder", "TransformerFusion", "AttentionDecoder"])
+def test_family_module_card_matches_cpu(cuda, name):
+    """Each module of the families on random weights (seeded), in eval mode
+    (the BatchNorms on random running statistics), on the card against
+    the CPU: every output within 1e-4 of its largest entry. No kernel
+    launches."""
+    torch.manual_seed(0)
+    module, args = _family_modules()[name]
+    for m in module.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.running_mean.uniform_(-0.1, 0.1)
+            m.running_var.uniform_(0.5, 1.5)
+    module.eval()
+    call = module.forward_img if name == "AttentionDecoder" else module
+    before = {k: getattr(K, k).launches for k in ("fused_trunk_cn", "fused_trunk_gated_cn",
+                                                  "fused_trunk_window_cn")}
+    with torch.no_grad():
+        want = _leaves(call(*args))
+        card = copy.deepcopy(module).to(cuda)
+        call = card.forward_img if name == "AttentionDecoder" else card
+        got = _leaves(call(*_to(args, cuda)))
+    assert {k: getattr(K, k).launches for k in before} == before
+    assert len(got) == len(want)
+    for g_, w_ in zip(got, want):
+        err = float((g_.cpu() - w_).abs().max() / w_.abs().max().clamp(min=1e-30))
+        assert err < 1e-4, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["pn2", "vox"])
+def test_family_step_card_matches_cpu(cuda, train_cfg, family):
+    """One plain-path step of fam_pn2 (PointNet++ and the point decoder)
+    and fam_vox (32³ voxel inputs, the voxel encoder) at train_cfg's
+    widths, from the same weights and batch: loss scalars within 1e-4
+    relative, each module's gradient cosine >= 0.999 with norms within
+    2 %."""
+    cfg = copy.deepcopy(train_cfg)
+    m = cfg["model"]
+    m.update(with_img=False, encoder_t2d=False)
+    if family == "pn2":
+        m.update(encoder="pointnet_plus_plus", decoder="simple_local_point")
+    else:
+        write_voxels(cfg["data"]["path"])
+        cfg["data"].update(input_type="voxels", voxels_file="model.binvox")
+        m.update(encoder="voxel_simple_local", encoder_hand=False)
+        m["encoder_kwargs"] = {"plane_type": ["grid"], "grid_resolution": 16,
+                               "unet3d": True,
+                               "unet3d_kwargs": m["encoder_kwargs"]["unet3d_kwargs"]}
+    want, got, grads = _step_card_vs_cpu(cuda, cfg, 3)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-4), k
+    assert "encoder" in grads and "decoder" in grads
+    for mod, (cos, ratio) in grads.items():
+        assert cos >= 0.999 and 0.98 < ratio < 1.02, (mod, cos, ratio)

@@ -31,6 +31,7 @@ from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, load_config
 from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.generate.inferencer import Inferencer
+from vtaco_tpu_torch.train.trainer import check_trainer_init
 from vtaco_tpu_torch.utils.host import enable_heap_reuse
 
 DEFAULT_CFG = os.path.join(
@@ -66,6 +67,7 @@ def main(argv=None):
     dataset = get_dataset(args.split, cfg, return_idx=True)
     torch.manual_seed(0)
     model = get_model(cfg, device="cpu" if args.cpu else "cuda", dataset=dataset)
+    check_trainer_init(model)
     loader = BatchLoader(dataset, 1, shuffle=False,
                          num_workers=cfg["training"]["n_workers_val"])
 

@@ -1,15 +1,20 @@
-"""Model and generator factory (port of vtaco_tpu/core/factory.py:44-183).
+"""Model and generator factory (port of vtaco_tpu/core/factory.py:44-183
+and the registries of vtaco_tpu/core/registry.py:37-55).
 
-Builds every submodule of the shipped configs: the object ``encoder``
-(pointnet_local_pool, grid field; pointnet_crop_local_pool, the crop
-form), the hand ``encoder_hand``
-(pointnet_local_pool on planes, with its MANO head) and ``mano_layer``,
-the tactile ``encoder_img`` (Resnet18, or the depth U-Net of the tactile
-configs), the nested tactile-to-depth model ``encoder_t2d`` (a hand
-encoder and the depth U-Net) and the ``decoder`` (simple_local, with
-the contact head under ``model.with_contact``; simple_local_crop). An
-``encoder`` or ``decoder`` set to false (or null) is not built, as in
-the tactile depth-stack configs.
+Builds every key of the JAX package's registries: the object ``encoder``
+(pointnet_local_pool; pointnet_crop_local_pool, the crop form;
+pointnet_plus_plus; voxel_simple_local; or ``idx``, a latent per dataset
+sample), the hand ``encoder_hand`` (pointnet_local_pool on planes, with
+its MANO head) and ``mano_layer``, the tactile ``encoder_img``
+(Resnet18/34/50, or the depth U-Net of the tactile configs), the nested
+tactile-to-depth model ``encoder_t2d`` (a hand encoder and the depth
+U-Net) and the ``decoder`` (simple_local, with the contact head under
+``model.with_contact``; simple_local_crop; attention_local;
+simple_local_point). An ``encoder`` or ``decoder`` set to false (or
+null) is not built, as in the tactile depth-stack configs. As the JAX
+package's ``_filter_kwargs`` does, each constructor takes the config
+keys it declares and drops the others (the reference configs'
+``start_flits`` becomes ``start_filts``, ``in_channel`` is dropped).
 
 As in the JAX package, ``data.unit_size`` and ``model.local_coord`` /
 ``model.pos_encoding`` overwrite the entries of the encoder, hand
@@ -24,18 +29,35 @@ leaves ``cfg`` as it is.
 from __future__ import annotations
 
 import copy
+import inspect
 
 from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork
-from vtaco_tpu_torch.models.decoder import LocalDecoder, PatchLocalDecoder
-from vtaco_tpu_torch.models.layers import Resnet18, TactileUNet
+from vtaco_tpu_torch.models.decoder import (
+    AttentionDecoder,
+    LocalDecoder,
+    LocalPointDecoder,
+    PatchLocalDecoder,
+)
+from vtaco_tpu_torch.models.layers import Resnet18, Resnet34, Resnet50, TactileUNet
 from vtaco_tpu_torch.models.mano import ManoLayer
-from vtaco_tpu_torch.models.pointnet import LocalPoolPointnet, PatchLocalPoolPointnet
+from vtaco_tpu_torch.models.pointnet import (
+    IndexEncoder,
+    LocalPoolPointnet,
+    PatchLocalPoolPointnet,
+)
+from vtaco_tpu_torch.models.pointnetpp import PointNetPlusPlus
+from vtaco_tpu_torch.models.voxels import LocalVoxelEncoder
 from vtaco_tpu_torch.ops.geometry import crop_levels, update_reso
 
 encoder_dict = {"pointnet_local_pool": LocalPoolPointnet,
                 "pointnet_crop_local_pool": PatchLocalPoolPointnet,
-                "Resnet18": Resnet18, "UNet": TactileUNet}
-decoder_dict = {"simple_local": LocalDecoder, "simple_local_crop": PatchLocalDecoder}
+                "pointnet_plus_plus": PointNetPlusPlus,
+                "voxel_simple_local": LocalVoxelEncoder,
+                "Resnet18": Resnet18, "Resnet34": Resnet34, "Resnet50": Resnet50,
+                "UNet": TactileUNet}
+decoder_dict = {"simple_local": LocalDecoder, "attention_local": AttentionDecoder,
+                "simple_local_crop": PatchLocalDecoder,
+                "simple_local_point": LocalPointDecoder}
 
 
 def _lookup(table, name, what):
@@ -45,15 +67,18 @@ def _lookup(table, name, what):
     return table[name]
 
 
-def _build_encoder(name, kw, what):
-    cls = _lookup(encoder_dict, name, what)
+def _build(cls, kw):
+    """cls on the config keys its constructor declares."""
     kw = dict(kw)
     if "start_flits" in kw:   # the reference configs' typo
         kw.setdefault("start_filts", kw.pop("start_flits"))
     kw.pop("in_channel", None)
-    if cls is Resnet18:
-        kw = {"num_classes": kw.get("num_classes", 32)}
-    return cls(**kw)
+    declared = inspect.signature(cls).parameters
+    return cls(**{k: v for k, v in kw.items() if k in declared})
+
+
+def _build_encoder(name, kw, what):
+    return _build(_lookup(encoder_dict, name, what), kw)
 
 
 def _hand_encoder(name, kw, dim, padding, c_dim=None):
@@ -82,7 +107,8 @@ def get_model(cfg, device="cuda", return_aux=False, dataset=None):
     ``return_aux`` it returns (model, aux), aux carrying
     ``t2d_pretrained_file``: the checkpoint the trainer grafts the
     pretrained tactile-to-depth weights from, or None. ``dataset``
-    (data.core.Shapes3dDataset) sets a crop model's resolution."""
+    (data.core.Shapes3dDataset) sets a crop model's resolution and the
+    number of ``idx`` latents (one without it)."""
     mcfg = copy.deepcopy(cfg["model"])
     prop = {k: mcfg[k] for k in ("local_coord", "pos_encoding") if k in mcfg}
     if "unit_size" in cfg["data"]:
@@ -105,9 +131,11 @@ def get_model(cfg, device="cuda", return_aux=False, dataset=None):
         kw = dict(mcfg.get("decoder_kwargs") or {})
         kw.update(dim=dim, c_dim=c_dim, padding=padding,
                   with_contact=bool(mcfg.get("with_contact")))
-        decoder = _lookup(decoder_dict, mcfg["decoder"], "decoder")(**kw)
+        decoder = _build(_lookup(decoder_dict, mcfg["decoder"], "decoder"), kw)
 
-    if mcfg.get("encoder") not in (False, None):
+    if mcfg.get("encoder") == "idx":
+        encoder = IndexEncoder(len(dataset) if dataset is not None else 1, c_dim)
+    elif mcfg.get("encoder") not in (False, None):
         kw = dict(mcfg.get("encoder_kwargs") or {})
         kw.update(dim=dim, c_dim=c_dim, padding=padding)
         encoder = _build_encoder(mcfg["encoder"], kw, "encoder")

@@ -8,6 +8,16 @@ copy of the translation in vtaco_tpu/core/torch_import.py
 :239, ``export_state_dict`` :259-289), since the port imports nothing of
 the JAX package.
 
+The translation covers every family's tree: ResNet blocks
+(``layer{s}_{b}`` with ``conv3``/``bn3`` and ``down_conv``/``down_bn``),
+PointNet++'s ``sa*``/``fp*`` ``mlp{i}`` and ``bn{i}``, the voxel
+encoders' ``conv_in``, ``conv_{i}`` and ``fc``, the fusion's shared heads
+(``encoder.layers.0.self_attn``, ``decoder.layers.0.cross_attn``) and
+positional embeddings, and the index encoder's ``embedding`` (the bare
+``encoder.weight``). Where the export's names differ from the
+reference's torch names (PointNet++'s ``mlp_convs``/``mlp_bns``), the
+port's modules follow the export.
+
 Layouts: Dense kernels (in, out) transpose to (out, in); conv kernels
 (*k, I, O) become (O, I, *k) (transpose convs (*k, I, O) become a
 spatially flipped (I, O, *k)); BatchNorm ``scale``/``bias`` and

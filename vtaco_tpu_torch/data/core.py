@@ -15,7 +15,9 @@ resolution times ``unit_size`` around a centre drawn uniformly within the
 cloud's extent from numpy's global random state, in the other splits the
 whole scene's volume (``decide_total_volume_range``); the crop fields
 receive that volume in place of the category index, and the sample
-carries ``pointcloud_crop`` True.
+carries ``pointcloud_crop`` True. With ``data.input_type: voxels`` the
+inputs are each model's binvox grid (``data.voxels_file``); that file in a
+val/test split also adds the ``voxels`` field for the voxel IoU.
 """
 
 from __future__ import annotations
@@ -250,10 +252,8 @@ class BatchLoader:
 def get_data_fields(mode, cfg):
     """The query-point fields of a split: points (subsampled to
     data.points_subsample; the crop points field for pointcloud_crop)
-    and, for val/test, points_iou."""
-    if cfg["data"].get("voxels_file") is not None:
-        raise NotImplementedError("data.voxels_file (VoxelsField) is not ported "
-                                  "yet (ROADMAP.md)")
+    and, for val/test, points_iou and (with data.voxels_file) the voxel
+    grid ``voxels``."""
     flds = {}
     if cfg["data"].get("points_file") is not None:
         field_cls = (F.PatchPointsField if cfg["data"]["input_type"] == "pointcloud_crop"
@@ -262,10 +262,14 @@ def get_data_fields(mode, cfg):
             cfg["data"]["points_file"], SubsamplePoints(cfg["data"]["points_subsample"]),
             unpackbits=cfg["data"]["points_unpackbits"],
             multi_files=cfg["data"].get("multi_files"))
-    if mode in ("val", "test", "vis") and cfg["data"].get("points_iou_file") is not None:
-        flds["points_iou"] = F.PointsField(
-            cfg["data"]["points_iou_file"], unpackbits=cfg["data"]["points_unpackbits"],
-            multi_files=cfg["data"].get("multi_files"))
+    if mode in ("val", "test", "vis"):
+        if cfg["data"].get("points_iou_file") is not None:
+            flds["points_iou"] = F.PointsField(
+                cfg["data"]["points_iou_file"],
+                unpackbits=cfg["data"]["points_unpackbits"],
+                multi_files=cfg["data"].get("multi_files"))
+        if cfg["data"].get("voxels_file") is not None:
+            flds["voxels"] = F.VoxelsField(cfg["data"]["voxels_file"])
     return flds
 
 
@@ -286,11 +290,12 @@ def get_dataset(mode, cfg, return_idx=False):
             Compose([SubsamplePointcloud(cfg["data"]["pointcloud_n"]),
                      PointcloudNoise(cfg["data"]["pointcloud_noise"])]),
             multi_files=cfg["data"].get("multi_files"))
+    elif input_type == "voxels":
+        flds["inputs"] = F.VoxelsField(cfg["data"]["voxels_file"])
     elif input_type == "idx":
         flds["inputs"] = F.IndexField()
     elif input_type is not None:
-        raise NotImplementedError(f"data.input_type {input_type!r} is not ported "
-                                  "yet (ROADMAP.md, item 5)")
+        raise ValueError(f"Invalid input type ({input_type})")
     if return_idx:
         flds["idx"] = F.IndexField()
     return Shapes3dDataset(cfg["data"]["path"], flds, split=split,

@@ -23,6 +23,8 @@ import os
 import numpy as np
 import torch
 
+from vtaco_tpu_torch.data.fields import VoxelsField
+
 # the stacked fields, in the JAX package's order
 FIELDS = ("points", "occ", "contact", "pc_hand", "mano", "wrist", "cam_pos", "cam_rot",
           "pc_points", "pc_normals", "pc_ply", "img", "depth", "touch_success")
@@ -40,6 +42,12 @@ class DeviceDataset:
                  pointcloud_noise=0.005, device="cuda"):
         """dataset: a data.core.Shapes3dDataset of the object-scale configs
         (each model directory holds points.npz and pointcloud.npz)."""
+        if isinstance(dataset.fields.get("inputs"), VoxelsField):
+            raise NotImplementedError(
+                "device-resident data for data.input_type voxels: the JAX "
+                "package's DeviceDataset stacks the point cloud as the inputs "
+                "(vtaco_tpu/data/device_data.py:126), which its voxel encoder "
+                "refuses at vtaco_tpu/models/voxels.py:46 (F8 (c), ROADMAP.md §3)")
         self.legacy_image_scale = legacy_image_scale
         self.noise_std = noise_std
         self.pointcloud_noise = pointcloud_noise

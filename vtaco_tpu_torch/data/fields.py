@@ -1,7 +1,7 @@
 """npz data fields with the reference's on-disk contract (port of
 vtaco_tpu/data/fields.py:25-270: Field, IndexField, PointsField,
-PointCloudField, PartialPointCloudField, and the crop fields
-PatchPointsField and PatchPointCloudField).
+PointCloudField, PartialPointCloudField, the crop fields
+PatchPointsField and PatchPointCloudField, and VoxelsField :280-296).
 
 Each field's ``load(model_path, idx, category)`` returns a dict whose
 ``None`` key is the field's main array; the dataset flattens the other
@@ -216,3 +216,21 @@ class PatchPointCloudField(Field):
             index[key][:, mask] = vol["reso"] ** (3 if key == "grid" else 2)
         data["ind"] = index
         return data
+
+
+class VoxelsField(Field):
+    """A .binvox occupancy grid (data/binvox_rw.py, axes fixed to x, y, z)
+    as float32 (D, H, W)."""
+
+    def __init__(self, file_name, transform=None):
+        self.file_name = file_name
+        self.transform = transform
+
+    def load(self, model_path, idx, category):
+        from vtaco_tpu_torch.data import binvox_rw
+
+        with open(os.path.join(model_path, self.file_name), "rb") as f:
+            voxels = binvox_rw.read_as_3d_array(f).data.astype(np.float32)
+        if self.transform is not None:
+            voxels = self.transform(voxels)
+        return voxels

@@ -982,13 +982,20 @@ class Generator3D:
         on the device that holds ``model``'s parameters.
         Returns ((verts, faces), emd, chamfer). A crop batch
         (``pointcloud_crop``) raises: it holds no object scan, which the JAX
-        package reads there and fails (F6 (b), ROADMAP.md §3)."""
+        package reads there and fails (F6 (b), ROADMAP.md §3), and so does a
+        voxel batch (``input_type: voxels``, F8 (c))."""
         if "inputs.pc_ply" not in data and (
                 self.input_type == "pointcloud_crop" or "pointcloud_crop" in data):
             raise NotImplementedError(
                 "generate_obj_mesh_wnf on a crop batch (pointcloud_crop): it holds "
                 "no object scan (inputs.pc_ply), which the JAX package reads and "
                 "fails (F6 (b), ROADMAP.md §3)")
+        if "inputs.pc_ply" not in data and self.input_type == "voxels":
+            raise NotImplementedError(
+                "generate_obj_mesh_wnf on a voxel batch (input_type voxels): it "
+                "holds no object scan (inputs.pc_ply), which the JAX package reads "
+                "at vtaco_tpu/generate/generator.py:2230 and fails (F8 (c), "
+                "ROADMAP.md §3)")
         dev = next(model.parameters()).device
         box_size = 1 + self.padding
         nx = self.resolution0 * 4

@@ -1,10 +1,12 @@
 """Building blocks (port of vtaco_tpu/models/layers.py:30-285): the
-fully-connected ResNet block, the from-scratch ResNet-18 tactile image
-encoder and the tactile depth U-Net. Parameter names are the reference's
+fully-connected ResNet block, the from-scratch ResNet-18/34/50/101/152
+tactile image encoders (basic and bottleneck blocks) and the tactile
+depth U-Net. Parameter names are the reference's
 torch names, so a JAX tree carried over by core/weights.py loads with
 ``strict=True``.
 
-BatchNorm is ``BatchNorm2d`` below: in train mode it computes the batch
+BatchNorm is ``BatchNorm2d`` below (``BatchNorm1d`` on (N, C) rows, and
+``batch_norm_last`` on channel-last features): in train mode it computes the batch
 statistics, normalizes with them and moves its running statistics as
 flax's BatchNorm does: the biased variance in flax's one-pass form
 max(E[x²] - E[x]², 0) (torch.nn.BatchNorm2d normalizes with the two-pass
@@ -48,26 +50,48 @@ def frozen_batch_stats():
         _FROZEN_STATS[0] -= 1
 
 
+def _flax_batch_norm(bn, x, train):
+    """BatchNorm over every axis of x but axis 1, as flax's: in ``train``
+    the batch statistics (biased one-pass variance) normalize x and move
+    the running statistics (unless frozen), else the running ones do."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    if not train:
+        return F.batch_norm(x.to(dt), bn.running_mean, bn.running_var,
+                            bn.weight.to(dt), bn.bias.to(dt), False, 0.0,
+                            bn.eps).to(x.dtype)
+    dims = (0,) + tuple(range(2, x.dim()))
+    view = (-1,) + (1,) * (x.dim() - 2)
+    xf = x.to(dt)
+    mean = xf.mean(dim=dims)
+    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    if not _FROZEN_STATS[0]:
+        with torch.no_grad():
+            bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)
+            bn.running_var.lerp_(var.to(bn.running_var.dtype), bn.momentum)
+            bn.num_batches_tracked += 1
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.to(dt)
+    y = (xf - mean.view(view)) * mul.view(view) + bn.bias.to(dt).view(view)
+    return y.to(x.dtype)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
-        dt = torch.promote_types(x.dtype, torch.float32)
-        if not self.training:
-            if x.dtype == dt:
-                return super().forward(x)
-            return F.batch_norm(x.to(dt), self.running_mean, self.running_var,
-                                self.weight.to(dt), self.bias.to(dt), False, 0.0,
-                                self.eps).to(x.dtype)
-        xf = x.to(dt)
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        if not _FROZEN_STATS[0]:
-            with torch.no_grad():
-                self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
-                self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
-                self.num_batches_tracked += 1
-        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias.to(dt)[:, None, None]
-        return y.to(x.dtype)
+        return _flax_batch_norm(self, x, self.training)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """On (N, C) or (N, C, L). ``train`` (default: the module's mode)
+    chooses the batch statistics, for callers that, like flax's, pass the
+    mode per call."""
+
+    def forward(self, x, train=None):
+        return _flax_batch_norm(self, x, self.training if train is None else train)
+
+
+def batch_norm_last(bn, x):
+    """A BatchNorm1d over the last axis of channel-last x (B, ..., C), as
+    flax's BatchNorm normalizes: statistics over every other axis."""
+    return bn(x.reshape(-1, x.shape[-1])).reshape(x.shape)
 
 
 class ResnetBlockFC(nn.Module):
@@ -114,12 +138,42 @@ class BasicBlock(nn.Module):
         return F.relu(out + identity)
 
 
-class ResNet(nn.Module):
-    """7x7/2 stem, 3x3/2 max-pool, four stages, global average pool, then
-    ``Linear(512, 100) -> Linear(100, num_classes)`` with no activation
-    between. Takes NCHW images."""
+class Bottleneck(nn.Module):
+    """ResNet bottleneck: 1x1, 3x3 (the stride) and 1x1 convs with 4x
+    expansion, BatchNorm after each."""
 
-    def __init__(self, blocks_num, num_classes=2):
+    expansion = 4
+
+    def __init__(self, in_ch, channels, stride=1, downsample=False):
+        super().__init__()
+        out_ch = channels * self.expansion
+        self.conv1 = nn.Conv2d(in_ch, channels, 1, bias=False)
+        self.bn1 = BatchNorm2d(channels)
+        self.conv2 = nn.Conv2d(channels, channels, 3, stride, 1, bias=False)
+        self.bn2 = BatchNorm2d(channels)
+        self.conv3 = nn.Conv2d(channels, out_ch, 1, bias=False)
+        self.bn3 = BatchNorm2d(out_ch)
+        self.downsample = None
+        if downsample:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), BatchNorm2d(out_ch))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return F.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    """7x7/2 stem, 3x3/2 max-pool, four stages of ``block`` (BasicBlock
+    or Bottleneck), global average pool, then ``Linear(512 * expansion,
+    100) -> Linear(100, num_classes)`` with no activation between. A
+    stage's first block downsamples where its stride is 2 or its input
+    width differs from its output's. Takes NCHW images."""
+
+    def __init__(self, block, blocks_num, num_classes=2):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = BatchNorm2d(64)
@@ -127,12 +181,13 @@ class ResNet(nn.Module):
         for stage, (ch, n_blocks) in enumerate(zip((64, 128, 256, 512),
                                                    blocks_num)):
             stride = 1 if stage == 0 else 2
-            blocks = [BasicBlock(in_ch, ch, stride,
-                                 downsample=stride != 1 or in_ch != ch)]
-            blocks += [BasicBlock(ch, ch) for _ in range(1, n_blocks)]
+            out_ch = ch * block.expansion
+            blocks = [block(in_ch, ch, stride,
+                            downsample=stride != 1 or in_ch != out_ch)]
+            blocks += [block(out_ch, ch) for _ in range(1, n_blocks)]
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
-            in_ch = ch
-        self.linear = nn.Linear(512, 100)
+            in_ch = out_ch
+        self.linear = nn.Linear(512 * block.expansion, 100)
         self.fc = nn.Linear(100, num_classes)
 
     def forward(self, x):
@@ -144,7 +199,23 @@ class ResNet(nn.Module):
 
 
 def Resnet18(num_classes=32):
-    return ResNet((2, 2, 2, 2), num_classes=num_classes)
+    return ResNet(BasicBlock, (2, 2, 2, 2), num_classes=num_classes)
+
+
+def Resnet34(num_classes=32):
+    return ResNet(BasicBlock, (3, 4, 6, 3), num_classes=num_classes)
+
+
+def Resnet50(num_classes=32):
+    return ResNet(Bottleneck, (3, 4, 6, 3), num_classes=num_classes)
+
+
+def Resnet101(num_classes=32):
+    return ResNet(Bottleneck, (3, 4, 23, 3), num_classes=num_classes)
+
+
+def Resnet152(num_classes=32):
+    return ResNet(Bottleneck, (3, 8, 36, 3), num_classes=num_classes)
 
 
 class TactileDownConv(nn.Module):

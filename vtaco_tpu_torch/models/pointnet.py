@@ -1,7 +1,9 @@
 """PointNet encoders with local pooling (port of
-vtaco_tpu/models/pointnet.py:61-284): ``LocalPoolPointnet`` (registry key
-``pointnet_local_pool``) and its crop form ``PatchLocalPoolPointnet``
-(``pointnet_crop_local_pool``).
+vtaco_tpu/models/pointnet.py:38-284): ``LocalPoolPointnet`` (registry key
+``pointnet_local_pool``), its crop form ``PatchLocalPoolPointnet``
+(``pointnet_crop_local_pool``), and ``IndexEncoder`` (``encoder: idx``: a
+learned latent per dataset sample, whose one weight loads as the
+reference's bare nn.Embedding, ``encoder.weight``).
 
 Per-point ResNet-FC stack with local max-pool feature exchange over every
 feature field, then a scatter-mean of the point features into each field:
@@ -38,6 +40,16 @@ from vtaco_tpu_torch.ops.geometry import (
 from vtaco_tpu_torch.ops.local_coords import map2local
 
 PLANE_ORDER = ("grid", "xz", "xy", "yz")
+
+
+class IndexEncoder(nn.Embedding):
+    """(B,) sample indices → (B, c_dim) latents."""
+
+    def __init__(self, num_embeddings, c_dim=128):
+        super().__init__(num_embeddings, c_dim)
+
+    def forward(self, idx):
+        return super().forward(torch.as_tensor(idx, device=self.weight.device).long())
 
 
 class LocalPoolPointnet(nn.Module):
@@ -130,6 +142,13 @@ class LocalPoolPointnet(nn.Module):
         return {key: self._field(key, c, index[key]) for key in self.planes}
 
     def forward(self, p):
+        if p.dim() != 3:
+            raise NotImplementedError(
+                f"a point encoder on a {p.dim()}-d input (data.input_type: voxels "
+                "with a hand encoder or a tactile-to-depth model): the JAX "
+                "package's LocalPoolPointnet fails there, at "
+                "vtaco_tpu/ops/scatter.py:54 from vtaco_tpu/models/pointnet.py:169 "
+                "(F8 (c), ROADMAP.md §3)")
         fea = self._fields(p, self._point_indices(p))
         if self.fc_mano is None:
             return fea

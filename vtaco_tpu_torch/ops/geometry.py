@@ -73,6 +73,16 @@ def coordinate2index(x, reso: int, coord_type: str = "3d"):
     raise ValueError(coord_type)
 
 
+def make_3d_grid(bb_min, bb_max, shape):
+    """Dense host query grid (N, 3) float32 over the box, the last
+    coordinate fastest (numpy, as the JAX package's)."""
+    pxs = np.linspace(bb_min[0], bb_max[0], shape[0], dtype=np.float32)
+    pys = np.linspace(bb_min[1], bb_max[1], shape[1], dtype=np.float32)
+    pzs = np.linspace(bb_min[2], bb_max[2], shape[2], dtype=np.float32)
+    gx, gy, gz = np.meshgrid(pxs, pys, pzs, indexing="ij")
+    return np.stack([gx.ravel(), gy.ravel(), gz.ravel()], axis=1)
+
+
 def _stack3x3(rows):
     return torch.stack([torch.stack(r) for r in rows])
 

@@ -50,7 +50,7 @@ from vtaco_tpu_torch.core.factory import get_model
 from vtaco_tpu_torch.data.core import BatchLoader, get_dataset
 from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.ops.winding import MeshBank
-from vtaco_tpu_torch.train.trainer import Trainer
+from vtaco_tpu_torch.train.trainer import Trainer, check_trainer_init
 from vtaco_tpu_torch.utils import meshio
 from vtaco_tpu_torch.utils.profiling import (ProfiledRegion, StepTimer, check_finite,
                                              debug_nans)
@@ -198,6 +198,7 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
 
     torch.manual_seed(seed)
     model, aux = get_model(cfg, device=device, return_aux=True, dataset=train_dataset)
+    check_trainer_init(model)
     bank = build_mesh_bank(cfg, device)
     trainer = Trainer.from_config(model, cfg, mesh_bank=bank, seed=seed)
     if aux["t2d_pretrained_file"]:

@@ -88,8 +88,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vtaco_tpu_torch.core.precision import TF32, matmul_precision
+from vtaco_tpu_torch.models.decoder import LocalPointDecoder
 from vtaco_tpu_torch.models.layers import frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
+from vtaco_tpu_torch.ops.geometry import make_3d_grid
 from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
 from vtaco_tpu_torch.train import contact as C
 
@@ -104,6 +106,23 @@ METHOD_MODULE = {"encode_inputs": "encoder", "encode_hand_inputs": "encoder_hand
                  "encode_img_inputs": "encoder_img", "encode_t2d": "encoder_t2d",
                  "decode": "decoder", "decode_img": "decoder",
                  "decode_contact": "decoder"}
+
+
+def check_trainer_init(model):
+    """Raise where the JAX package's Trainer cannot initialize ``model``,
+    which its train and generate CLIs do first: the initialization traces
+    ``decode_img`` for every decoder (vtaco_tpu/train/trainer.py:261), and
+    the point decoder of ``simple_local_point`` has no tactile head (F8
+    (d), ROADMAP.md §3). The Trainer's steps and the Generator stay open
+    to such a model, as the JAX package's do on weights from ``init``."""
+    if isinstance(model.decoder, LocalPointDecoder):
+        raise NotImplementedError(
+            "training or serving simple_local_point from the CLIs: the JAX "
+            "package's Trainer initializes through decode_img, which the point "
+            "decoder lacks, and fails at vtaco_tpu/train/trainer.py:261 (F8 (d), "
+            "ROADMAP.md §3)")
+
+
 # the eval sample's base seed (the JAX package folds PRNGKey(12345))
 EVAL_SEED = 12345
 # batch keys of a device-resident sample (data.device_data) → the step's keys
@@ -278,6 +297,8 @@ class Trainer:
             a["touch_success"] = put("inputs.touch_success") > 0.5
         if "points_iou" in batch:
             a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
+        if "voxels" in batch:
+            a["voxels"] = put("voxels")
         ind = {k.split(".")[-1]: put(k, torch.int64)[:, 0]
                for k in batch if k.startswith("inputs.ind.")}
         if ind:
@@ -568,7 +589,8 @@ class Trainer:
                 _, scalars, enc = self._compute_loss(a, draws, generator)
                 sample, occ = self._labelled_sample(a, enc["depth_for_contact"],
                                                     iou_draws, generator)
-                logits = self._decode_sample(sample, enc["c"], enc["c_img"])
+                c = enc["c"]
+                logits = self._decode_sample(sample, c, enc["c_img"])
             elif not self.with_img:
                 if "inputs_index" in a:
                     raise NotImplementedError(
@@ -577,19 +599,35 @@ class Trainer:
                         "fails (F6 (a), ROADMAP.md §3)")
                 _, scalars = self._compute_loss_plain(a)
                 occ = a["occ_iou"]
-                logits = self._call("decode", a["points_iou"],
-                                    self._call("encode_inputs", a["inputs"]))
+                c = self._call("encode_inputs", a["inputs"])
+                logits = self._call("decode", a["points_iou"], c)
             else:
                 _, scalars, enc = self._compute_loss_img(a, draws, generator)
-                occ = a["occ_iou"]
+                occ, c = a["occ_iou"], enc["c"]
                 logits = self._call(
-                    "decode_img", a["points_iou"], enc["c"], C.assign_features_by_proximity(
+                    "decode_img", a["points_iou"], c, C.assign_features_by_proximity(
                         a["points_iou"], enc["tips"], a["touch_success"], enc["c_img"]))
-        out = dict(scalars)
-        out["iou"] = metrics.compute_iou(occ, logits, self.threshold)[0]
-        out["iou_fixed"] = metrics.compute_iou(
-            occ, (logits >= self.threshold).float(), 0.5, legacy_mean_threshold=False)[0]
+            out = dict(scalars)
+            out["iou"] = metrics.compute_iou(occ, logits, self.threshold)[0]
+            out["iou_fixed"] = metrics.compute_iou(
+                occ, (logits >= self.threshold).float(), 0.5,
+                legacy_mean_threshold=False)[0]
+            if "voxels" in a and self.model.encoder is not None:
+                out["iou_voxels"] = self._iou_voxels(a["voxels"], c)
         return out
+
+    def _iou_voxels(self, vox, c):
+        """The mean fixed-threshold IoU of the voxel grids (B, r, r, r)
+        against sigmoid(logit) >= threshold at the grid's cell centres in
+        the box [-0.5 + 1/64, 0.5 - 1/64]³."""
+        B = vox.shape[0]
+        pts = make_3d_grid((-0.5 + 1 / 64,) * 3, (0.5 - 1 / 64,) * 3, vox.shape[1:])
+        pts = torch.as_tensor(pts, device=vox.device)[None].expand(B, -1, -1)
+        logits = self._call("decode", pts, c)
+        return torch.mean(metrics.compute_iou(
+            (vox.reshape(B, -1) >= 0.5).float(),
+            (torch.sigmoid(logits) >= self.threshold).float(), 0.5,
+            legacy_mean_threshold=False))
 
     def eval_step(self, batch, draws=None, iou_draws=None, generator=None):
         """Loss scalars and an IoU in eval mode: on the t2d paths of the
@@ -603,8 +641,10 @@ class Trainer:
         threshold. The draws come from ``generator``, by default one seeded
         by the trainer's seed and step, so one validation sees the same
         samples for every batch; ``draws`` and (t2d) ``iou_draws`` give them
-        explicitly. On the tactile path: the loss scalars only. Evaluation
-        runs in float32 whatever compute_dtype is, as in the JAX package."""
+        explicitly. A batch with voxel grids (``data.voxels_file``) adds
+        ``iou_voxels`` (_iou_voxels) on the object encoder's features. On
+        the tactile path: the loss scalars only. Evaluation runs in float32
+        whatever compute_dtype is, as in the JAX package."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 EVAL_SEED + 1_000_003 * self.step + self.seed)
