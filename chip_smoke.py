@@ -222,6 +222,22 @@ ends:
      lattice launches K2 once; fam_r34 (ResNet-34) only its step against
      the CPU. Counters are zeroed before each CLI call and eval_points;
      these launches join the kernels' count as fam_*.
+     (k) parallel, after (h): the parallel modules (vtaco_tpu_torch/
+     parallel) at a world of one: a one-rank NCCL group from a file store
+     and make_mesh(data=1), so that every collective of the data-parallel
+     paths runs. VTacO_YCB's train step at full width (batch 3,
+     'highest') through Trainer(device_mesh=...) against the same step
+     without a mesh (loss scalars within PARALLEL_RTOL relative, each
+     module's gradient cosine >= PARALLEL_COS), the step's time with and
+     without the mesh in turns (the collectives' cost at a world of one);
+     VTacO_YCB_fast's fused block of 8 under the mesh (no host sync
+     inside, finite scalars); eval_points_dense_sharded at nx = 128
+     through K2 within one bfloat16 step of eval_points_dense;
+     decode_dense_batched at 4 x 128^3, multires_decode_batched at 257^3
+     and Inferencer.run_batched on the test split under the mesh, equal to
+     the calls without one. Counters are zeroed just before the mesh
+     decodes and read just after (the path "parallel"). One H100 cannot
+     measure scaling over several cards.
 Then one JSON line describing the kernels (K2's and K3's launches by
 mode, and their c_img mode's reading; K2 batched's row with the time of
 4 single-object launches beside it), and last the line
@@ -346,6 +362,9 @@ MODULE_METHODS = {"encoder": ("encode_inputs", "inputs"),
 # damping of the decoder's feature conditioning for MISE (mise_model), and
 # the objects per flight of cli.generate --batched
 BATCH_B, BATCH_LATTICE_N, MISE_GAIN, BATCH_CLI = 4, 1 << 19, 0.3, 2
+# the parallel phase: timed steps per trainer, the step's bars against the
+# step without a mesh, the sharded decode's grid
+PARALLEL_STEPS, PARALLEL_RTOL, PARALLEL_COS, PARALLEL_NX = 4, 1e-5, 0.9999, 128
 # the semi-axes of make_batch's ellipsoid object; MISE's query counts on
 # its exact field (object_queries) are what a mesh of the object's size
 # would query, and each level of (c) must reach MISE_SPAN of them
@@ -1849,6 +1868,182 @@ def batched_cli_stage(root, vt):
     return total
 
 
+def smi_line():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def parallel_phase(root, data, vt):
+    """(k) The parallel modules on one card: a one-rank NCCL group from a
+    file store and ``make_mesh(data=1)`` passed explicitly
+    (``mesh_from_config`` gives None on one card, as the JAX package's
+    does), so every collective of the data-parallel paths runs at a world
+    of one. (a) VTacO_YCB's train step at full width (batch 3, 'highest')
+    through Trainer(device_mesh=...) against the same step from the same
+    weights, batch and draws without a mesh, both under deterministic
+    algorithms: loss scalars within
+    PARALLEL_RTOL relative, each module's gradient cosine >=
+    PARALLEL_COS; then the step's time with and without the mesh, in
+    turns: the collectives' cost at a world of one, and two steps of each
+    under torch.profiler (device time, busy share, launches). (b) VTacO_YCB_fast's
+    fused block of 8 under the mesh: no host sync inside it, finite
+    scalars. (c) eval_points_dense_sharded at nx = 128 through K2, within
+    one bfloat16 step of eval_points_dense's ungated grid; (d)
+    decode_dense_batched at BATCH_B x 128^3 and multires_decode_batched at
+    257^3 under the mesh, each equal to the call without one; (e)
+    Inferencer.run_batched over the mesh on the test split, the result of
+    the run without one (both under deterministic algorithms). The references run first; the counters are
+    zeroed just before (c)-(e) and read just after. Every line carries
+    the card's name and power limit. Returns the launches."""
+    import torch.distributed as dist
+
+    from vtaco_tpu_torch.generate.inferencer import Inferencer
+    from vtaco_tpu_torch.generate.mise import multires_decode_batched
+    from vtaco_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(root, "nccl_store"),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(data=1)
+        log("parallel", card=repr(card), mesh=mesh.shape, backend=dist.get_backend())
+
+        # (a) the train step with and without the mesh
+        cfg = pipeline_config("configs/VTacO/VTacO_YCB.yaml", root, data, "parallel")
+        cfg["training"]["matmul_precision"] = "highest"
+        bs = cfg["training"]["batch_size"]
+        torch.manual_seed(0)
+        model = get_model(cfg)
+        bank = loop.build_mesh_bank(cfg, "cuda")
+        plain = Trainer.from_config(copy.deepcopy(model), cfg, mesh_bank=bank, seed=0)
+        meshed = Trainer.from_config(model, cfg, mesh_bank=bank, seed=0, device_mesh=mesh)
+        batches = take(BatchLoader(get_dataset("train", cfg), bs, num_workers=4, seed=1),
+                       1 + 2 * PARALLEL_STEPS)
+        # deterministic kernels: the scatter's atomics would move the
+        # encoder's gradient between any two runs
+        with deterministic() as nondeterministic:
+            want, got = plain.train_step(batches[0]), meshed.train_step(batches[0])
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+        cos, ratio = module_cosines(meshed.model, plain.model)
+        log("parallel", card=repr(card), step="train", batch_size=bs,
+            nondeterministic_ops=nondeterministic, **rel)
+        log("parallel", card=repr(card), grad_cosine=cos, grad_norm_ratio=ratio)
+        if max(rel.values()) > PARALLEL_RTOL or min(cos.values()) < PARALLEL_COS or set(
+                cos) != {"encoder", "encoder_hand", "encoder_img", "decoder"}:
+            raise AssertionError(f"parallel: the step under the mesh differs: {rel} {cos}")
+        times = {"plain": [], "mesh": []}
+        for i, b in enumerate(batches[1:]):
+            for name in (("plain", "mesh") if i % 2 == 0 else ("mesh", "plain")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (plain if name == "plain" else meshed).train_step(b)
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+        step = {k: float(np.median(v[1:])) for k, v in times.items()}
+        log("parallel", card=repr(card), step_s=step["plain"], mesh_step_s=step["mesh"],
+            collectives_s=step["mesh"] - step["plain"], step_s_each=times["plain"],
+            mesh_step_s_each=times["mesh"])
+        for name, tr in (("plain", plain), ("mesh", meshed)):
+            wall, busy, n_launch = profiled(
+                lambda tr=tr: [tr.train_step(b) for b in batches[1:3]], 2)
+            log("parallel", card=repr(card), profiled=name, steps=2, wall_s=wall,
+                kernel_s=busy, device_busy_share=busy / wall,
+                kernel_launches_per_step=n_launch)
+        del plain, meshed, model
+
+        # (b) the fused block of VTacO_YCB_fast under the mesh
+        fcfg = pipeline_config("configs/VTacO/VTacO_YCB_fast.yaml", root, data,
+                               "parallel_fast")
+        k = int(fcfg["training"]["steps_per_dispatch"])
+        n_points, n_cloud = fcfg["data"]["points_subsample"], fcfg["data"]["pointcloud_n"]
+        trainer = Trainer.from_config(get_model(fcfg), fcfg, mesh_bank=bank, seed=0,
+                                      device_mesh=mesh)
+        dds = DeviceDataset(get_dataset("train", fcfg), device="cuda",
+                            pointcloud_noise=fcfg["data"]["pointcloud_noise"])
+        dloader = DeviceBatchLoader(dds, fcfg["training"]["batch_size"], n_points, n_cloud,
+                                    seed=1)
+        fused = trainer.make_fused_train_fn(dds, n_points, n_cloud)
+        trainer.read_scalars(fused(dloader.take_ids(k), dloader.next_key()))    # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stacked, syncs = host_syncs(fused, dloader.take_ids(k), dloader.next_key())
+        scal = trainer.read_scalars(stacked)
+        block_s = time.perf_counter() - t0
+        log("parallel", card=repr(card), fused_block_steps=k, fused_step_s=block_s / k,
+            host_syncs_per_block=len(syncs), loss_each=scal["loss"].tolist())
+        if syncs or not all(v.shape == (k,) and np.isfinite(v).all() for v in scal.values()):
+            raise AssertionError(f"parallel: fused block: {len(syncs)} syncs, {scal}")
+        del trainer, dds, fused
+
+        # (c)-(e): the decodes, references first
+        vcfg, ckpt = vt
+        model = get_model(vcfg)
+        CheckpointIO(vcfg["training"]["out_dir"], model=model).load(ckpt)
+        model.eval()
+        gen = get_generator(model, vcfg)
+        nx = PARALLEL_NX
+        flight = next(iter(BatchLoader(get_dataset("train", vcfg), BATCH_B, num_workers=4,
+                                       seed=2)))
+        test = list(BatchLoader(get_dataset("test", vcfg, return_idx=True), 1,
+                                shuffle=False, num_workers=1))
+        with torch.no_grad():
+            c = model.encode_inputs(torch.as_tensor(flight["inputs"], device="cuda"))
+        one = {k2: v[:1] for k2, v in c.items()}
+        ref_dense = gen.eval_points_dense(model, nx, one)
+        ref_batched = gen.decode_dense_batched(model, nx, c)
+        ref_mise = multires_decode_batched(gen, model, c, 64, 2, None)
+        # deterministic kernels: each run encodes anew, and the scatter's
+        # atomics would move a logit across the bfloat16 transfer's rounding
+        with deterministic():
+            ref_serve = Inferencer(model, gen).run_batched(
+                model, test, batch_size=2, out_dir=os.path.join(root, "parallel_serve_one"))
+        zero_counters()
+        t0 = time.perf_counter()
+        sharded = gen.eval_points_dense_sharded(model, nx, one, mesh)
+        sharded_s = time.perf_counter() - t0
+        batched = gen.decode_dense_batched(model, nx, c, device_mesh=mesh)
+        st = {}
+        grids, levels = multires_decode_batched(gen, model, c, 64, 2, None, device_mesh=mesh,
+                                                stats=st)
+        with deterministic():
+            served = Inferencer(model, gen).run_batched(
+                model, test, batch_size=2, device_mesh=mesh,
+                out_dir=os.path.join(root, "parallel_serve_mesh"))
+        torch.cuda.synchronize()
+        launches = read_counters()
+        steps = np.abs(_bf16_bits(sharded) - _bf16_bits(ref_dense))
+        mise_equal = levels == ref_mise[1] and all(
+            np.array_equal(a, b) for a, b in zip(grids, ref_mise[0]))
+        served_equal = served == ref_serve
+        log("parallel", card=repr(card), sharded_nx=nx, sharded_s=sharded_s,
+            sharded_bf16_steps_max=int(steps.max()), sharded_points_off=int((steps > 0).sum()),
+            batched_equal=bool(np.array_equal(batched, ref_batched)), mise_equal=mise_equal,
+            served_equal=served_equal, served=served,
+            **{f"launches_{k2}": v for k2, v in launches.items() if v})
+        if steps.max() > 1 or not np.array_equal(batched, ref_batched) or not mise_equal or (
+                not served_equal):
+            raise AssertionError("parallel: a decode over the mesh differs from the call "
+                                 "without one")
+        levels_run = sum(1 for q in st["query_pts"] if q)
+        launched_only("parallel", launches, {
+            "fused_trunk_cn": 1,
+            "fused_trunk_cn_batched": 1 + (1 + levels_run) + -(-len(test) // 2)})
+    finally:
+        dist.destroy_process_group()
+    log("parallel", card=repr(card), seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _bf16_bits(x):
+    """float32 values that hold bfloat16 ones → their bfloat16 bit
+    patterns, one apart for neighbouring values of one sign."""
+    return torch.as_tensor(np.ascontiguousarray(x)).to(torch.bfloat16).view(
+        torch.int16).numpy().astype(np.int64)
+
+
 def pipeline_config(path, root, data, run):
     """A shipped config with its data on the pipeline's synthetic set
     (``data``: the data and mesh roots), its run directory ``root/run``,
@@ -3327,12 +3522,13 @@ def pipeline_phase():
     vh = vtacoh_stage(root, data)
     launches = generate_stage(root, vt, tac, vh)
     batched = batched_cli_stage(root, vt)
+    par = parallel_phase(root, data, vt)
     visualize_stage(root, vt, tac, vh)
     crop_stage(root, data)
     families = families_phase(root, data, tac[1])
     fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
-    return launches, batched, dict(fast, **families)
+    return launches, batched, dict(fast, parallel=par, **families)
 
 
 def main():
@@ -3343,10 +3539,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(smi_line(), flush=True)
     name = torch.cuda.get_device_name(0)
     variant, peak = peaks(name)
     log("device", name=repr(name), count=torch.cuda.device_count(),

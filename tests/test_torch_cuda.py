@@ -854,3 +854,87 @@ def test_family_step_card_matches_cpu(cuda, train_cfg, family):
     assert "encoder" in grads and "decoder" in grads
     for mod, (cos, ratio) in grads.items():
         assert cos >= 0.999 and 0.98 < ratio < 1.02, (mod, cos, ratio)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda, tmp_path_factory):
+    """A one-rank NCCL group from a file store and its data = 1 mesh: the
+    data-parallel code paths, every collective included, on one card."""
+    import torch.distributed as dist
+
+    from vtaco_tpu_torch.parallel.mesh import make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        yield make_mesh(data=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_dp_step_matches_plain(cuda, train_cfg, nccl_mesh):
+    """The data-parallel step over the one-rank NCCL mesh (BatchNorm's sums,
+    the depth min-max, the gradients and the scalars all-reduced) against
+    the same step without a mesh from the same weights, batch and draws,
+    both under deterministic algorithms: loss scalars within 1e-5
+    relative, each module's gradient cosine >= 0.9999, the BatchNorm
+    statistics within 1e-5 relative (the t2d
+    U-Net's 1e-4, as test_train_step_card_matches_cpu bounds them: on
+    images in [0, 1/255] the one-pass variance cancels, and the sums
+    reach it in another order)."""
+    torch.manual_seed(0)
+    model = get_model(train_cfg)
+    ref = copy.deepcopy(model)
+    bank = loop.build_mesh_bank(train_cfg, cuda)
+    plain = Trainer.from_config(ref, train_cfg, mesh_bank=bank)
+    meshed = Trainer.from_config(model, train_cfg, mesh_bank=bank, device_mesh=nccl_mesh)
+    batch = next(iter(BatchLoader(get_dataset("train", train_cfg), 3, num_workers=1,
+                                  seed=0)))
+    # deterministic kernels: the scatter's atomics would move the encoder's
+    # gradient between any two runs
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, got = plain.train_step(batch), meshed.train_step(batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    ref_params = dict(ref.named_parameters())
+    for mod in dict(model.named_children()):
+        names = [n for n, p in model.named_parameters()
+                 if n.split(".")[0] == mod and p.grad is not None]
+        if names:
+            g = torch.cat([dict(model.named_parameters())[n].grad.flatten().double()
+                           for n in names])
+            w = torch.cat([ref_params[n].grad.flatten().double() for n in names])
+            assert float(g @ w / (g.norm() * w.norm())) >= 0.9999, mod
+    own = ref.state_dict()
+    for k, v in model.state_dict().items():
+        if "running" in k:
+            bar = 1e-4 if k.startswith("encoder_t2d.encoder_img.") else 1e-5
+            err = float((v - own[k]).abs().max() / own[k].abs().max())
+            assert err < bar, (k, err)
+
+
+@pytest.mark.cuda
+def test_eval_points_dense_sharded_k2(cuda, nccl_mesh):
+    """eval_points_dense_sharded over the one-rank mesh decodes its slab
+    through K2 (its launch counter rises) within one bfloat16 step of
+    eval_points_dense's ungated grid."""
+    cfg = load_config("configs/VTacO/VTacO_YCB.yaml", "configs/default.yaml")
+    model = get_model(cfg).eval()
+    model.decoder = random_decoder(cuda)
+    gen = get_generator(model, cfg)
+    g = torch.Generator().manual_seed(4)
+    c = {"grid": torch.randn((1, 16, 16, 16, 32), generator=g).to(cuda)}
+    want = gen.eval_points_dense(model, 64, c)
+    K.fused_trunk_cn.launches = 0
+    got = gen.eval_points_dense_sharded(model, 64, c, nccl_mesh)
+    assert K.fused_trunk_cn.launches == 1
+
+    def steps(x):
+        return torch.as_tensor(x).to(torch.bfloat16).view(torch.int16).long()
+
+    assert int((steps(got) - steps(want)).abs().max()) <= 1

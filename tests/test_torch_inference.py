@@ -322,12 +322,11 @@ def test_pipeline_through_the_clis(synth, tmp_path, capsys):
     assert json.loads(out.strip().splitlines()[-1])["n"] == 1
 
 
-@pytest.mark.parametrize("what", ["device_mesh", "points_unfast", "dense_band",
+@pytest.mark.parametrize("what", ["points_unfast", "dense_band",
                                   "tensorboard", "profile_dir", "debug_nans"])
 def test_unported_options_raise(synth, tmp_path, what, monkeypatch):
-    """Batched serving over a device mesh (ROADMAP item 12) and the batched
-    iso-band transfer ``decode_dense_batched_band`` (item 10) raise
-    instead of running without them. The chunked legacy
+    """The batched iso-band transfer ``decode_dense_batched_band`` (ROADMAP
+    item 10) raises instead of running without it. The chunked legacy
     ``decode_points_batched(fast=False)`` (item 7) equals the JAX
     package's. The loop's TensorBoard, profiler and NaN-debug options,
     which raised until they were ported, now run a step: event files
@@ -354,20 +353,12 @@ def test_unported_options_raise(synth, tmp_path, what, monkeypatch):
         with pytest.raises(ValueError, match="lattice_reso"):
             gen.decode_points_batched(tmodel, pts, {"grid": torch.as_tensor(g)},
                                       fast=False, lattice_reso=8)
-    elif what in ("device_mesh", "dense_band"):
+    elif what == "dense_band":
         model = get_model(port_cfg(), device="cpu")
         gen = get_generator(model, port_cfg())
         c = {"grid": torch.zeros(2, 4, 4, 4, 8)}
-        if what == "device_mesh":
-            inf = Inferencer.from_config(model, gen, cfg)
-            with pytest.raises(NotImplementedError, match="device mesh.*item 12"):
-                inf.run_batched(model, [], batch_size=2, device_mesh=object())
-            with pytest.raises(NotImplementedError, match="device mesh.*item 12"):
-                gen.decode_dense_batched(model, 4, c, device_mesh=object())
-        else:
-            with pytest.raises(NotImplementedError,
-                               match="decode_dense_batched_band.*item 10"):
-                gen.decode_dense_batched_band(model, 4, c)
+        with pytest.raises(NotImplementedError, match="decode_dense_batched_band.*item 10"):
+            gen.decode_dense_batched_band(model, 4, c)
     else:
         import functools
 

@@ -119,19 +119,24 @@ def make_batch(rng, n_touch=CONTACTS_PER_FINGER):
 
 
 def test_import_guard():
-    """Every module of the port (the generation CLI, the Inferencer and
-    the device-resident dataset among them), and chip_smoke.py, import
-    without jax and without vtaco_tpu."""
+    """Every module of the port (the generation CLI, the Inferencer, the
+    device-resident dataset and the parallel modules among them),
+    chip_smoke.py and the parallel tests' worker module, which spawned
+    ranks import, import without jax and without vtaco_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vtaco_tpu_torch\n"
         "for m in pkgutil.walk_packages(vtaco_tpu_torch.__path__, 'vtaco_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import parallel_workers\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vtaco_tpu')]\n"
         "assert not bad, bad\n"
         "assert {'vtaco_tpu_torch.cli.generate', 'vtaco_tpu_torch.generate.inferencer',\n"
-        "        'vtaco_tpu_torch.data.device_data'} <= set(sys.modules)\n"
+        "        'vtaco_tpu_torch.data.device_data', 'vtaco_tpu_torch.parallel.mesh',\n"
+        "        'vtaco_tpu_torch.parallel.tp', 'vtaco_tpu_torch.parallel.multihost',\n"
+        "        'parallel_workers'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('vtaco_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

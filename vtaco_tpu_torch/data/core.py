@@ -43,13 +43,14 @@ from vtaco_tpu_torch.ops.geometry import (
     decide_total_volume_range,
     update_reso,
 )
+from vtaco_tpu_torch.parallel.multihost import process_shard
 
 logger = logging.getLogger(__name__)
 
 
 class Shapes3dDataset:
     def __init__(self, dataset_folder, fields, split=None, categories=None,
-                 no_except=True, transform=None, cfg=None):
+                 no_except=True, transform=None, cfg=None, shard=None):
         self.dataset_folder = dataset_folder
         self.fields = fields
         self.no_except = no_except
@@ -82,6 +83,17 @@ class Shapes3dDataset:
                 with open(os.path.join(subpath, split + ".lst")) as f:
                     models_c = [m for m in f.read().split("\n") if m]
             self.models += [{"category": c, "model": m} for m in models_c]
+
+        # a host's input shard (parallel/multihost.py): every num_shards-th
+        # model, strided so that each shard spans every category; the
+        # shards are disjoint and cover the list
+        self.shard = None
+        if shard is not None:
+            index, count = shard
+            if not 0 <= index < count:
+                raise ValueError(f"shard {index}/{count}")
+            self.shard = (index, count)
+            self.models = self.models[index::count]
 
         self.crop = cfg is not None and cfg["data"].get("input_type") == "pointcloud_crop"
         if self.crop:
@@ -273,8 +285,12 @@ def get_data_fields(mode, cfg):
     return flds
 
 
-def get_dataset(mode, cfg, return_idx=False):
-    """The dataset of split ``mode`` ('train', 'val' or 'test')."""
+def get_dataset(mode, cfg, return_idx=False, shard=None):
+    """The dataset of split ``mode`` ('train', 'val' or 'test').
+    ``shard=(index, count)`` keeps that shard of the model list; without
+    it ``data.shard_by_process`` gives the train split this host's shard
+    when the group spans several hosts (parallel.multihost.process_shard),
+    and validation keeps the whole split, as in the JAX package."""
     if cfg["data"]["dataset"] != "Shapes3D":
         raise ValueError(f'Invalid dataset "{cfg["data"]["dataset"]}"')
     split = cfg["data"][{"train": "train_split", "val": "val_split",
@@ -298,5 +314,8 @@ def get_dataset(mode, cfg, return_idx=False):
         raise ValueError(f"Invalid input type ({input_type})")
     if return_idx:
         flds["idx"] = F.IndexField()
+    if shard is None and mode == "train" and cfg["data"].get("shard_by_process"):
+        if process_shard()[1] > 1:
+            shard = process_shard()
     return Shapes3dDataset(cfg["data"]["path"], flds, split=split,
-                           categories=cfg["data"]["classes"], cfg=cfg)
+                           categories=cfg["data"]["classes"], cfg=cfg, shard=shard)

@@ -96,17 +96,26 @@ class DeviceDataset:
                                      device=dev),
         }
 
-    def _sample(self, ids, n_points: int, n_cloud: int, generator=None, draws=None):
+    def _sample(self, ids, n_points: int, n_cloud: int, generator=None, draws=None,
+                rows=None):
         """(B,) model ids on the device → the batch dict under the host
         loader's keys, gathered and augmented on the device; ``draws``
-        (the dict of ``draws``) given instead of ``generator``'s."""
+        (the dict of ``draws``) given instead of ``generator``'s. With
+        ``rows`` (parallel.mesh.Rows, a data-parallel rank's rows) ``ids``
+        are the global batch's: the rank gathers its rows, and the draws
+        are made (or given) for the global batch and cut to them."""
         d = self.data
+        if rows is not None:
+            ids = rows.take(ids)
 
         def g(k):
             return d[k][ids]
 
         if draws is None:
-            draws = self.draws(ids.shape[0], n_points, n_cloud, generator)
+            n = ids.shape[0] if rows is None else rows.total
+            draws = self.draws(n, n_points, n_cloud, generator)
+        if rows is not None:
+            draws = {k: rows.draw(v) for k, v in draws.items()}
         idx = torch.as_tensor(draws["idx"], dtype=torch.int64, device=self.device)
 
         def take(arr):

@@ -47,6 +47,13 @@ points with its corner-gathered features). ``generate_obj_mesh_mise``
 refines a coarse dense decode where the surface passes
 (generate/mise.py).
 
+Over a device mesh (parallel.mesh.Mesh, one process per card) the
+batched decodes split the object axis over the data ranks: each rank
+decodes its objects (a batch that does not divide the data axis is
+decoded whole by every rank) and the results are all-gathered, so that
+every rank returns what one device would. ``eval_points_dense_sharded``
+splits one object's dense grid into z-slabs instead, one per data rank.
+
 Every model forward of the generator (the encoders, the gates, the
 decodes, the hand mesh, the tactile clouds) runs under the TF32 flags
 that ``generation.matmul_precision`` names ('highest' by default: IEEE
@@ -101,6 +108,13 @@ from vtaco_tpu_torch.ops.geometry import (
     normalize_coord,
     pc_cam_to_world,
 )
+from vtaco_tpu_torch.parallel.mesh import (
+    all_gather_cat,
+    batch_rows,
+    data_group,
+    gather_rows,
+    shard_batch,
+)
 from vtaco_tpu_torch.train.contact import (
     CAM_FOV,
     DEPTH_REST,
@@ -112,7 +126,6 @@ from vtaco_tpu_torch.utils import meshio
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
-_NO_MESH = "over a device mesh is not ported yet (ROADMAP.md, item 12)"
 
 
 def _transfer(td):
@@ -126,6 +139,14 @@ def _host(out):
         q, scale = out
         return q.cpu().numpy().astype(np.float32) * scale.cpu().numpy()[..., None]
     return out.float().cpu().numpy()
+
+
+def _gather_objects(out, mesh, rows):
+    """Finalized logits of this rank's objects (a tensor, or int8's (q,
+    scale)) → every rank's, on every rank."""
+    if isinstance(out, tuple):
+        return tuple(gather_rows(t, mesh, rows) for t in out)
+    return gather_rows(out, mesh, rows)
 
 
 def _legacy_transfer(td):
@@ -412,6 +433,36 @@ class Generator3D:
             tp, c, gate_pts, gate_feat, gate_valid, nx, gating, dtype,
             decoder.leaky, out_dtype=_transfer(transfer_dtype),
             out_xmajor=xmajor))
+
+    @torch.inference_mode()
+    @_at_precision
+    def eval_points_dense_sharded(self, model, nx, c, device_mesh, dtype=torch.float32):
+        """One object's dense nx³ decode with the query axis split over the
+        mesh's data ranks (vtaco_tpu/generate/generator.py:1632-1700): each
+        rank interpolates the features of its z-slab of the grid and
+        decodes it, ungated, through K2 (the plain trunk where the
+        generator routes there), and the slabs' logits, rounded to
+        bfloat16 for the transfer, are all-gathered. Every rank returns
+        host (nx³,) float32 logits flattened x-slowest; nx must divide over
+        the data ranks."""
+        n_dev = device_mesh.shape["data"]
+        if nx % n_dev:
+            raise ValueError(f"nx {nx} does not divide over {n_dev} data ranks")
+        if not self._fast_capable(model):
+            raise NotImplementedError(
+                "eval_points_dense_sharded needs a LocalDecoder (the fast trunk "
+                f"cannot reproduce {type(model.decoder).__name__})")
+        d, dz = device_mesh.get_coordinate()[0], nx // n_dev
+        box = 1 + self.padding
+        tp = FT.extract_trunk_params(model.decoder, with_img=False)
+        feats = dense_feature_volume_cn(c, nx, box, self.padding, dtype,
+                                        z=slice(d * dz, (d + 1) * dz))
+        p_cn = dense_query_grid_cn(nx, box, device=feats.device)
+        p_cn = p_cn[:, d * dz * nx * nx:(d + 1) * dz * nx * nx]
+        logits = self._trunk_fast(tp, p_cn, feats, None, None, None, "none", dtype,
+                                  model.decoder.leaky).to(torch.bfloat16)
+        logits = all_gather_cat(logits, data_group(device_mesh)).reshape(nx, nx, nx)
+        return _host(logits.permute(2, 1, 0).reshape(-1))
 
     # ------------------------------------------------------------------
     # arbitrary query points: eval_points and its routes
@@ -749,15 +800,17 @@ class Generator3D:
         the streamed operands as bfloat16; K2 computes in float32.
         ``return_device=True`` returns the finalized device tensor ((q,
         scale) for int8) without waiting for it. ``c_batched`` holds the
-        grid and/or planes. ``device_mesh`` (the objects sharded over
-        cards) is not ported."""
-        if device_mesh is not None:
-            raise NotImplementedError(f"decode_dense_batched {_NO_MESH}")
+        grid and/or planes. With ``device_mesh`` each data rank decodes
+        its objects and every rank returns all of them."""
         if not self._fast_capable(model):
             raise NotImplementedError(
                 "decode_dense_batched needs a LocalDecoder (the fast trunk cannot "
                 f"reproduce {type(model.decoder).__name__}); decode per object "
                 "through generate_obj_mesh_wnf or eval_points")
+        rows = None
+        if device_mesh is not None:
+            rows = batch_rows(len(next(iter(c_batched.values()))), device_mesh)
+            c_batched = shard_batch(device_mesh, c_batched)
         decoder = model.decoder
         tp = FT.extract_trunk_params(decoder, with_img=False)
         first = next(iter(c_batched.values()))
@@ -777,6 +830,8 @@ class Generator3D:
             del feats
         logits = logits.reshape(B, nx, nx, nx).permute(0, 3, 2, 1).reshape(B, n)
         out = self._finalize_logits(logits, _transfer(transfer_dtype))
+        if rows is not None:
+            out = _gather_objects(out, device_mesh, rows)
         return out if return_device else _host(out)
 
     def decode_dense_batched_band(self, *args, **kw):
@@ -812,9 +867,27 @@ class Generator3D:
         the last slot, so they change no value and no int8 scale.
         ``fast=False`` (the default for crop models) decodes each object's
         points through the decoder module in chunks of points_batch_size
-        (zero-padded), ungated. ``device_mesh`` is not ported."""
+        (zero-padded), ungated. With ``device_mesh`` each data rank decodes
+        its objects and every rank returns all of them."""
+        rows = None
         if device_mesh is not None:
-            raise NotImplementedError(f"decode_points_batched {_NO_MESH}")
+            n_obj = len(pts_cn if pts_cn is not None else pts_b)
+            rows = batch_rows(n_obj, device_mesh)
+            c_batched = shard_batch(device_mesh, c_batched)
+            if pts_cn is not None:
+                pts_cn = rows.take(pts_cn)
+            else:
+                pts_b = rows.take(np.asarray(pts_b))
+        out = self._decode_points_batched(model, pts_b, c_batched, transfer_dtype, fast,
+                                          lattice_reso, coord_quant, pts_cn, n_real)
+        if rows is not None:
+            out = _gather_objects(out, device_mesh, rows)
+        return _host(out)
+
+    def _decode_points_batched(self, model, pts_b, c_batched, transfer_dtype, fast,
+                               lattice_reso, coord_quant, pts_cn, n_real):
+        """decode_points_batched on this rank's objects: the finalized
+        device logits."""
         if fast is None:
             fast = self.input_type != "pointcloud_crop"
         if not fast:
@@ -841,11 +914,11 @@ class Generator3D:
         elif coord_quant and lattice_reso is not None:
             raise ValueError("coord_quant needs the non-lattice path")
         B, _, M = pts.shape
+        dev = next(iter(c_batched.values())).device
         if M == 0:
-            return np.zeros((B, 0), np.float32)
+            return torch.zeros((B, 0), device=dev)
         decoder = model.decoder
         tp = FT.extract_trunk_params(decoder, with_img=False)
-        dev = next(iter(c_batched.values())).device
         if coord_quant:
             p = self._world_coords(self._quantize(pts, 1 + self.padding, dev),
                                    coord_quant=True)
@@ -856,12 +929,13 @@ class Generator3D:
                                                          self.padding)
                              for b in range(B)])
         logits = self._trunk_batched(tp, p, feats, torch.float32, decoder.leaky)
-        return _host(self._finalize_logits(logits, _transfer(transfer_dtype)))
+        return self._finalize_logits(logits, _transfer(transfer_dtype))
 
     def _decode_points_batched_chunked(self, model, pts_b, c_batched, transfer_dtype):
-        """decode_points_batched(fast=False): (B, M, 3) host points → host
-        (B, M) float32, each object's chunks of points_batch_size through
-        the decoder module (the last chunk zero-padded), one transfer."""
+        """decode_points_batched(fast=False): (B, M, 3) host points → (B,
+        M) device logits in the transfer dtype, each object's chunks of
+        points_batch_size through the decoder module (the last chunk
+        zero-padded)."""
         if self.input_type == "pointcloud_crop":
             raise NotImplementedError(
                 "decode_points_batched on a crop model (pointcloud_crop): the JAX "
@@ -879,7 +953,7 @@ class Generator3D:
                                     {f: v[b:b + 1] for f, v in c_batched.items()})[0]
                        for i in range(0, k * bs, bs)])
             for b in range(B)])
-        return out[:, :M].to(_legacy_transfer(transfer_dtype)).float().cpu().numpy()
+        return out[:, :M].to(_legacy_transfer(transfer_dtype))
 
     # ------------------------------------------------------------------
     def _prep_contact_gates(self, gt_depths, pred_depths, d_origin, touch,

@@ -17,6 +17,9 @@ batched encode and one batched dense decode (one K2 launch), the logits'
 copy to pinned host memory started at once, then the next flight launched
 before this one's host work (threaded marching cubes, mesh files, one
 batched chamfer on the device), so that the host work overlaps the card's.
+Over a device mesh every rank iterates the same loader and encodes and
+decodes its objects of each flight; rank 0 gathers the logits and does
+the host work alone.
 
 Every model forward runs at the generator's ``matmul_precision``
 (``generation.matmul_precision``, 'highest' by default: no TF32).
@@ -29,12 +32,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vtaco_tpu_torch.core.precision import matmul_precision
 from vtaco_tpu_torch.generate.generator import Generator3D
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.generate.mise import host_map
 from vtaco_tpu_torch.ops import metrics
+from vtaco_tpu_torch.parallel.mesh import batch_rows, gather_rows
 from vtaco_tpu_torch.utils import meshio
 
 
@@ -96,13 +101,14 @@ class Inferencer:
         run (inf for an empty mesh). ``dtype``: the decode's (None:
         float32, K2's own; bfloat16 stores its operands as bfloat16).
         Returns ``{names, cd, cd_mean, n_empty}``, the mean over the
-        meshes that are not empty (None when all are). ``device_mesh`` is
-        not ported (ROADMAP.md, item 12)."""
-        if device_mesh is not None:
-            raise NotImplementedError("Inferencer.run_batched over a device mesh "
-                                      "is not ported yet (ROADMAP.md, item 12)")
+        meshes that are not empty (None when all are). With
+        ``device_mesh`` each data rank encodes and decodes its objects of
+        every flight (parallel.mesh.batch_rows) and the logits are
+        all-gathered; rank 0 alone runs the host work and writes, and every
+        rank returns its result."""
+        lead = device_mesh is None or dist.get_rank() == 0   # runs the host work
         out_dir = out_dir or self.vis_dir
-        if out_dir:
+        if out_dir and lead:
             os.makedirs(out_dir, exist_ok=True)
         gen = self.generator
         nx = gen.resolution0 * 4
@@ -114,12 +120,17 @@ class Inferencer:
 
         def dispatch(inputs_list, names_b, objs):
             with torch.inference_mode(), matmul_precision(gen.matmul_precision):
-                inputs = torch.as_tensor(np.stack(inputs_list), device=dev)
-                c = model.encode_inputs(inputs)
+                inputs = np.stack(inputs_list)
+                if device_mesh is not None:
+                    rows = batch_rows(len(inputs), device_mesh)
+                    inputs = rows.take(inputs)
+                c = model.encode_inputs(torch.as_tensor(inputs, device=dev))
                 logits = gen.decode_dense_batched(model, nx, c, dtype=dtype,
                                                   return_device=True)
+                if device_mesh is not None:
+                    logits = gather_rows(logits, device_mesh, rows)
                 done = None
-                if logits.is_cuda:
+                if logits.is_cuda and lead:
                     # start the copy now: a .cpu() after the next flight's
                     # launch would wait for that flight's kernels too
                     host = torch.empty(logits.shape, dtype=logits.dtype,
@@ -159,6 +170,10 @@ class Inferencer:
                     torch.as_tensor(np.stack(samples), device=dev)).cpu().numpy()
             cds.extend(float("inf") if e else float(x) for x, e in zip(cd, empty))
 
+        def consume_on_host(flight):
+            if flight is not None and lead:
+                consume(flight)
+
         in_flight = None
         inputs, names_b, objs = [], [], []
         for i, batch in enumerate(loader):
@@ -170,18 +185,18 @@ class Inferencer:
             if len(inputs) == batch_size:
                 flight = dispatch(inputs, names_b, objs)
                 inputs, names_b, objs = [], [], []
-                if in_flight is not None:
-                    consume(in_flight)    # host work overlaps the new flight
+                consume_on_host(in_flight)    # host work overlaps the new flight
                 in_flight = flight
         if inputs:
             flight = dispatch(inputs, names_b, objs)
-            if in_flight is not None:
-                consume(in_flight)
+            consume_on_host(in_flight)
             in_flight = flight
-        if in_flight is not None:
-            consume(in_flight)
+        consume_on_host(in_flight)
         cd_mean, n_empty = _finite_mean(cds)
-        return {"names": names, "cd": cds, "cd_mean": cd_mean, "n_empty": n_empty}
+        out = [{"names": names, "cd": cds, "cd_mean": cd_mean, "n_empty": n_empty}]
+        if device_mesh is not None:
+            dist.broadcast_object_list(out, src=0)
+        return out[0]
 
     def run(self, model, loader, out_dir=None, max_samples: Optional[int] = None):
         """Reconstruct a whole split, writing ``{name}_obj.off`` and

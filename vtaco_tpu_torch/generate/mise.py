@@ -453,16 +453,14 @@ def multires_decode_batched(generator, model, c_batched, resolution0,
     space, or None for each object's coarse-field mean. Returns
     ``(grids, thresholds)``: B value grids at the final resolution and the
     levels used. ``stats`` receives :func:`multires_decode`'s split.
-    ``device_mesh`` (sharding the objects over cards) is not ported
-    (ROADMAP.md, item 12)."""
-    if device_mesh is not None:
-        raise NotImplementedError("multires_decode_batched over a device mesh is "
-                                  "not ported yet (ROADMAP.md, item 12)")
+    With ``device_mesh`` both decodes split the objects over the data
+    ranks and return all of them on every rank, which then refines every
+    object's grid on its host, as one device's caller would."""
     B = next(iter(c_batched.values())).shape[0]
     st = _stats(stats)
     n0 = resolution0 + 1
     t0 = time.perf_counter()
-    vals0 = generator.decode_dense_batched(model, n0, c_batched,
+    vals0 = generator.decode_dense_batched(model, n0, c_batched, device_mesh=device_mesh,
                                            transfer_dtype=generator.transfer_dtype)
     st["coarse_s"] += time.perf_counter() - t0
     if thresholds is None:
@@ -502,8 +500,9 @@ def multires_decode_batched(generator, model, c_batched, resolution0,
             st["host_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             vals = generator.decode_points_batched(
-                model, None, c_batched, lattice_reso=mgs[0].resolution,
-                transfer_dtype=generator.transfer_dtype, pts_cn=buf, n_real=M)
+                model, None, c_batched, device_mesh=device_mesh,
+                lattice_reso=mgs[0].resolution, transfer_dtype=generator.transfer_dtype,
+                pts_cn=buf, n_real=M)
             st["decode_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             host_map(lambda mg, v, n: mg.update_queried(v[:n]) if n else None,
@@ -522,8 +521,8 @@ def multires_decode_batched(generator, model, c_batched, resolution0,
         st["host_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
         vals = generator.decode_points_batched(
-            model, coords, c_batched, lattice_reso=mgs[0].resolution,
-            transfer_dtype=generator.transfer_dtype)
+            model, coords, c_batched, device_mesh=device_mesh,
+            lattice_reso=mgs[0].resolution, transfer_dtype=generator.transfer_dtype)
         st["decode_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
 

@@ -19,6 +19,10 @@ is reduced and normalized in float32 with the float32 value of the scale
 and bias, and the result is cast back to bfloat16; the running
 statistics stay float32. Inside ``frozen_batch_stats()`` (the
 recomputation of a rematerialized forward) the statistics do not move.
+Inside ``batch_stats_group(model, group)`` (a data-parallel train step)
+the statistics are those of the whole batch across ``group``'s ranks:
+the per-channel sums, sums of squares and counts are all-reduced, with
+autograd, as GSPMD's mean over the sharded batch axis is global.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from vtaco_tpu_torch.models.unet2d import UpConv, check_unet_modes
+from vtaco_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 _FROZEN_STATS = [0]   # > 0 while a rematerialized forward is recomputed
@@ -50,6 +55,33 @@ def frozen_batch_stats():
         _FROZEN_STATS[0] -= 1
 
 
+@contextlib.contextmanager
+def batch_stats_group(model, group):
+    """Train-mode BatchNorm of ``model`` takes its statistics over the
+    whole batch of ``group``'s ranks in the block (None: this rank's
+    rows)."""
+    bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    for m in bns:
+        m.stats_group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_group = None
+
+
+def _batch_moments(x, dims, group):
+    """Per-channel E[x] and E[x²] over ``dims``, across ``group``'s ranks
+    when it is set."""
+    if group is None:
+        return x.mean(dim=dims), (x * x).mean(dim=dims)
+    count = x.new_full((x.shape[1],), x.numel() // x.shape[1])
+    sums = all_reduce_sum(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims), count]),
+                          group)
+    moments = sums[:2] / sums[2]
+    return moments[0], moments[1]
+
+
 def _flax_batch_norm(bn, x, train):
     """BatchNorm over every axis of x but axis 1, as flax's: in ``train``
     the batch statistics (biased one-pass variance) normalize x and move
@@ -62,8 +94,8 @@ def _flax_batch_norm(bn, x, train):
     dims = (0,) + tuple(range(2, x.dim()))
     view = (-1,) + (1,) * (x.dim() - 2)
     xf = x.to(dt)
-    mean = xf.mean(dim=dims)
-    var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+    mean, sq = _batch_moments(xf, dims, getattr(bn, "stats_group", None))
+    var = torch.clamp(sq - mean * mean, min=0.0)
     if not _FROZEN_STATS[0]:
         with torch.no_grad():
             bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), bn.momentum)

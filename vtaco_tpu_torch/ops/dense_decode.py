@@ -50,12 +50,14 @@ def _axis_interp_matrix(nx: int, R: int, box_size: float, padding: float,
 
 
 def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
-                            padding: float, dtype=torch.float32):
+                            padding: float, dtype=torch.float32, z=slice(None)):
     """(C, nx³) features of every field at the dense query grid, summed, N
     flattened (z slowest, y, x fastest). Fields are channel-last as the
     encoder returns them, with or without the batch axis of one: the grid
     (Z, Y, X, C), planes (rows: the second coordinate, columns: the
-    first, C)."""
+    first, C). ``z``, a slice of the grid's z indices, keeps that z-slab:
+    (C, dz·nx²)."""
+    nz = len(range(nx)[z])
     acc = 0
     if "grid" in c_planes:
         g = c_planes["grid"]
@@ -65,7 +67,7 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
         W = torch.as_tensor(_axis_interp_matrix(nx, g.shape[0], box_size, padding, True),
                             dtype=dtype, device=g.device)
         g = g.permute(3, 0, 1, 2)                           # (C, Z, Y, X)
-        g = torch.einsum("iz,czyx->ciyx", W, g)
+        g = torch.einsum("iz,czyx->ciyx", W[z], g)
         g = torch.einsum("jy,ciyx->cijx", W, g)
         g = torch.einsum("kx,cijx->cijk", W, g)
         acc = acc + g.reshape(g.shape[0], -1)
@@ -83,12 +85,12 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
         p = torch.einsum("jb,cbi->cji", W, p)               # (C, b, a) at the grid
         C = p.shape[0]
         if key == "xz":      # (C, z, x): broadcast over y
-            vol = p[:, :, None, :]
+            vol = p[:, z, None, :]
         elif key == "xy":    # (C, y, x): broadcast over z
             vol = p[:, None, :, :]
         else:                # yz, (C, z, y): broadcast over x
-            vol = p[:, :, :, None]
-        acc = acc + vol.expand(C, nx, nx, nx).reshape(C, -1)
+            vol = p[:, z, :, None]
+        acc = acc + vol.expand(C, nz, nx, nx).reshape(C, -1)
     return acc
 
 

@@ -7,6 +7,11 @@ Shapes are fixed: each touching finger contributes at most
 picked uniformly at random by a top-k over random keys, and every slot
 that holds no contact takes a random query point, so a sample always has
 ``num_sample`` points.
+
+Under a data-parallel mesh each rank holds some rows of the batch; the
+draw functions take that rank's ``rows`` (parallel.mesh.Rows), draw for
+the whole global batch from the generator every rank seeds alike, and
+keep the rank's rows, so that every rank draws what one device would.
 """
 
 from __future__ import annotations
@@ -24,7 +29,15 @@ TIP_RADIUS = 0.05    # fingertip neighbourhood of the img path and VTacOH's gate
 TIP_JOINTS = (4, 8, 12, 16, 20)   # MANO's fingertip joints, thumb first
 
 
-def random_topk_select(mask, k, generator=None, idx=None):
+def _draw(fn, shape, rows):
+    """fn(shape), drawn for the whole global batch when ``rows`` is set
+    and cut to the rank's rows."""
+    if rows is None:
+        return fn(tuple(shape))
+    return rows.draw(fn((rows.total,) + tuple(shape[1:])))
+
+
+def random_topk_select(mask, k, generator=None, idx=None, rows=None):
     """Pick up to k uniformly random True positions along the last axis of
     a bool mask (..., M).
 
@@ -36,7 +49,8 @@ def random_topk_select(mask, k, generator=None, idx=None):
     if idx is not None:
         idx = torch.as_tensor(idx, dtype=torch.int64, device=mask.device)
         return idx, torch.gather(mask, -1, idx)
-    r = torch.rand(mask.shape, generator=generator, device=mask.device)
+    r = _draw(lambda sh: torch.rand(sh, generator=generator, device=mask.device),
+              mask.shape, rows)
     key = torch.where(mask, 1.0 + r, r)
     val, idx = torch.topk(key, k)
     # >=: a draw of exactly 0.0 puts a selected entry at key 1.0, while
@@ -81,16 +95,17 @@ def contact_mask(depths, touch_success, depth_origin):
 
 
 def contact_draws(depths, touch_success, depth_origin, n_query, num_sample,
-                  per_finger, generator=None):
+                  per_finger, generator=None, rows=None):
     """The random draws of t2d_contact_sample: {"contact_idx": (B, 5, k)
     contact pixels per finger (k = min(per_finger, num_sample // 5)),
     "rand_idx": (B, num_sample) query points}, from ``generator`` on the
     tensors' device."""
     per_finger = min(per_finger, num_sample // 5)
     mask = contact_mask(depths, touch_success, depth_origin)
-    idx, _ = random_topk_select(mask, per_finger, generator)
-    rand_idx = torch.randint(0, n_query, (depths.shape[0], num_sample),
-                             generator=generator, device=depths.device)
+    idx, _ = random_topk_select(mask, per_finger, generator, rows=rows)
+    rand_idx = _draw(lambda sh: torch.randint(0, n_query, sh, generator=generator,
+                                              device=depths.device),
+                     (depths.shape[0], num_sample), rows)
     return {"contact_idx": idx, "rand_idx": rand_idx}
 
 
@@ -102,7 +117,7 @@ class ContactSample(NamedTuple):
 
 def t2d_contact_sample(depths, touch_success, cam_pos, cam_rot, pc_ply,
                        query_points, depth_origin, cam_f, height, width,
-                       num_sample, per_finger, generator=None, draws=None):
+                       num_sample, per_finger, generator=None, draws=None, rows=None):
     """Back-projected contact points mixed into the decode sample.
 
     For each touching finger, at most ``per_finger`` pixels whose depth
@@ -123,6 +138,8 @@ def t2d_contact_sample(depths, touch_success, cam_pos, cam_rot, pc_ply,
       generator:     torch.Generator on the tensors' device for the draws.
       draws:         the draws given explicitly instead (contact_draws'
                      dict), since torch cannot replay jax.random.
+      rows:          this rank's rows of a data-parallel batch (the draws
+                     are made for the global batch).
     Returns:
       ContactSample with points (B, num_sample, 3).
     """
@@ -132,7 +149,8 @@ def t2d_contact_sample(depths, touch_success, cam_pos, cam_rot, pc_ply,
     n_slots = n_f * per_finger
     if draws is None:
         draws = contact_draws(depths, touch_success, depth_origin,
-                              query_points.shape[1], num_sample, per_finger, generator)
+                              query_points.shape[1], num_sample, per_finger, generator,
+                              rows)
     idx = torch.as_tensor(draws["contact_idx"], dtype=torch.int64, device=dev)
     valid = torch.gather(contact_mask(depths, touch_success, depth_origin), 2, idx)
     # back-projection of the picked pixels only (backproject_depth's
@@ -210,20 +228,21 @@ def tips_mask(query_points, tips, touch_success):
             & touch_success[:, :, None])
 
 
-def tips_draws(mask, num_sample, per_finger, generator=None):
+def tips_draws(mask, num_sample, per_finger, generator=None, rows=None):
     """The random draws of fingertip_gated_sample: {"contact_idx": (B, 5,
     k) query points per finger (k = min(per_finger, num_sample // 5)),
     "rand_idx": (B, num_sample) query points}, from ``generator`` on the
     mask's device."""
     per_finger = min(per_finger, num_sample // 5)
-    idx, _ = random_topk_select(mask, per_finger, generator)
-    rand_idx = torch.randint(0, mask.shape[-1], (mask.shape[0], num_sample),
-                             generator=generator, device=mask.device)
+    idx, _ = random_topk_select(mask, per_finger, generator, rows=rows)
+    rand_idx = _draw(lambda sh: torch.randint(0, mask.shape[-1], sh, generator=generator,
+                                              device=mask.device),
+                     (mask.shape[0], num_sample), rows)
     return {"contact_idx": idx, "rand_idx": rand_idx}
 
 
 def fingertip_gated_sample(query_points, occ, tips, touch_success, num_sample,
-                           per_finger, generator=None, draws=None):
+                           per_finger, generator=None, draws=None, rows=None):
     """The img path's decode sample, biased to the fingertips.
 
     For each touching finger, at most ``per_finger`` (capped at
@@ -239,6 +258,7 @@ def fingertip_gated_sample(query_points, occ, tips, touch_success, num_sample,
       generator:     torch.Generator on the tensors' device for the draws.
       draws:         the draws given explicitly instead (tips_draws'
                      dict), since torch cannot replay jax.random.
+      rows:          this rank's rows of a data-parallel batch.
     Returns:
       (ContactSample, (B, num_sample) labels of the sampled points).
     """
@@ -247,7 +267,7 @@ def fingertip_gated_sample(query_points, occ, tips, touch_success, num_sample,
     n_slots = 5 * per_finger
     mask = tips_mask(query_points, tips, touch_success)
     if draws is None:
-        draws = tips_draws(mask, num_sample, per_finger, generator)
+        draws = tips_draws(mask, num_sample, per_finger, generator, rows)
     idx = torch.as_tensor(draws["contact_idx"], dtype=torch.int64, device=dev)
     valid = torch.gather(mask, 2, idx).reshape(B, n_slots)
     rand_idx = torch.as_tensor(draws["rand_idx"], dtype=torch.int64, device=dev)

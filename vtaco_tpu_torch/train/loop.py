@@ -31,6 +31,19 @@ validate, checkpoint, backup and visualize cadence and before
 ``max_iters``, so that every cadence fires at its iteration; each
 block's length is logged as ``train/steps_per_block`` at its first
 iteration. A block's ``exit_after`` check comes after its last step.
+
+Under a process group, ``training.mesh`` makes the device mesh
+(parallel.mesh.mesh_from_config, printed) and the steps are
+data-parallel (and tensor-parallel over a model axis,
+parallel.tp.shard_state after a resume). Every rank runs the same loader
+with the same seed and takes its rows of each batch (the same models; the
+samples' augmentation noise is drawn per rank from numpy's global state,
+as a loader's worker threads draw it in no fixed order either).
+Validation runs replicated (batch 1). The cadences agree across ranks,
+the ``exit_after`` decision too (a MAX all-reduce), and rank 0 alone
+writes checkpoints, the jsonl and TensorBoard logs, traces and
+visualizations; under tensor parallelism every rank first gathers the
+whole parameters for it (parallel.tp.unsharded).
 """
 
 from __future__ import annotations
@@ -44,12 +57,15 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vtaco_tpu_torch.core.checkpoint import CheckpointIO
 from vtaco_tpu_torch.core.factory import get_model
 from vtaco_tpu_torch.data.core import BatchLoader, get_dataset
 from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.ops.winding import MeshBank
+from vtaco_tpu_torch.parallel.mesh import mesh_from_config
+from vtaco_tpu_torch.parallel.tp import shard_state, unsharded
 from vtaco_tpu_torch.train.trainer import Trainer, check_trainer_init
 from vtaco_tpu_torch.utils import meshio
 from vtaco_tpu_torch.utils.profiling import (ProfiledRegion, StepTimer, check_finite,
@@ -97,6 +113,16 @@ def _nan_errors(enable, its):
         if enable and "returned nan values" in str(e):
             raise FloatingPointError(f"training.debug_nans: {e} (iteration {its})") from e
         raise
+
+
+class _NoLogger:
+    """The logger of a rank that does not write."""
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 def build_mesh_bank(cfg, device="cuda") -> Optional[MeshBank]:
@@ -150,12 +176,14 @@ def graft_t2d(model, t2d_file, checkpoint_dir):
 
 
 def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
-          device="cuda", seed=0, generator_factory=None):
+          device="cuda", seed=0, generator_factory=None, device_mesh=None):
     """Run training per cfg on ``device``. ``generator_factory(model, cfg,
     mesh_bank)`` makes the hook whose ``visualize(model, val_loader,
     out_dir, it)`` runs every ``training.visualize_every`` iterations.
-    Returns (trainer, it) on a normal stop; raises SystemExit(3) after
-    saving once ``exit_after`` seconds have passed."""
+    ``device_mesh`` defaults to ``training.mesh``'s over the process
+    group (None without one). Returns (trainer, it) on a normal stop;
+    raises SystemExit(3) after saving once ``exit_after`` seconds have
+    passed."""
     tcfg = cfg["training"]
     out_dir = tcfg["out_dir"]
     batch_size = tcfg["batch_size"]
@@ -166,7 +194,6 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     sign = {"maximize": 1, "minimize": -1}.get(tcfg["model_selection_mode"])
     if sign is None:
         raise ValueError("model_selection_mode must be maximize or minimize")
-    os.makedirs(out_dir, exist_ok=True)
 
     train_dataset = get_dataset("train", cfg)
     val_dataset = get_dataset("val", cfg, return_idx=True)
@@ -177,6 +204,16 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
         print("Warning: batch_size %d > train split size %d; clamping"
               % (batch_size, len(train_dataset)))
         batch_size = len(train_dataset)
+    if device_mesh is None:
+        device_mesh = mesh_from_config(cfg, batch_size=batch_size)
+        if device_mesh is not None:
+            print(f"device mesh: {device_mesh.shape}")
+    if device_mesh is not None and device_mesh.get_coordinate() is None:
+        print(f"rank {dist.get_rank()} is outside the {device_mesh.shape} mesh: idle")
+        return None, 0
+    main = device_mesh is None or dist.get_rank() == 0
+    if main:
+        os.makedirs(out_dir, exist_ok=True)
     val_dds = None
     if cfg["data"].get("on_device"):
         noise = cfg["data"]["pointcloud_noise"]
@@ -200,7 +237,8 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     model, aux = get_model(cfg, device=device, return_aux=True, dataset=train_dataset)
     check_trainer_init(model)
     bank = build_mesh_bank(cfg, device)
-    trainer = Trainer.from_config(model, cfg, mesh_bank=bank, seed=seed)
+    trainer = Trainer.from_config(model, cfg, mesh_bank=bank, seed=seed,
+                                  device_mesh=device_mesh)
     if aux["t2d_pretrained_file"]:
         graft_t2d(model, aux["t2d_pretrained_file"], out_dir)
     ckpt = CheckpointIO(out_dir, model=model, optimizer=trainer.optimizer)
@@ -219,22 +257,39 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
         metric_val_best = -sign * np.inf
 
     print("Total number of parameters: %d" % sum(p.numel() for p in model.parameters()))
+    if device_mesh is not None:
+        shard_state(device_mesh, model, trainer.optimizer)
     print("output path: ", out_dir)
-    logger = JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"),
-                         tensorboard=tcfg.get("tensorboard", False))
+    logger = (JsonlLogger(os.path.join(out_dir, "logs", "metrics.jsonl"),
+                          tensorboard=tcfg.get("tensorboard", False)) if main
+              else _NoLogger())
     generator = generator_factory(model, cfg, bank) if generator_factory else None
     n_points, n_cloud = cfg["data"]["points_subsample"], cfg["data"]["pointcloud_n"]
     fused_val = None
     if val_dds is not None and val_dds.n_models:
         fused_val = trainer.make_fused_eval_fn(val_dds, n_points, n_cloud)
     nans = bool(tcfg.get("debug_nans"))
-    profiler = ProfiledRegion(tcfg.get("profile_dir"))
+    profiler = ProfiledRegion(tcfg.get("profile_dir") if main else None)
     timer = StepTimer()
     t0 = time.time()
     stop = False
 
     def save(filename):
-        ckpt.save(filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
+        with unsharded(model, trainer.optimizer):
+            if main:
+                ckpt.save(filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
+
+    def time_up():
+        """Whether exit_after has passed, on any rank of the group."""
+        if exit_after <= 0:
+            return False
+        up = time.time() - t0 >= exit_after
+        if device_mesh is None:
+            return up
+        flag = torch.tensor([float(up)], device=device)
+        for dim in ("data", "model"):
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=device_mesh.get_group(dim))
+        return bool(flag.item())
 
     def post_step(scalars, exit_ok=True, rate=None):
         """Everything after step ``it``: logging and the cadences. A fused
@@ -273,11 +328,13 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
             print("Backup checkpoint at iteration: %d" % it)
             save("model_%d.ckpt" % it)
         if generator is not None and visualize_every > 0 and it % visualize_every == 0:
-            try:
-                generator.visualize(model, val_loader(), out_dir, it)
-            except Exception as e:   # visualization must not stop training
-                print("visualize failed:", e)
-        if exit_ok and exit_after > 0 and (time.time() - t0) >= exit_after:
+            with unsharded(model, trainer.optimizer):
+                if main:
+                    try:
+                        generator.visualize(model, val_loader(), out_dir, it)
+                    except Exception as e:   # visualization must not stop training
+                        print("visualize failed:", e)
+        if exit_ok and time_up():
             print("Time limit reached. Exiting.")
             save("model.ckpt")
             raise SystemExit(3)

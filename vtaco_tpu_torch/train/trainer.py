@@ -60,6 +60,21 @@ the device from a data.device_data.DeviceDataset, with one host read of
 the K steps' scalars; ``make_fused_eval_fn`` and ``evaluate_device``
 validate a device-resident split the same way.
 
+With ``device_mesh`` (parallel.mesh.Mesh) a train step is data-parallel
+and equals the one-device step on the global batch: each rank takes its
+rows of the batch (parallel.mesh.batch_rows; a batch that does not divide
+the data axis is replicated), draws every random sample for the global
+batch and keeps its rows, and reduces over the data group whatever
+couples rows: train-mode BatchNorm's statistics
+(models.layers.batch_stats_group), the depth maps' min-max normalization,
+the gradients (one coalesced all-reduce after the backward pass, whose
+mean over ranks is the gradient of the global mean loss) and the logged
+scalars. The parameters are broadcast from the first rank at
+construction. Evaluation runs replicated: every rank evaluates the whole
+batch, as the IoU's mean threshold couples its rows. Tensor parallelism
+over the model axis is parallel.tp.shard_state's, applied to the model
+after the Trainer is built.
+
 The t2d path without images (``model.with_img`` false with a
 tactile-to-depth model) is the t2d_img step with the decoder's plain head
 on the contact sample. The plain path encodes the object (and, where the
@@ -83,16 +98,19 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vtaco_tpu_torch.core.precision import TF32, matmul_precision
 from vtaco_tpu_torch.models.decoder import LocalPointDecoder
-from vtaco_tpu_torch.models.layers import frozen_batch_stats
+from vtaco_tpu_torch.models.layers import batch_stats_group, frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.geometry import make_3d_grid
 from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
+from vtaco_tpu_torch.parallel.mesh import batch_rows, broadcast_module, data_group
 from vtaco_tpu_torch.train import contact as C
 
 DEPTH_NEAR = 0.019
@@ -150,8 +168,14 @@ def cpu_reduced_precision_convs(active):
         torch.backends.mkldnn.enabled = old
 
 
-def _minmax_norm(x):
-    return (x - torch.min(x)) / (torch.max(x) - torch.min(x))
+def _minmax_norm(x, group=None):
+    """x scaled by its min and max, those of the whole batch across
+    ``group``'s ranks when it is set."""
+    lo, hi = torch.min(x), torch.max(x)
+    if group is not None:
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    return (x - lo) / (hi - lo)
 
 
 def _cast_floats(x, dtype):
@@ -197,7 +221,7 @@ class Trainer:
                  depth_origin: Optional[np.ndarray] = None, legacy_gt_depth=True,
                  contact_per_finger=128, tips_per_finger=512, seed=0,
                  skip_unused_t2d=False, compute_dtype=None, keep_f32_modules=("decoder",),
-                 remat=False, matmul_precision="default"):
+                 remat=False, matmul_precision="default", device_mesh=None):
         if matmul_precision not in TF32:
             raise ValueError(f"training.matmul_precision {matmul_precision!r} is "
                              f"none of {sorted(TF32)}")
@@ -243,6 +267,10 @@ class Trainer:
         self.stage_events = None
         self._bound = _Bound(model)
         self._params = None   # the train step's cast parameters by module (mixed precision)
+        self.mesh = device_mesh
+        self._rows = self._group = None   # a data-parallel train step's rows and group
+        if device_mesh is not None:
+            broadcast_module(model, device_mesh)
 
     @classmethod
     def from_config(cls, model, cfg, mesh_bank=None, **kw):
@@ -271,15 +299,21 @@ class Trainer:
                "matmul_precision": tcfg.get("matmul_precision", "default"), **kw})
 
     # ------------------------------------------------------------------
-    def prepare_batch(self, batch):
+    def prepare_batch(self, batch, shard=True):
         """Loader batch dict → tensors on the trainer's device, with the
         samples' padded ground-truth meshes on the t2d paths (the other
         paths take the dataset's labels). A crop batch adds
         ``inputs_index`` ({field: (B, N) int64}) and ``points_normalized``
-        ({field: (B, N, 2|3)})."""
+        ({field: (B, N, 2|3)}). Under a mesh with ``shard``, this rank's
+        rows, and ``rows`` (parallel.mesh.Rows) says which."""
+        rows = (batch_rows(len(batch["points"]), self.mesh)
+                if self.mesh is not None and shard else None)
+
         def put(key, dtype=torch.float32):
             v = batch[key]   # a host array, or a tensor (a device-resident batch)
             v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+            if rows is not None:
+                v = rows.take(v)
             return torch.as_tensor(v, dtype=dtype, device=self.device)
 
         a = {"points": put("points"), "occ": put("points.occ"),
@@ -307,13 +341,16 @@ class Trainer:
                       for k in batch if k.startswith("points.normalized.")}
         if normalized:
             a["points_normalized"] = normalized
+        if rows is not None:
+            a["rows"] = rows
         if self.train_tactile or not self.encode_t2d:
             return a
         if self.mesh_bank is None:
             raise ValueError("the t2d loss paths need ground-truth meshes "
                              "(data.mesh_dir, a MeshBank)")
+        names = batch["points.name"]
         a["mesh_verts"], a["mesh_faces"] = self.mesh_bank.gather(
-            self.mesh_bank.ids_for(batch["points.name"]))
+            self.mesh_bank.ids_for(names if rows is None else rows.take(names)))
         return a
 
     def _depth_origin_for(self, hw):
@@ -395,7 +432,7 @@ class Trainer:
             depth_for_contact, a["touch_success"], a["cam_pos"], a["cam_rot"],
             a["pc_ply"], a["points"], self._depth_origin_for(H * W),
             H / (2 * math.tan(math.radians(CAM_FOV / 2))), H, W, self.num_sample,
-            self.contact_per_finger, generator, draws)
+            self.contact_per_finger, generator, draws, self._rows)
         return sample, winding_number_batch(a["mesh_verts"], a["mesh_faces"], sample.points)
 
     def _compute_loss_tactile(self, a):
@@ -404,7 +441,8 @@ class Trainer:
         m = self.model
         self._mark("start")
         pred_depth = self._call("encode_img_inputs", a["imgs"])
-        loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"])))
+        loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"],
+                                                                    self._group)))
         loss, scalars = loss_depth, {"loss_depth": loss_depth}
         self._mark("depth_unet")
         if m.encoder_hand is not None:
@@ -451,7 +489,8 @@ class Trainer:
         loss = loss_l1 + loss_mano + loss_pc
         scalars = {"loss_l1": loss_l1, "loss_mano": loss_mano, "loss_pc": loss_pc}
         if not self.pretrained_t2d:
-            loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"])))
+            loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"],
+                                                                        self._group)))
             cam_info = torch.cat([a["cam_pos"].reshape(B, -1),
                                   a["cam_rot"].reshape(B, -1)], 1)
             loss_digit = torch.mean((digit_param - cam_info) ** 2)
@@ -519,7 +558,7 @@ class Trainer:
                                       a["wrist"], a["pc_ply"])
         sample, occ = C.fingertip_gated_sample(
             a["points"], a["occ"], tips, a["touch_success"], self.num_sample,
-            self.tips_per_finger, generator or self.generator, draws)
+            self.tips_per_finger, generator or self.generator, draws, self._rows)
         self._mark("contact_labels")
         logits = self._call("decode_img", sample.points, c,
                             C.scatter_finger_features(c_img, sample, init="zeros"))
@@ -542,14 +581,22 @@ class Trainer:
         """One optimization step on prepared tensors (prepare_batch's dict,
         or a device-resident batch's): {scalar: 0-d float32 tensor} on the
         device, read by nobody here, so that steps can follow each other
-        without a host sync."""
+        without a host sync. On a rank's rows of a data-parallel batch
+        (``a["rows"]``) ``draws`` are the global batch's."""
         self.model.train()
+        rows = a.get("rows")
+        group = data_group(self.mesh) if rows is not None and not rows.replicated else None
+        if group is not None and draws is not None:
+            draws = {k: rows.draw(v) for k, v in draws.items()}
         with matmul_precision(self.matmul_precision), cpu_reduced_precision_convs(
-                self.compute_dtype is not None and self.device.type == "cpu"):
+                self.compute_dtype is not None and self.device.type == "cpu"), \
+                batch_stats_group(self.model, group):
             a = self._cast_batch(a)
             if self.compute_dtype is not None:
                 self._params = self._module_params(
                     self._cast_params(dict(self.model.named_parameters())))
+            if group is not None:
+                self._rows, self._group = rows, group
             try:
                 if self.train_tactile:
                     loss, scalars = self._compute_loss_tactile(a)
@@ -560,14 +607,31 @@ class Trainer:
                 else:
                     loss, scalars = self._compute_loss_plain(a)
             finally:
-                self._params = None
+                self._params = self._rows = self._group = None
             self.optimizer.zero_grad(set_to_none=True)
             loss.float().backward()
+            if group is not None:
+                self._all_reduce_grads(group)
             self._mark("backward")
             self.optimizer.step()
             self._mark("optimizer")
         self.step += 1
-        return {k: v.detach().float() for k, v in scalars.items()}
+        scalars = {k: v.detach().float() for k, v in scalars.items()}
+        if group is not None:
+            vals = torch.stack(list(scalars.values()))
+            dist.all_reduce(vals, group=group)
+            scalars = dict(zip(scalars, vals / dist.get_world_size(group)))
+        return scalars
+
+    def _all_reduce_grads(self, group):
+        """The gradients averaged over the data group, in one all-reduce
+        (and one multi-tensor copy back: a copy per parameter cost a
+        launch each on a host-bound step)."""
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat, group=group)
+        flat /= dist.get_world_size(group)
+        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
 
     def train_step(self, batch, draws=None):
         """One optimization step in train mode. ``draws`` gives the decode
@@ -648,8 +712,8 @@ class Trainer:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(
                 EVAL_SEED + 1_000_003 * self.step + self.seed)
-        return self._host(self._eval_step(self.prepare_batch(batch), draws, iou_draws,
-                                          generator))
+        return self._host(self._eval_step(self.prepare_batch(batch, shard=False), draws,
+                                          iou_draws, generator))
 
     def evaluate(self, val_loader):
         """Mean of eval_step's dicts over the loader."""
@@ -665,7 +729,9 @@ class Trainer:
         """(ids (B,) on the device, generator, draws) → the step's tensors:
         a DeviceDataset sample under the step's keys, the ground-truth
         meshes by a lookup on the device (the t2d path), and for eval the
-        models' whole query sets as ``points_iou``."""
+        models' whole query sets as ``points_iou``. Under a mesh a train
+        batch is this rank's rows (``rows``) of the global batch ``ids``;
+        an eval batch is replicated."""
         bank_ids = None
         if self.encode_t2d and not self.train_tactile:
             if self.mesh_bank is None:
@@ -674,8 +740,12 @@ class Trainer:
             bank_ids = torch.as_tensor(self.mesh_bank.ids_for(dds.names), device=self.device)
 
         def assemble(ids, generator, draws=None):
-            batch = dds._sample(ids, n_points, n_cloud, generator, draws)
+            rows = (batch_rows(len(ids), self.mesh)
+                    if self.mesh is not None and not for_eval else None)
+            batch = dds._sample(ids, n_points, n_cloud, generator, draws, rows)
             a = {k: batch[src] for k, src in DEVICE_KEYS.items()}
+            if rows is not None:
+                a["rows"], ids = rows, rows.take(ids)
             if for_eval:
                 a["points_iou"], a["occ_iou"] = dds.data["points"][ids], dds.data["occ"][ids]
             if bank_ids is not None:
