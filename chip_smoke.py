@@ -233,7 +233,8 @@ ends:
      VTacO_YCB_fast's fused block of 8 under the mesh (no host sync
      inside, finite scalars); eval_points_dense_sharded at nx = 128
      through K2 within one bfloat16 step of eval_points_dense;
-     decode_dense_batched at 4 x 128^3, multires_decode_batched at 257^3
+     decode_dense_batched and decode_dense_batched_band at 4 x 128^3,
+     multires_decode_batched at 257^3
      and Inferencer.run_batched on the test split under the mesh, equal to
      the calls without one. Counters are zeroed just before the mesh
      decodes and read just after (the path "parallel"). One H100 cannot
@@ -268,6 +269,7 @@ from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, l
 from vtaco_tpu_torch.data import synthetic
 from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
+from vtaco_tpu_torch.generate import band as B
 from vtaco_tpu_torch.generate.marching_cubes import _marching_cubes_numpy, marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
@@ -295,7 +297,7 @@ from vtaco_tpu_torch.utils.syncs import host_syncs
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from bf16_checks import (CARD_BAR, CARD_OUTPUTS_LOGGED, bf16_batchnorm,  # noqa: E402
-                         exact_zero, step_bars)
+                         exact_zero, step_bars, trained_bars)
 from voxel_files import write_voxels  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -1791,6 +1793,278 @@ def batched_phase(dev, peak, cfg, model):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the iso-band transfer (generation.band_transfer) and the option branches
+
+def band_generators(model, cfg, mode):
+    """(the full-transfer generator, the band one) of ``mode`` ('contact':
+    cfg as it is; 'none': with_img off; 'tips': a VTacOH cfg)."""
+    cfg = json.loads(json.dumps(cfg))
+    if mode == "none":
+        cfg["model"]["with_img"] = False
+    return (get_generator(model, cfg, band_transfer=False),
+            get_generator(model, cfg, band_transfer=True))
+
+
+def band_mesh(dev, mode, model, cfg, batch, want_kernel):
+    """(a) one mode: generate_obj_mesh_wnf with band_transfer true (counters
+    zeroed just before, read just after) against band_transfer false, bit
+    for bit with the same chamfer and EMD and no overflow; then the band's
+    count, cap and payload, its extraction on the card (CUDA events), the
+    fetch of each payload, the band and volume marching cubes, and the
+    host syncs of eval_points_dense_band up to its payload fetch. Returns
+    the launches."""
+    full, band = band_generators(model, cfg, mode)
+    nx = band.resolution0 * 4
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    (vf, ff), emd_f, cd_f = full.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    zero_counters()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    (vb, fb), emd_b, cd_b = band.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    launches = read_counters()
+    check_mesh(f"band_{mode}", vb, fb, emd_b, cd_b, nx)
+    equal = (np.array_equal(vb, vf) and np.array_equal(fb, ff) and emd_b == emd_f
+             and cd_b == cd_f)
+
+    with torch.no_grad():
+        c, gates = band._encode_sample(model, batch, 0)
+        cap = B.default_cap(nx)
+        tp = FT.extract_trunk_params(model.decoder, with_img=gates[0] != "none")
+        logits = band._decode_dense_fast_impl(tp, c, *gates[1:], nx, gates[0],
+                                              torch.float32, False)
+        extract_ms = cuda_ms(lambda x: band._band_payload(x, nx, cap), [(logits,)], 10)
+        payload = band._band_payload(logits, nx, cap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = payload.cpu().numpy()
+        band_fetch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        volume = logits.cpu().numpy().reshape(nx, nx, nx)
+        full_fetch_ms = (time.perf_counter() - t0) * 1e3
+        count, level, packed, vals = B.band_unpack(host, nx, cap)
+        t0 = time.perf_counter()
+        mesh_band = B.band_marching_cubes(nx, level, count, packed, vals)
+        band_mc_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_full = marching_cubes(volume, level=level)
+        volume_mc_s = time.perf_counter() - t0
+        _, syncs = host_syncs(band.eval_points_dense_band, model, nx, c, *gates, mesh=True)
+    same_scan = all(np.array_equal(a, b) for a, b in zip(mesh_band, mesh_full))
+    log("band", mode=mode, nx=nx, count=count, cap=cap, payload_bytes=len(host),
+        full_bytes=volume.nbytes, payload_ratio=volume.nbytes / len(host),
+        extract_ms=extract_ms, band_fetch_ms=band_fetch_ms, full_fetch_ms=full_fetch_ms,
+        band_mc_s=band_mc_s, volume_mc_s=volume_mc_s, mesh_s_band=band_s,
+        mesh_s_full=full_s, verts=len(vb), faces=len(fb), chamfer=cd_b, emd=emd_b,
+        equal_to_full=equal, scan_equal=same_scan, band_overflows=band.band_overflows,
+        host_syncs=len(syncs), sync_sites=syncs,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not (equal and same_scan and band.band_overflows == 0 and count <= cap
+            and len(host) == B.payload_bytes(nx, cap)):
+        raise AssertionError(f"band {mode}: equal {equal}, scan {same_scan}, "
+                             f"{band.band_overflows} overflows, count {count} of {cap}")
+    launched_only(f"band {mode}", launches, {want_kernel: 1})
+    return launches, (band, c, gates, nx)
+
+
+def band_phase(dev, cfg, model, batch):
+    """band (after batched): the iso-band transfer at full width on
+    VTacO_YCB's random weights with the decoder damped as in (c) of
+    batched (mise_model: a surface of the object's size, as a trained
+    decoder's), under deterministic algorithms:
+    (a) a mesh contact-gated (K1) and ungated (K2) with band_transfer true
+    against false (band_mesh); (b) eval_points_dense_band with cap 1:
+    band_overflows 1 and the grid of the full float32 transfer; (c)
+    decode_dense_batched_band on BATCH_B objects at nx = 128, blocking and
+    with return_device plus finish_batched_band(mesh=True), each mesh equal
+    to marching cubes of decode_dense_batched's float32 transfer at the
+    same level. (e) of the phase is options_phase. Returns the launches by
+    path."""
+    mmodel = mise_model(model)
+    t_phase = time.perf_counter()
+    paths = {}
+    with deterministic() as ops:
+        paths["band_mesh"], (band, c, gates, nx) = band_mesh(
+            dev, "contact", mmodel, cfg, batch, "fused_trunk_gated_cn")
+        paths["band_mesh_none"], _ = band_mesh(dev, "none", mmodel, cfg, batch,
+                                               "fused_trunk_cn")
+
+        # (b) overflow
+        with torch.no_grad():
+            grid, _ = band.eval_points_dense_band(mmodel, nx, c, *gates, cap=1)
+            full = band.eval_points_dense(mmodel, nx, c, *gates, transfer_dtype=torch.float32)
+        overflow_equal = bool(np.array_equal(grid.reshape(-1), full))
+        log("band", case="overflow", cap=1, band_overflows=band.band_overflows,
+            equal_to_full=overflow_equal)
+        if band.band_overflows != 1 or not overflow_equal:
+            raise AssertionError(f"band overflow: {band.band_overflows} overflows, "
+                                 f"grid equal {overflow_equal}")
+
+        # (c) batched
+        _, gen = band_generators(mmodel, cfg, "none")
+        batches = [make_batch(np.random.default_rng(s), cfg) for s in range(BATCH_B)]
+        with torch.no_grad():
+            cb = mmodel.encode_inputs(torch.as_tensor(
+                np.concatenate([b["inputs"] for b in batches]), device=dev))
+        t0 = time.perf_counter()
+        full = gen.decode_dense_batched(mmodel, LATTICE_NX, cb, transfer_dtype=torch.float32)
+        full_s = time.perf_counter() - t0
+        zero_counters()
+        t0 = time.perf_counter()
+        grids, levels = gen.decode_dense_batched_band(mmodel, LATTICE_NX, cb)
+        band_s = time.perf_counter() - t0
+        raw, fin = gen.decode_dense_batched_band(mmodel, LATTICE_NX, cb, return_device=True)
+        t0 = time.perf_counter()
+        meshes, levels2 = gen.finish_batched_band(mmodel, raw, fin, mesh=True)
+        finish_s = time.perf_counter() - t0
+        paths["band_batched"] = launches = read_counters()
+        n = LATTICE_NX
+        equal = levels == levels2
+        for b in range(BATCH_B):
+            fb = full[b].reshape(n, n, n)
+            level = float(np.float32((float(fb.min()) + float(fb.max())) / 2))
+            want = marching_cubes(fb, level=level)
+            got = marching_cubes(grids[b], level=levels[b])
+            equal = equal and levels[b] == level and len(want[1]) > 0 and all(
+                np.array_equal(x, y) and np.array_equal(x, z)
+                for x, y, z in zip(want, got, meshes[b]))
+        log("band", case="batched", B=BATCH_B, nx=n, band_s=band_s, finish_mesh_s=finish_s,
+            full_f32_s=full_s, payload_bytes=int(raw.shape[1]), full_bytes=n ** 3 * 4,
+            equal_to_full=equal, band_overflows=gen.band_overflows,
+            **{f"launches_{k}": v for k, v in launches.items() if v})
+        if not equal or gen.band_overflows:
+            raise AssertionError(f"band batched: equal {equal}, {gen.band_overflows} "
+                                 "overflows")
+        launched_only("band batched", launches, {"fused_trunk_cn_batched": 2})
+    log("band", nondeterministic_ops=ops, seconds=time.perf_counter() - t_phase)
+    return paths
+
+
+def band_tips(dev, cfg, model, batch):
+    """(a) of band for VTacOH (K2 on gate_tips_cn's rows), the decoder
+    damped likewise. Returns the launches."""
+    with deterministic() as ops:
+        launches, _ = band_mesh(dev, "tips", mise_model(model), cfg, batch,
+                                "fused_trunk_cn:c_img")
+    log("band", mode="tips", nondeterministic_ops=ops)
+    return launches
+
+
+def band_cli_stage(root, vt):
+    """(d) of band: cli.generate --batched BATCH_CLI on VTacO_YCB's test
+    split from (b)'s checkpoint with generation.band_transfer true, against
+    the same run with band_transfer false at float32 transfers (the
+    batched_cli stage's own transfer is bfloat16, whose meshes differ from
+    the float32 ones the band reproduces): the same chamfer and the same
+    mesh files byte for byte, K2 batched once per flight; the overflows
+    (an object whose band outgrows its buffer takes the float32 transfer
+    of its logits) are logged."""
+    from vtaco_tpu_torch.data.core import Shapes3dDataset
+    from vtaco_tpu_torch.generate.generator import Generator3D
+
+    cfg, ckpt = vt
+    cfg = json.loads(json.dumps(cfg))
+    cfg["training"]["n_workers_val"] = 1      # one loader thread: see seeded
+    # run_batched's full transfer marches at the midpoint whatever mc_level
+    # says, its band route at mc_level, as in the JAX package (the stage's
+    # config says 'mean')
+    cfg["generation"]["mc_level"] = "midpoint"
+    band_cfg = json.loads(json.dumps(cfg))
+    band_cfg["generation"]["band_transfer"] = True
+    finish, decode = Generator3D.finish_batched_band, Generator3D.decode_dense_batched
+    item = Shapes3dDataset.__getitem__
+    overflows = []
+
+    def seeded(self, idx):
+        # each item's input subsample and noise from its own seed, on one
+        # loader thread: threads share numpy's global state, so two runs
+        # would draw differently
+        np.random.seed(100 + idx)
+        return item(self, idx)
+
+    def counted(self, *a, **kw):
+        out = finish(self, *a, **kw)
+        overflows.append(self.band_overflows)
+        return out
+
+    def f32(self, *a, **kw):
+        return decode(self, *a, **dict(kw, transfer_dtype=torch.float32))
+
+    Shapes3dDataset.__getitem__ = seeded
+    try:
+        with deterministic() as ops:
+            zero_counters()
+            Generator3D.finish_batched_band = counted
+            try:
+                line_b, files_b, s_b = cli_generate(root, band_cfg, ckpt, "generate_band",
+                                                    "--batched", str(BATCH_CLI))
+            finally:
+                Generator3D.finish_batched_band = finish
+            launches = read_counters()
+            Generator3D.decode_dense_batched = f32
+            try:
+                line_f, files_f, s_f = cli_generate(root, cfg, ckpt, "generate_band_f32",
+                                                    "--batched", str(BATCH_CLI))
+            finally:
+                Generator3D.decode_dense_batched = decode
+    finally:
+        Shapes3dDataset.__getitem__ = item
+    same = files_b == files_f and all(
+        open(os.path.join(root, "generate_band", f), "rb").read()
+        == open(os.path.join(root, "generate_band_f32", f), "rb").read() for f in files_b)
+    flights = -(-line_b["n"] // BATCH_CLI)
+    log("band_cli", cd_mean_band=line_b["cd_mean"], cd_mean_f32=line_f["cd_mean"],
+        n=line_b["n"], cli_s_band=s_b, cli_s_f32=s_f, files_equal=same,
+        band_overflows=max(overflows or [0]), nondeterministic_ops=ops,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    if not (same and line_b["cd_mean"] == line_f["cd_mean"] and np.isfinite(line_b["cd_mean"])
+            and len(overflows) == flights):
+        raise AssertionError(f"band cli: {line_b} against {line_f}, files equal {same}, "
+                             f"overflows {overflows}")
+    launched_only("band cli", launches, {"fused_trunk_cn_batched": flights})
+    return launches
+
+
+def options_phase(dev, cfg):
+    """(e) of band: the option branches at VTacO_YCB's UNet3D widths
+    (f_maps 32, 32 channels in and out) on a 64^3 grid, one forward each on
+    the card against the CPU at 'highest' (within 1e-4 of the largest
+    value): UNet3D with layer order 'cbr' (train-mode BatchNorm) and
+    ResidualUNet3D (basic_module ext_resnet) at one level, and at the
+    config's four levels the raise of F9 (c)."""
+    from vtaco_tpu_torch.models.unet3d import build_unet3d
+
+    kw = dict(cfg["model"]["encoder_kwargs"]["unet3d_kwargs"])
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, kw["in_channels"], 64, 64, 64, generator=g)
+    out = {}
+    for name, over in (("cbr", dict(layer_order="cbr")),
+                       ("ext_resnet", dict(basic_module="ext_resnet", num_levels=1))):
+        torch.manual_seed(0)
+        net = build_unet3d(dict(kw, **over)).train()
+        cpu = copy.deepcopy(net)
+        with torch.no_grad(), matmul_precision("highest"):
+            t0 = time.perf_counter()
+            got = net.to(dev)(x.to(dev)).cpu()
+            card_s = time.perf_counter() - t0
+            want = cpu(x)
+        out[name] = float((got - want).abs().max() / want.abs().max())
+        log("options", module=name, rel_err=out[name], card_s=card_s, shape=list(got.shape))
+    try:
+        build_unet3d(dict(kw, basic_module="ext_resnet")).to(dev)(x.to(dev))
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    log("options", ext_resnet_levels=kw["num_levels"], raised=raised)
+    if max(out.values()) > 1e-4 or raised is None or "F9 (c)" not in raised:
+        raise AssertionError(f"options: {out}, raised {raised}")
+
+
 def batched_cli_stage(root, vt):
     """(h) cli.generate --batched BATCH_CLI on VTacO_YCB's test split from
     (b)'s checkpoint, then on its train split (more flights): the last
@@ -1994,6 +2268,7 @@ def parallel_phase(root, data, vt):
         one = {k2: v[:1] for k2, v in c.items()}
         ref_dense = gen.eval_points_dense(model, nx, one)
         ref_batched = gen.decode_dense_batched(model, nx, c)
+        ref_band = gen.decode_dense_batched_band(model, nx, c)
         ref_mise = multires_decode_batched(gen, model, c, 64, 2, None)
         # deterministic kernels: each run encodes anew, and the scatter's
         # atomics would move a logit across the bfloat16 transfer's rounding
@@ -2005,6 +2280,7 @@ def parallel_phase(root, data, vt):
         sharded = gen.eval_points_dense_sharded(model, nx, one, mesh)
         sharded_s = time.perf_counter() - t0
         batched = gen.decode_dense_batched(model, nx, c, device_mesh=mesh)
+        band = gen.decode_dense_batched_band(model, nx, c, device_mesh=mesh)
         st = {}
         grids, levels = multires_decode_batched(gen, model, c, 64, 2, None, device_mesh=mesh,
                                                 stats=st)
@@ -2018,19 +2294,21 @@ def parallel_phase(root, data, vt):
         mise_equal = levels == ref_mise[1] and all(
             np.array_equal(a, b) for a, b in zip(grids, ref_mise[0]))
         served_equal = served == ref_serve
+        band_equal = band[1] == ref_band[1] and all(
+            np.array_equal(a, b) for a, b in zip(band[0], ref_band[0]))
         log("parallel", card=repr(card), sharded_nx=nx, sharded_s=sharded_s,
             sharded_bf16_steps_max=int(steps.max()), sharded_points_off=int((steps > 0).sum()),
             batched_equal=bool(np.array_equal(batched, ref_batched)), mise_equal=mise_equal,
-            served_equal=served_equal, served=served,
+            band_equal=band_equal, served_equal=served_equal, served=served,
             **{f"launches_{k2}": v for k2, v in launches.items() if v})
         if steps.max() > 1 or not np.array_equal(batched, ref_batched) or not mise_equal or (
-                not served_equal):
+                not served_equal) or not band_equal:
             raise AssertionError("parallel: a decode over the mesh differs from the call "
                                  "without one")
         levels_run = sum(1 for q in st["query_pts"] if q)
         launched_only("parallel", launches, {
             "fused_trunk_cn": 1,
-            "fused_trunk_cn_batched": 1 + (1 + levels_run) + -(-len(test) // 2)})
+            "fused_trunk_cn_batched": 2 + (1 + levels_run) + -(-len(test) // 2)})
     finally:
         dist.destroy_process_group()
     log("parallel", card=repr(card), seconds=time.perf_counter() - t_phase)
@@ -2850,7 +3128,7 @@ def fast_precision(phase, name, cfg, trainer, state, hold):
     loss_bar, grad_bars = step_bars(name)
     weights = "seed0" if hold else "trained"
     log(phase, weights=weights, vs_float32_highest="loss_rel_gap", bar=loss_bar, held=hold,
-        **rel)
+        **({} if hold else {"jax_full_width_bars": trained_bars(name)}), **rel)
     log(phase, weights=weights, vs_float32_highest="grad_rel_dist", bars=grad_bars, held=hold,
         **dist)
     log(phase, weights=weights, dtypes_bf16_step=seen16, dtypes_f32_step=seen32)
@@ -3522,13 +3800,14 @@ def pipeline_phase():
     vh = vtacoh_stage(root, data)
     launches = generate_stage(root, vt, tac, vh)
     batched = batched_cli_stage(root, vt)
+    band = band_cli_stage(root, vt)
     par = parallel_phase(root, data, vt)
     visualize_stage(root, vt, tac, vh)
     crop_stage(root, data)
     families = families_phase(root, data, tac[1])
     fast = fast_phase(root, data, tac[1])
     shutil.rmtree(root)
-    return launches, batched, dict(fast, parallel=par, **families)
+    return launches, batched, dict(fast, parallel=par, band_cli_generate=band, **families)
 
 
 def main():
@@ -3566,9 +3845,12 @@ def main():
     launches = main_path_phase(dev, cfg, model, batch, gens)
     eval_launches = eval_points_phase(dev, model, batch, gens)
     batched_paths = batched_phase(dev, peak, cfg, model)
+    batched_paths.update(band_phase(dev, cfg, model, batch))
+    options_phase(dev, cfg)
     del model, gens
     h_cfg, h_model, h_batch, h_gen = build_vtacoh()
     h_mesh, cimg_rows = vtacoh_mesh_phase(dev, peak, h_cfg, h_model, h_batch, h_gen)
+    batched_paths["vtacoh_band_mesh"] = band_tips(dev, h_cfg, h_model, h_batch)
     h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
     cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
     del h_model, h_gen

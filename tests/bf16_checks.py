@@ -53,6 +53,17 @@ JAX_GRAD_REL = {"vtaco": {"decoder": (0.2074, 0.1579, 0.6396),
                            "encoder_img": (1.084, 0.4348, 2.07)},
                 "tactile": {"encoder_hand": (0.05652, 0.0533, 0.1017),
                             "encoder_img": (0.4556, 0.4479, 0.4598)}}
+# config → JAX's gaps at trained full-width weights: the shipped widths,
+# 19 float32 JAX steps from each of seeds 21-23 on a 320x240 synthetic set,
+# excess precision off (`JAX_PLATFORMS=cpu PYTHONPATH=.:tests python
+# tests/test_torch_fast_trained.py --full-width --configs tactile`): the root
+# mean square and the largest of the loss scalars' relative gaps, and each
+# module's pooled relative gradient distance. tests/f5_card.py holds the
+# card's step at the same weights to twice these (F5, ROADMAP.md §3).
+JAX_TRAINED_FULL_WIDTH = {
+    "tactile": {"loss_rms": 0.0010544066889218696, "loss_max": 0.0018424731736895537,
+                "grad_rel": {"encoder_hand": 0.048714315624631466,
+                             "encoder_img": 0.3594212475102306}}}
 MODULE_OUT_BAR, MODULE_GRAD_BAR = 0.6, 0.8
 CARD_BAR = 0.8
 CARD_OUTPUTS_LOGGED = ("encoder_hand",)
@@ -64,6 +75,16 @@ def step_bars(name):
     against its float32 step: twice the JAX package's."""
     return (2 * JAX_LOSS_GAP[name][0],
             {m: 2 * v[0] for m, v in JAX_GRAD_REL[name].items()})
+
+
+def trained_bars(name):
+    """Twice JAX_TRAINED_FULL_WIDTH[name]: the bars of a bfloat16 step at
+    those trained weights (None where JAX's gap was not measured)."""
+    ref = JAX_TRAINED_FULL_WIDTH.get(name)
+    if ref is None:
+        return None
+    return {"loss_rms": 2 * ref["loss_rms"], "loss_max": 2 * ref["loss_max"],
+            "grad_rel": {m: 2 * v for m, v in ref["grad_rel"].items()}}
 
 
 def bf16_batchnorm(self, x):

@@ -4,7 +4,8 @@ csrc/tile_chain.cuh) against their plain PyTorch versions on the card,
 and the training path on the card: one VTacO_YCB train step and one
 tactile depth-stack step against the same steps on the CPU, a bfloat16
 step against the card's float32 one, a fused block of steps with no host
-sync, a mesh reconstructed through K1 from the checkpoint that
+sync, the iso-band meshes against the float32 transfer's (single, after an
+overflow, batched), a mesh reconstructed through K1 from the checkpoint that
 train.loop.train writes, and the generation CLI on the card
 reconstructing a split through K1 (all at small widths on the port's
 synthetic set).
@@ -598,6 +599,87 @@ def test_train_then_mesh(cuda, train_cfg):
         (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
     assert K.fused_trunk_gated_cn.launches >= 1
     assert len(faces) > 0 and np.isfinite(verts).all() and np.isfinite(cd)
+
+
+def _band_setup(train_cfg):
+    """A model of train_cfg with random weights, its decoder's feature
+    conditioning damped (an object-sized surface), a validation batch,
+    its encoded grid and contact gates, and a band generator at the
+    midpoint level."""
+    cfg = copy.deepcopy(train_cfg)
+    cfg["generation"]["mc_level"] = "midpoint"
+    torch.manual_seed(0)
+    model = get_model(cfg).eval()
+    with torch.no_grad():
+        for fc in model.decoder.fc_c:
+            fc.weight.mul_(0.3)
+    batch = next(iter(BatchLoader(get_dataset("val", cfg, return_idx=True), 1,
+                                  shuffle=False, num_workers=1)))
+    gen = get_generator(model, cfg, band_transfer=True)
+    with torch.no_grad():
+        c, gates = gen._encode_sample(model, batch, 0)
+    return cfg, model, batch, gen, c, gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gating", ["none", "contact"])
+def test_band_mesh_equals_full_transfer_on_card(cuda, train_cfg, gating):
+    """eval_points_dense_band on the card (K1 or K2, then the band's
+    extraction): its mesh equals marching cubes of the float32 transfer of
+    the same logits bit for bit, with no overflow; with cap 1 it overflows
+    once and returns the float32 grid."""
+    from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
+
+    cfg, model, batch, gen, c, gates = _band_setup(train_cfg)
+    if gating == "none":
+        gates = ("none", None, None, None)
+    nx = gen.resolution0 * 4
+    full = gen.eval_points_dense(model, nx, c, *gates, transfer_dtype=torch.float32)
+    K.fused_trunk_cn.launches = K.fused_trunk_gated_cn.launches = 0
+    verts, faces, level = gen.eval_points_dense_band(model, nx, c, *gates, mesh=True)
+    assert (K.fused_trunk_gated_cn if gating == "contact" else K.fused_trunk_cn).launches == 1
+    assert level == float(np.float32((float(full.min()) + float(full.max())) / 2))
+    want = marching_cubes(full.reshape(nx, nx, nx), level=level)
+    assert len(faces) > 0 and gen.band_overflows == 0
+    assert np.array_equal(verts, want[0]) and np.array_equal(faces, want[1])
+    grid, _ = gen.eval_points_dense_band(model, nx, c, *gates, cap=1)
+    assert gen.band_overflows == 1 and np.array_equal(grid.reshape(-1), full)
+
+
+@pytest.mark.cuda
+def test_band_batched_and_generate_on_card(cuda, train_cfg):
+    """decode_dense_batched_band (one K2 batched launch) against
+    decode_dense_batched's float32 transfer, blocking and with
+    finish_batched_band(mesh=True); and generate_obj_mesh_wnf with
+    band_transfer true against false under deterministic algorithms (the
+    encoder's scatter), the same mesh, chamfer and EMD."""
+    from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
+
+    cfg, model, batch, gen, c, _ = _band_setup(train_cfg)
+    nx = gen.resolution0 * 4
+    cB = {k: torch.cat([v * (1.0 + 0.1 * b) for b in range(3)]) for k, v in c.items()}
+    full = gen.decode_dense_batched(model, nx, cB, transfer_dtype=torch.float32)
+    K.fused_trunk_cn_batched.launches = 0
+    grids, levels = gen.decode_dense_batched_band(model, nx, cB)
+    raw, fin = gen.decode_dense_batched_band(model, nx, cB, return_device=True)
+    meshes, _ = gen.finish_batched_band(model, raw, fin, mesh=True)
+    assert K.fused_trunk_cn_batched.launches == 2 and gen.band_overflows == 0
+    for b in range(3):
+        want = marching_cubes(full[b].reshape(nx, nx, nx), level=levels[b])
+        for got in (marching_cubes(grids[b], level=levels[b]), meshes[b]):
+            assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = []
+        for band in (False, True):
+            g = get_generator(model, cfg, band_transfer=band)
+            np.random.seed(0)
+            out.append(g.generate_obj_mesh_wnf(model, batch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ((v0, f0), emd0, cd0), ((v1, f1), emd1, cd1) = out
+    assert len(f0) > 0 and np.array_equal(v0, v1) and np.array_equal(f0, f1)
+    assert (emd0, cd0) == (emd1, cd1)
 
 
 @pytest.mark.cuda

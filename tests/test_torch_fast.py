@@ -338,5 +338,3 @@ def test_unet3d_remat_modes(remat):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="remat"):
         build_unet3d(dict(kw, remat="all"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_unet3d(dict(kw, basic_module="ext_resnet"))

@@ -92,19 +92,60 @@ def leaves(out):
                                                   torch.bfloat16)}
 
 
-def jax_module(jtr, params, stats, mod, x, cot):
+_JAX_SETUP, _JAX_JIT = {}, {}
+
+
+def jax_setup(name, synth):
+    """The JAX side of one config's module checks, built once per config
+    and synthetic set and shared by every module case of it in a file:
+    (cfg, the float32 and bfloat16 JAX trainers, the batch, the variables'
+    shapes, each seed's random (params, batch_stats))."""
+    key = (name, tuple(synth))
+    if key not in _JAX_SETUP:
+        cfg = small(name, synth)
+        jmodel, _ = jax_get_model(cfg)
+        jbank = jax_build_mesh_bank(cfg) if name == "vtaco" else None
+        jtrs = {dt: JaxTrainer.from_config(jmodel, cfg, mesh_bank=jbank, compute_dtype=dt,
+                                           **trainer_kw(name)) for dt in (None, "bfloat16")}
+        np.random.seed(0)   # the items' subsampling and noise draw from it
+        batch = dict(next(iter(JaxBatchLoader(jax_get_dataset("train", cfg), batch_size=2,
+                                              num_workers=1, seed=0))))
+        shapes = jtrs[None].init_state_abstract(batch)
+        weights = {}
+        for seed in SEEDS:
+            rng = np.random.default_rng(seed)
+            weights[seed] = (random_tree(shapes.params, rng),
+                             random_tree(shapes.batch_stats, rng))
+        _JAX_SETUP[key] = cfg, jtrs, batch, shapes, weights
+    return _JAX_SETUP[key]
+
+
+def jax_module(jtr, params, stats, mod, x, cot, jit=False):
     """(outputs, gradient as a state_dict) of the JAX package's module on
     x, its parameters cast by the trainer, train mode; ``cot`` the
-    cotangent by output name, None to draw it (returned third)."""
+    cotangent by output name, None to draw it (returned third). ``jit``
+    compiles the forward and its vjp once per trainer and module (for the
+    float32 reference: XLA's excess precision concerns bfloat16 only);
+    without it every operation runs and rounds on its own, as PyTorch's
+    do."""
     method = getattr(jtr.model, METHODS[mod][0])
 
-    def f(pm):
+    def apply(pm, params, stats, x):
         p = dict(params, **{mod: pm})
         out, _ = jtr._apply({"params": jtr._cast_params(p), "batch_stats": stats}, method, x,
                             train=True)
         return out
 
-    out, vjp = jax.vjp(f, params[mod])
+    if jit:
+        if (id(jtr), mod) not in _JAX_JIT:
+            _JAX_JIT[id(jtr), mod] = (jtr, jax.jit(apply), jax.jit(
+                lambda pm, params, stats, x, ct: jax.vjp(
+                    lambda q: apply(q, params, stats, x), pm)[1](ct)[0]))
+        _, fwd, bwd = _JAX_JIT[id(jtr), mod]
+        out = fwd(params[mod], params, stats, x)
+        vjp = lambda ct: (bwd(params[mod], params, stats, x, ct),)  # noqa: E731
+    else:
+        out, vjp = jax.vjp(lambda pm: apply(pm, params, stats, x), params[mod])
     lv = leaves(out)
     if cot is None:
         rng = np.random.default_rng(5)
@@ -150,15 +191,7 @@ def module_readings(name, mod, synth):
     """R of the port and of each planted fault, by output and 'grad'
     (and of the port's float32 evaluation against JAX's float32 one), and
     JAX's own gap for each weight set."""
-    cfg = small(name, synth)
-    jmodel, _ = jax_get_model(cfg)
-    jbank = jax_build_mesh_bank(cfg) if name == "vtaco" else None
-    jtrs = {dt: JaxTrainer.from_config(jmodel, cfg, mesh_bank=jbank, compute_dtype=dt,
-                                       **trainer_kw(name)) for dt in (None, "bfloat16")}
-    np.random.seed(0)   # the items' subsampling and noise draw from it
-    batch = dict(next(iter(JaxBatchLoader(jax_get_dataset("train", cfg), batch_size=2,
-                                          num_workers=1, seed=0))))
-    shapes = jtrs[None].init_state_abstract(batch)
+    cfg, jtrs, batch, shapes, weights = jax_setup(name, synth)
     has_bn = any(".bn" in k or "downsample" in k for k in
                  TI.export_state_dict({mod: shapes.params[mod]}, {}))
     faults = ["float32"] + (["bf16_batchnorm"] if has_bn else [])
@@ -173,11 +206,10 @@ def module_readings(name, mod, synth):
             got[1][k].astype(np.float64) - ref[1][k])) for k in live)))
 
     for seed in SEEDS:
-        rng = np.random.default_rng(seed)
-        params, stats = random_tree(shapes.params, rng), random_tree(shapes.batch_stats, rng)
+        params, stats = weights[seed]
         x = {dt: jtr._cast_batch(jtr.prepare_batch(batch))[METHODS[mod][1]]
              for dt, jtr in jtrs.items()}
-        j32 = jax_module(jtrs[None], params, stats, mod, x[None], None)
+        j32 = jax_module(jtrs[None], params, stats, mod, x[None], None, jit=True)
         cot = j32[2]
         j16 = jax_module(jtrs["bfloat16"], params, stats, mod, x["bfloat16"], cot)
         live = sorted(set(j32[1]) - exact_zero(j32[1]))

@@ -19,13 +19,21 @@ tests/test_torch_fast_trained.py`, which prints both references, at the
 random weights too: chip_smoke.py's bars, tests/fast_bars.py, come from
 them).
 
+With ``--full-width`` the same script trains at the configs' shipped
+widths on a 320x240 synthetic set (F5: JAX's own gap at trained full-width
+weights; ``--configs``, ``--seeds``), and ``--export DIR`` writes the trained
+weights, config and batch that tests/f5_card.py runs on the card.
+
 Bars: the port's float32-to-bfloat16 gap at most twice the reference's,
 on the root mean square of the loss scalars' relative gaps over the
 three sets, and for each module on its gradient's distance, pooled over
 the sets (tests/test_torch_fast_modules.py leaves out the same zero
 gradients); the float32 steps agree as in tests/test_torch_train.py."""
 
+import argparse
 import json
+import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +48,7 @@ from vtaco_tpu.train.loop import build_mesh_bank as jax_build_mesh_bank
 from vtaco_tpu.train.trainer import Trainer as JaxTrainer
 
 from bf16_checks import exact_zero
-from test_torch_fast import port_trainer, share_cores, small, trainer_kw  # noqa: F401
+from test_torch_fast import CONFIGS, port_trainer, share_cores, small, trainer_kw  # noqa: F401
 from test_torch_fast_bf16 import rms, step_draws
 from test_torch_fast_modules import make_synth
 from test_torch_setup import random_tree
@@ -75,15 +83,46 @@ def jax_grad_fn(jtr, options):
     return run
 
 
-def trained_gaps(name, synth, references=(("faithful", FAITHFUL),), train_steps=TRAIN_STEPS):
+def full_width(name, synth):
+    """Config ``name`` at its shipped widths and data sizes on the synthetic
+    set ``synth`` (its paths only replaced), at 'highest'."""
+    from vtaco_tpu.core.config import load_config
+
+    root, mesh_root = synth
+    cfg = load_config(CONFIGS[name], "configs/default.yaml")
+    cfg["data"].update(path=root, mesh_dir=os.path.join(mesh_root, "mesh_obj"),
+                       depth_origin=os.path.join(mesh_root, "depth_origin.txt"))
+    cfg["training"].update(matmul_precision="highest")
+    return cfg
+
+
+def export_trained(out_dir, name, cfg, seed, params, stats, batch):
+    """The trained weights (the port's state_dict names), the config and
+    the step's batch, for tests/f5_card.py on a machine without JAX."""
+    from vtaco_tpu_torch.core.weights import export_state_dict
+
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(cfg, f)
+    np.savez(os.path.join(out_dir, f"{name}_batch.npz"),
+             **{k: v for k, v in batch.items() if isinstance(v, np.ndarray)
+                and v.dtype.kind in "fiub"})
+    np.savez(os.path.join(out_dir, f"{name}_seed{seed}.npz"),
+             **export_state_dict(params, stats))
+
+
+def trained_gaps(name, synth, references=(("faithful", FAITHFUL),), train_steps=TRAIN_STEPS,
+                 make_cfg=small, export=None, seeds=SEEDS):
     """After ``train_steps`` float32 JAX steps from each weight set, for
     each reference (XLA options) and the port: the relative gaps of
     the loss scalars between the bfloat16 and float32 steps, and each
     module's squared gradient distance and squared float32 norm, by
     weight set (the tensors that the reference's float32 step moves, less
     exact_zero's); and the float32 steps' largest relative
-    disagreement."""
-    cfg = small(name, synth)
+    disagreement. ``make_cfg``: small (the tests' widths) or full_width;
+    ``export``: a directory for export_trained; ``seeds``: the weight
+    sets."""
+    cfg = make_cfg(name, synth)
     jmodel, _ = jax_get_model(cfg)
     jbank = jax_build_mesh_bank(cfg) if name == "vtaco" else None
     jtrs = {dt: JaxTrainer.from_config(jmodel, cfg, mesh_bank=jbank, compute_dtype=dt,
@@ -96,7 +135,7 @@ def trained_gaps(name, synth, references=(("faithful", FAITHFUL),), train_steps=
            for dt, jtr in jtrs.items()}
     out = {ref: {"loss": [], "grad": {}} for ref, _ in references + (("port", None),)}
     f32_err = 0.0
-    for seed in SEEDS:
+    for seed in seeds:
         rng = np.random.default_rng(seed)
         params, stats = random_tree(shapes.params, rng), random_tree(shapes.batch_stats, rng)
         state = jtrs[None]._state_from_variables({"params": params, "batch_stats": stats})
@@ -105,6 +144,8 @@ def trained_gaps(name, synth, references=(("faithful", FAITHFUL),), train_steps=
         params = jax.tree.map(np.asarray, state.params)
         stats = jax.tree.map(np.asarray, state.batch_stats)
         batch = batches[0]
+        if export:
+            export_trained(export, name, cfg, seed, params, stats, batch)
         runs = {}
         for ref, _ in references:
             for dt, jtr in jtrs.items():
@@ -161,12 +202,37 @@ def test_bf16_step_at_trained_weights(synth, name):
 
 
 if __name__ == "__main__":
+    # JAX's float32-to-bfloat16 gaps (and the port's on the CPU) behind
+    # tests/bf16_checks.py: at the tests' small widths on 16x12 images by
+    # default; with --full-width at the configs' shipped widths and data
+    # sizes on a synthetic set of 6 models with 320x240 images (the card's
+    # pipeline set's image size), after TRAIN_STEPS float32 steps only.
     import tempfile
 
+    from vtaco_tpu.data.synthetic import generate as jax_generate
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--full-width", action="store_true")
+    ap.add_argument("--configs", default="vtaco,vtacoh,tactile")
+    ap.add_argument("--seeds", default=",".join(map(str, SEEDS)))
+    ap.add_argument("--export", default=None,
+                    help="write each config's trained weights, config and batch here "
+                         "(tests/f5_card.py reads them)")
+    args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
-    root = make_synth(tempfile.mkdtemp())
-    for steps in (0, TRAIN_STEPS):
-        for n in ("vtaco", "vtacoh", "tactile"):
-            s, err = trained_gaps(n, root, (("faithful", FAITHFUL), ("xla_default", {})), steps)
-            print(json.dumps({"config": n, "train_steps": steps, "float32_rel_err": err, **s}),
-                  flush=True)
+    if args.full_width:
+        root = jax_generate(tempfile.mkdtemp(), n_models=6, n_query=100_000,
+                            n_surface=20_000, img_h=320, img_w=240, seed=7,
+                            splits=(("train", 0.67), ("val", 0.33)))
+    else:
+        root = make_synth(tempfile.mkdtemp())
+    for steps in (TRAIN_STEPS,) if args.full_width else (0, TRAIN_STEPS):
+        for n in args.configs.split(","):
+            t0 = time.perf_counter()
+            s, err = trained_gaps(n, root, (("faithful", FAITHFUL), ("xla_default", {})), steps,
+                                  full_width if args.full_width else small,
+                                  args.export if steps else None,
+                                  tuple(int(x) for x in args.seeds.split(",")))
+            print(json.dumps({"config": n, "train_steps": steps, "full_width": args.full_width,
+                              "seconds": time.perf_counter() - t0, "float32_rel_err": err,
+                              **s}), flush=True)

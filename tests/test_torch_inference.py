@@ -42,7 +42,7 @@ from vtaco_tpu_torch.ops import geometry as TG
 from vtaco_tpu_torch.utils import meshio
 
 from test_torch_generate import FEATURE_GAIN, MAX_TRI_BOUND, _triangles, _vertex_bound
-from test_torch_setup import port_cfg, random_tree
+from test_torch_setup import random_tree
 from test_trainer import _small_cfg
 
 IMG_H, IMG_W = 16, 12
@@ -322,11 +322,10 @@ def test_pipeline_through_the_clis(synth, tmp_path, capsys):
     assert json.loads(out.strip().splitlines()[-1])["n"] == 1
 
 
-@pytest.mark.parametrize("what", ["points_unfast", "dense_band",
-                                  "tensorboard", "profile_dir", "debug_nans"])
+@pytest.mark.parametrize("what", ["points_unfast", "tensorboard", "profile_dir",
+                                  "debug_nans"])
 def test_unported_options_raise(synth, tmp_path, what, monkeypatch):
-    """The batched iso-band transfer ``decode_dense_batched_band`` (ROADMAP
-    item 10) raises instead of running without it. The chunked legacy
+    """Options that raised until they were ported. The chunked legacy
     ``decode_points_batched(fast=False)`` (item 7) equals the JAX
     package's. The loop's TensorBoard, profiler and NaN-debug options,
     which raised until they were ported, now run a step: event files
@@ -353,12 +352,6 @@ def test_unported_options_raise(synth, tmp_path, what, monkeypatch):
         with pytest.raises(ValueError, match="lattice_reso"):
             gen.decode_points_batched(tmodel, pts, {"grid": torch.as_tensor(g)},
                                       fast=False, lattice_reso=8)
-    elif what == "dense_band":
-        model = get_model(port_cfg(), device="cpu")
-        gen = get_generator(model, port_cfg())
-        c = {"grid": torch.zeros(2, 4, 4, 4, 8)}
-        with pytest.raises(NotImplementedError, match="decode_dense_batched_band.*item 10"):
-            gen.decode_dense_batched_band(model, 4, c)
     else:
         import functools
 

@@ -159,17 +159,6 @@ def test_load_config_matches_jax(path):
         path, "configs/default.yaml")
 
 
-@pytest.mark.parametrize("change", ["band"])
-def test_get_generator_rejects_unported_modes(change):
-    from vtaco_tpu_torch.core.config import get_generator, get_model
-
-    cfg = port_cfg()
-    cfg["generation"]["band_transfer"] = True
-    model = get_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_generator(model, cfg)
-
-
 def test_full_width_model_loads_jax_tree():
     """VTacO_YCB at full width: a JAX tree of the flagship's shapes loads
     strictly into the port, every submodule (the hand encoder and the

@@ -1,5 +1,5 @@
-"""Model and generator factory (port of vtaco_tpu/core/factory.py:44-183
-and the registries of vtaco_tpu/core/registry.py:37-55).
+"""Model and generator factory (port of vtaco_tpu/core/factory.py:44-183),
+looking module names up in core/registry.py.
 
 Builds every key of the JAX package's registries: the object ``encoder``
 (pointnet_local_pool; pointnet_crop_local_pool, the crop form;
@@ -31,39 +31,19 @@ from __future__ import annotations
 import copy
 import inspect
 
+from vtaco_tpu_torch.core.registry import decoder_dict, encoder_dict
 from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork
-from vtaco_tpu_torch.models.decoder import (
-    AttentionDecoder,
-    LocalDecoder,
-    LocalPointDecoder,
-    PatchLocalDecoder,
-)
-from vtaco_tpu_torch.models.layers import Resnet18, Resnet34, Resnet50, TactileUNet
 from vtaco_tpu_torch.models.mano import ManoLayer
-from vtaco_tpu_torch.models.pointnet import (
-    IndexEncoder,
-    LocalPoolPointnet,
-    PatchLocalPoolPointnet,
-)
-from vtaco_tpu_torch.models.pointnetpp import PointNetPlusPlus
-from vtaco_tpu_torch.models.voxels import LocalVoxelEncoder
+from vtaco_tpu_torch.models.pointnet import IndexEncoder
 from vtaco_tpu_torch.ops.geometry import crop_levels, update_reso
-
-encoder_dict = {"pointnet_local_pool": LocalPoolPointnet,
-                "pointnet_crop_local_pool": PatchLocalPoolPointnet,
-                "pointnet_plus_plus": PointNetPlusPlus,
-                "voxel_simple_local": LocalVoxelEncoder,
-                "Resnet18": Resnet18, "Resnet34": Resnet34, "Resnet50": Resnet50,
-                "UNet": TactileUNet}
-decoder_dict = {"simple_local": LocalDecoder, "attention_local": AttentionDecoder,
-                "simple_local_crop": PatchLocalDecoder,
-                "simple_local_point": LocalPointDecoder}
 
 
 def _lookup(table, name, what):
     if name not in table:
         raise NotImplementedError(
-            f"{what} {name!r} is not ported yet (ROADMAP.md lists the queue)")
+            f"{what} {name!r} is not registered: core/registry.py holds every name "
+            "of the JAX package's registry and those added by register_encoder / "
+            "register_decoder")
     return table[name]
 
 

@@ -20,7 +20,13 @@ port's modules follow the export.
 
 Layouts: Dense kernels (in, out) transpose to (out, in); conv kernels
 (*k, I, O) become (O, I, *k) (transpose convs (*k, I, O) become a
-spatially flipped (I, O, *k)); BatchNorm ``scale``/``bias`` and
+spatially flipped (I, O, *k)). The U-Nets' ``upconv_1x1`` (the 1x1 conv
+after a bilinear upsampling) is a plain conv here, where the JAX
+package's ``export_state_dict`` lays it out as a transpose conv (its name
+holds "upconv"), and the order-string index of a layer inside an
+ExtResNetBlock's conv1/2/3 is dropped as inside DoubleConv's SingleConvs,
+where the JAX package's export keeps it (``conv1.conv1``) when the conv
+comes second in the order; BatchNorm ``scale``/``bias`` and
 ``mean``/``var`` become ``weight``/``bias`` and
 ``running_mean``/``running_var``.
 """
@@ -107,9 +113,13 @@ def _translate_path(path: Tuple[str, ...]) -> str:
             out.append("downsample.1")
             continue
         m = re.fullmatch(r"(conv|groupnorm|batchnorm)(\d+)", comp)
-        in_single_conv = i > 0 and bool(re.fullmatch(r"SingleConv\d", path[i - 1]))
+        in_single_conv = i > 0 and bool(
+            re.fullmatch(r"SingleConv\d", path[i - 1])
+            or (i > 1 and re.fullmatch(r"conv[123]", path[i - 1])
+                and re.fullmatch(r"(enc|dec)\d+", path[i - 2])))
         if m and (in_single_conv or comp not in ("conv1", "conv2", "conv3")):
-            # UNet3D SingleConv sub-layers drop their order-string index;
+            # UNet3D SingleConv sub-layers (DoubleConv's SingleConv1/2 and
+            # ExtResNetBlock's conv1/2/3) drop their order-string index;
             # numbered convs elsewhere (UNet2D, ResNet) keep it
             out.append(m.group(1))
             continue
@@ -150,7 +160,7 @@ def export_state_dict(params, batch_stats):
                     v = v[:, :, None]  # back to the pointwise Conv1d
             elif v.ndim in (4, 5):
                 dims = v.ndim - 2
-                if "upconv" in tname or "upsample" in tname:
+                if ("upconv" in tname and "upconv_1x1" not in tname) or "upsample" in tname:
                     v = v[tuple(slice(None, None, -1) for _ in range(dims))]
                     v = v.transpose((dims, dims + 1) + tuple(range(dims)))
                 else:

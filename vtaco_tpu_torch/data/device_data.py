@@ -24,15 +24,11 @@ import numpy as np
 import torch
 
 from vtaco_tpu_torch.data.fields import VoxelsField
+from vtaco_tpu_torch.data.npz_cache import load_npz
 
 # the stacked fields, in the JAX package's order
 FIELDS = ("points", "occ", "contact", "pc_hand", "mano", "wrist", "cam_pos", "cam_rot",
           "pc_points", "pc_normals", "pc_ply", "img", "depth", "touch_success")
-
-
-def _load(path):
-    with np.load(path, allow_pickle=True) as z:
-        return {k: z[k] for k in z.files}
 
 
 class DeviceDataset:
@@ -56,8 +52,8 @@ class DeviceDataset:
         cols = {k: [] for k in FIELDS}
         for entry in dataset.models:
             mdir = os.path.join(dataset.dataset_folder, entry["category"], entry["model"])
-            pd = _load(os.path.join(mdir, "points.npz"))
-            cd = _load(os.path.join(mdir, "pointcloud.npz"))
+            pd = load_npz(os.path.join(mdir, "points.npz"))
+            cd = load_npz(os.path.join(mdir, "pointcloud.npz"))
             self.names.append(entry["model"][:-5])
             f32 = {"points": pd["points"], "occ": pd["occupancies"],
                    "contact": pd["contact"], "pc_hand": pd["pc_hand"], "mano": pd["mano"],

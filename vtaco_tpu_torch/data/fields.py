@@ -17,6 +17,7 @@ import os
 
 import numpy as np
 
+from vtaco_tpu_torch.data.npz_cache import load_npz
 from vtaco_tpu_torch.ops.geometry import coord2index, normalize_coord
 
 
@@ -33,13 +34,13 @@ class IndexField(Field):
 
 
 def _load(model_path, file_name, multi_files):
-    """The field's npz file as a dict of arrays."""
+    """The field's npz file as a dict of arrays (read-only, from
+    data/npz_cache.py's LRU)."""
     path = os.path.join(model_path, file_name)
     if multi_files is not None:
         num = np.random.randint(multi_files)
         path = os.path.join(path, "%s_%02d.npz" % (file_name, num))
-    with np.load(path, allow_pickle=True) as z:
-        return {k: z[k] for k in z.files}
+    return load_npz(path)
 
 
 class PointsField(Field):

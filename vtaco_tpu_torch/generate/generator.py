@@ -9,7 +9,10 @@ detection :1003-1137, ``eval_points_fast`` :1139-1286, window planning
 :1597-1629, ``_build_gates`` :2175-2210, ``generate_obj_mesh_wnf``
 :2212-2293 through its full-volume branch, the batched decodes
 ``decode_dense_batched`` :1704-1794 and ``decode_points_batched``
-:1915-2120 through its fast path, ``generate_obj_mesh_mise`` :2296-2371,
+:1915-2120 through its fast path, the iso-band transfer
+``_band_enabled`` :812-827, ``eval_points_dense_band`` :829-922,
+``decode_dense_batched_band`` and ``finish_batched_band`` :1797-1912 and
+``_obj_mesh_band`` :2123-2175, ``generate_obj_mesh_mise`` :2296-2371,
 ``generate_hand_mesh`` :2374-2405, ``generate_tactile_pc`` :2408-2450,
 ``LoopGenerator`` and ``make_loop_generator`` :2453-2512).
 
@@ -47,6 +50,12 @@ points with its corner-gathered features). ``generate_obj_mesh_mise``
 refines a coarse dense decode where the surface passes
 (generate/mise.py).
 
+With ``band_transfer`` true the dense decodes ship the iso-band instead of
+the nx³ float32 volume (generate/band.py): the same decode and trunk, then
+``band_extract`` on the device and one copy of its payload; the mesh equals
+the full float32 transfer's bit for bit, and a band that overflows its
+buffer takes the full transfer (``band_overflows`` counts it).
+
 Over a device mesh (parallel.mesh.Mesh, one process per card) the
 batched decodes split the object axis over the data ranks: each rank
 decodes its objects (a batch that does not divide the data axis is
@@ -80,6 +89,14 @@ import torch
 
 from vtaco_tpu_torch import native
 from vtaco_tpu_torch.core.precision import TF32, matmul_precision as _precision
+from vtaco_tpu_torch.generate.band import (
+    band_extract,
+    band_marching_cubes,
+    band_payload,
+    band_reconstruct,
+    band_unpack,
+    default_cap,
+)
 from vtaco_tpu_torch.generate.marching_cubes import marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops import metrics
@@ -162,6 +179,11 @@ def _object(c, b):
     return {k: v[b] for k, v in c.items()}
 
 
+def _object_fields(c, b):
+    """Object b's fields of batched feature fields, as a batch of one."""
+    return {k: v[b:b + 1] for k, v in c.items()}
+
+
 def _at_precision(fn):
     """Run a Generator3D method under the TF32 flags its
     ``matmul_precision`` names, restoring the process's own after."""
@@ -182,8 +204,10 @@ class Generator3D:
         """``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
-        ``band_transfer``: the iso-band transfer (generate/band.py) is not
-        ported; 'auto' resolves to off and true raises.
+        ``band_transfer``: true ships the dense decodes' iso-band
+        (generate/band.py) in place of the float32 volume, for a
+        LocalDecoder; 'auto' resolves to off (the JAX package turns it on
+        on a TPU only).
         ``matmul_precision``: the JAX precision name every model forward of
         the generator runs at: 'highest' (the default, as the JAX
         package's) turns cuBLAS's and cuDNN's TF32 off, as the reference
@@ -228,9 +252,6 @@ class Generator3D:
         if use_pallas not in ("auto", True, False):
             raise ValueError("generation.use_pallas must be 'auto', true, or "
                              f"false; got {use_pallas!r}")
-        if band_transfer is True:
-            raise NotImplementedError("band_transfer (generate/band.py) is not "
-                                      "ported yet (ROADMAP.md, item 10)")
         self.model = model
         self.matmul_precision = matmul_precision
         self.use_kernels = use_pallas is not False
@@ -243,6 +264,8 @@ class Generator3D:
         self.legacy_gt_depth = legacy_gt_depth
         self.mc_level = mc_level
         self.transfer_dtype = _TRANSFER[transfer_dtype]
+        self.band_transfer = band_transfer
+        self.band_overflows = 0
         self.coord_quant = coord_quant is True
         # eval_points slices its input above this many points, as the JAX
         # package does; the window route's tile and window sizes are the
@@ -433,6 +456,90 @@ class Generator3D:
             tp, c, gate_pts, gate_feat, gate_valid, nx, gating, dtype,
             decoder.leaky, out_dtype=_transfer(transfer_dtype),
             out_xmajor=xmajor))
+
+    # ------------------------------------------------------------------
+    # the iso-band transfer (generate/band.py)
+    def _band_enabled(self, model):
+        """``band_transfer`` resolved for ``model``: true, and only for a
+        decoder the fast routes reproduce; 'auto' is off (the JAX package
+        turns it on on a TPU only)."""
+        return self.band_transfer is True and self._fast_capable(model)
+
+    def _band_level_args(self):
+        """band_extract's (level_mode, level_const) for ``mc_level``."""
+        if self.mc_level in ("midpoint", "mean"):
+            return self.mc_level, 0.0
+        return "const", float(self.mc_level)
+
+    def _band_payload(self, logits, nx, cap):
+        """(nx³,) x-slowest device logits → their band payload, one uint8
+        device buffer (band_payload), at the level ``mc_level`` names."""
+        mode, const = self._band_level_args()
+        return band_payload(*band_extract(logits, nx, cap, mode, const))
+
+    def _dense_band(self, model, nx, c, gating, gate_pts, gate_feat, gate_valid,
+                    dtype, cap):
+        """The dense decode of eval_points_dense (the same trunk, so the
+        same logits), then its band: (the x-slowest device logits, the host
+        payload (count, level, packed, vals)). The one copy of the payload
+        is the only wait for the card."""
+        tp = FT.extract_trunk_params(model.decoder, with_img=gating != "none")
+        logits = self._decode_dense_fast_impl(tp, c, gate_pts, gate_feat, gate_valid, nx,
+                                              gating, dtype, model.decoder.leaky)
+        host = self._band_payload(logits, nx, cap).cpu().numpy()
+        return logits, band_unpack(host, nx, cap)
+
+    @torch.inference_mode()
+    @_at_precision
+    def eval_points_dense_band(self, model, nx, c=None, gating="none", gate_pts=None,
+                               gate_feat=None, gate_valid=None, dtype=torch.float32,
+                               cap=None, inputs=None, mesh=False):
+        """Dense nx³ decode that ships only the iso-band (generate/band.py).
+
+        Returns ``(value_grid, level)``: a host (nx, nx, nx) float32 grid
+        whose marching cubes at ``level`` equal the full float32
+        transfer's bit for bit, and the level resolved on the device from
+        ``mc_level`` (the midpoint, the mean or the number). Vertices
+        outside the band hold level ± 1: the grid is for the iso-surface,
+        not for values. ``inputs`` (a B=1 object cloud) in place of ``c``
+        encodes first. ``mesh=True`` returns ``(verts, faces, level)``
+        from the band payload with no grid (native/mc.cpp). A band larger
+        than ``cap`` (default ``default_cap(nx)``) takes the full float32
+        transfer of the same logits, and ``band_overflows`` counts it."""
+        if not self._fast_capable(model):
+            raise NotImplementedError(
+                "the channels-first fast trunk reproduces LocalDecoder only; got "
+                f"{type(model.decoder).__name__} (use eval_points(fast=False))")
+        cap = default_cap(nx) if cap is None else cap
+        if inputs is not None:
+            dev = next(model.parameters()).device
+            c = model.encode_inputs(torch.as_tensor(np.asarray(inputs), dtype=torch.float32,
+                                                    device=dev))
+        logits, (count, level, packed, vals) = self._dense_band(
+            model, nx, c, gating, gate_pts, gate_feat, gate_valid, dtype, cap)
+        if count > cap:
+            self.band_overflows += 1
+            grid = _host(logits).reshape(nx, nx, nx)
+            if mesh:
+                return (*marching_cubes(grid, level=level, gradient="ascent"), level)
+            return grid, level
+        if mesh:
+            return (*band_marching_cubes(nx, level, count, packed, vals), level)
+        return band_reconstruct(nx, level, count, packed, vals), level
+
+    def _obj_mesh_band(self, model, nx, c, gates, cap=None):
+        """generate_obj_mesh_wnf's band route on an encoded sample: its
+        gated dense decode (K1, K2, or K2 on fingertip rows), the band on
+        the device, one payload copy, and the mesh from the payload in
+        voxel units; None when the band overflows ``cap`` (the caller then
+        takes the full transfer)."""
+        cap = default_cap(nx) if cap is None else cap
+        _, (count, level, packed, vals) = self._dense_band(model, nx, c, *gates,
+                                                           torch.float32, cap)
+        if count > cap:
+            self.band_overflows += 1
+            return None
+        return band_marching_cubes(nx, level, count, packed, vals)
 
     @torch.inference_mode()
     @_at_precision
@@ -834,15 +941,80 @@ class Generator3D:
             out = _gather_objects(out, device_mesh, rows)
         return out if return_device else _host(out)
 
-    def decode_dense_batched_band(self, *args, **kw):
-        raise NotImplementedError("decode_dense_batched_band (the batched iso-band "
-                                  "transfer, generate/band.py) is not ported yet "
-                                  "(ROADMAP.md, item 10)")
+    @torch.inference_mode()
+    @_at_precision
+    def decode_dense_batched_band(self, model, nx, c_batched, device_mesh=None,
+                                  dtype=torch.float32, cap=None, return_device=False):
+        """decode_dense_batched with each object's iso-band shipped in place
+        of its volume (generate/band.py): the same batched K2 decode, then
+        each object's band on the device, and one copy of the (B, bytes)
+        payloads. Returns ``(grids, levels)``: B host (nx, nx, nx) grids
+        whose meshes at their levels equal the full float32 transfer's,
+        and the levels. ``return_device=True`` returns ``(payloads,
+        fin_args)`` without waiting, for ``finish_batched_band``. With
+        ``device_mesh`` each data rank decodes its objects and every rank
+        holds every payload."""
+        if not self._fast_capable(model):
+            raise NotImplementedError(
+                "decode_dense_batched_band needs a LocalDecoder (the fast trunk cannot "
+                f"reproduce {type(model.decoder).__name__})")
+        cap = default_cap(nx) if cap is None else cap
+        rows, c_local = None, c_batched
+        if device_mesh is not None:
+            rows = batch_rows(len(next(iter(c_batched.values()))), device_mesh)
+            c_local = shard_batch(device_mesh, c_batched)
+        logits = self.decode_dense_batched(model, nx, c_local, dtype=dtype, return_device=True,
+                                           transfer_dtype=torch.float32)
+        raw = torch.stack([self._band_payload(row, nx, cap) for row in logits])
+        if rows is not None:
+            raw = gather_rows(raw, device_mesh, rows)
 
-    def finish_batched_band(self, *args, **kw):
-        raise NotImplementedError("finish_batched_band (the batched iso-band "
-                                  "transfer, generate/band.py) is not ported yet "
-                                  "(ROADMAP.md, item 10)")
+        def grid_of(b):
+            """Object b's float32 grid: its row of this rank's logits (the
+            float32 transfer of the same decode), or another rank's object
+            decoded again alone."""
+            if rows is None or rows.replicated or rows.start <= b < rows.stop:
+                local = b if rows is None or rows.replicated else b - rows.start
+                return _host(logits[local]).reshape(nx, nx, nx)
+            return self.eval_points_dense(
+                model, nx, _object_fields(c_batched, b - rows.host_start), dtype=dtype,
+                transfer_dtype=torch.float32).reshape(nx, nx, nx)
+
+        fin_args = (nx, cap, grid_of)
+        if return_device:
+            return raw, fin_args
+        return self.finish_batched_band(model, raw, fin_args)
+
+    @torch.inference_mode()
+    @_at_precision
+    def finish_batched_band(self, model, raw, fin_args, mesh=False):
+        """The blocking half of ``decode_dense_batched_band(return_device=
+        True)``: one copy of the payloads, then per object, on host_map's
+        threads, its grid (``(grids, levels)``) or, with ``mesh=True``, its
+        mesh in voxel units from the payload with no grid (``(meshes,
+        levels)``). An object whose band overflowed takes the float32
+        transfer of its logits (``fin_args``' grid of object b), and
+        ``band_overflows`` counts it."""
+        from vtaco_tpu_torch.generate.mise import host_map
+
+        nx, cap, grid_of = fin_args
+        payloads = [band_unpack(h, nx, cap) for h in raw.cpu().numpy()]
+        full = {}
+        for b, (count, _, _, _) in enumerate(payloads):
+            if count > cap:
+                self.band_overflows += 1
+                full[b] = grid_of(b)
+
+        def one(b):
+            count, level, packed, vals = payloads[b]
+            if b in full:
+                return (marching_cubes(full[b], level=level, gradient="ascent") if mesh
+                        else full[b])
+            if mesh:
+                return band_marching_cubes(nx, level, count, packed, vals)
+            return band_reconstruct(nx, level, count, packed, vals)
+
+        return host_map(one, range(len(payloads))), [p[1] for p in payloads]
 
     @torch.inference_mode()
     @_at_precision
@@ -1054,6 +1226,8 @@ class Generator3D:
         ``inputs.touch_success``, ``inputs.pc_ply``, ``points.*``: fingertip
         gating reads ``points.mano`` and ``points.wrist``). It runs
         on the device that holds ``model``'s parameters.
+        With ``band_transfer`` true the decode ships its iso-band (the
+        same mesh; the full transfer after an overflow).
         Returns ((verts, faces), emd, chamfer). A crop batch
         (``pointcloud_crop``) raises: it holds no object scan, which the JAX
         package reads there and fails (F6 (b), ROADMAP.md §3), and so does a
@@ -1074,19 +1248,19 @@ class Generator3D:
         box_size = 1 + self.padding
         nx = self.resolution0 * 4
         points_obj = np.asarray(data["points.points_obj"])
-        c, (gating, gate_pts, gate_feat, gate_valid) = self._encode_sample(
-            model, data, seed)
-        values = self.eval_points_dense(
-            model, nx, c, gating, gate_pts, gate_feat, gate_valid,
-            transfer_dtype=self.transfer_dtype)
-        value_grid = values.reshape(nx, nx, nx)
-
-        level = None  # midpoint: marching_cubes' default
-        if self.mc_level == "mean":
-            level = float(value_grid.mean())
-        elif isinstance(self.mc_level, (int, float)):
-            level = float(self.mc_level)
-        verts, faces = marching_cubes(value_grid, level=level, gradient="ascent")
+        c, gates = self._encode_sample(model, data, seed)
+        mesh = self._obj_mesh_band(model, nx, c, gates) if self._band_enabled(model) else None
+        if mesh is None:
+            values = self.eval_points_dense(model, nx, c, *gates,
+                                            transfer_dtype=self.transfer_dtype)
+            value_grid = values.reshape(nx, nx, nx)
+            level = None  # midpoint: marching_cubes' default
+            if self.mc_level == "mean":
+                level = float(value_grid.mean())
+            elif isinstance(self.mc_level, (int, float)):
+                level = float(self.mc_level)
+            mesh = marching_cubes(value_grid, level=level, gradient="ascent")
+        verts, faces = mesh
         verts = verts - np.array([nx / 2, nx / 2, nx / 2], np.float32)
         verts = verts * box_size / nx
 

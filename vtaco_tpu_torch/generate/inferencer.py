@@ -19,7 +19,10 @@ before this one's host work (threaded marching cubes, mesh files, one
 batched chamfer on the device), so that the host work overlaps the card's.
 Over a device mesh every rank iterates the same loader and encodes and
 decodes its objects of each flight; rank 0 gathers the logits and does
-the host work alone.
+the host work alone. With ``generation.band_transfer`` true a flight
+ships each object's iso-band instead of its logits
+(``decode_dense_batched_band``) and the meshes come from the payloads
+(``finish_batched_band(mesh=True)``): the meshes of the float32 transfer.
 
 Every model forward runs at the generator's ``matmul_precision``
 (``generation.matmul_precision``, 'highest' by default: no TF32).
@@ -27,6 +30,7 @@ Every model forward runs at the generator's ``matmul_precision``
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -93,7 +97,9 @@ class Inferencer:
         writing ``{name}_obj.off`` to ``out_dir`` (default: the config's
         vis directory). Per flight: one batched encode and
         ``decode_dense_batched`` (bfloat16 transfer, ``return_device``),
-        the copy of its logits to pinned host memory started at once;
+        or with ``band_transfer`` ``decode_dense_batched_band`` (the band
+        payloads; meshes from ``finish_batched_band(mesh=True)``), the
+        copy of its logits to pinned host memory started at once;
         flight k+1 is launched before flight k's host work: marching
         cubes per object on ``host_map``'s threads at the midpoint level,
         the mesh files, and one batched chamfer on the device against
@@ -117,16 +123,27 @@ class Inferencer:
         dtype = torch.float32 if dtype is None else dtype
         names, cds = [], []
         rng = np.random.default_rng(0)
+        use_band = gen._band_enabled(model)
 
         def dispatch(inputs_list, names_b, objs):
             with torch.inference_mode(), matmul_precision(gen.matmul_precision):
                 inputs = np.stack(inputs_list)
+                fin_args = None
                 if device_mesh is not None:
                     rows = batch_rows(len(inputs), device_mesh)
-                    inputs = rows.take(inputs)
-                c = model.encode_inputs(torch.as_tensor(inputs, device=dev))
-                logits = gen.decode_dense_batched(model, nx, c, dtype=dtype,
-                                                  return_device=True)
+                    local = rows.take(inputs)
+                else:
+                    local = inputs
+                c = model.encode_inputs(torch.as_tensor(local, device=dev))
+                if use_band:
+                    logits, fin_args = gen.decode_dense_batched_band(
+                        model, nx, c, dtype=dtype, return_device=True)
+                    if device_mesh is not None:
+                        fin_args = fin_args[:2] + (functools.partial(
+                            grid_of, fin_args[2], rows, inputs),)
+                else:
+                    logits = gen.decode_dense_batched(model, nx, c, dtype=dtype,
+                                                      return_device=True)
                 if device_mesh is not None:
                     logits = gather_rows(logits, device_mesh, rows)
                 done = None
@@ -139,17 +156,32 @@ class Inferencer:
                     done = torch.cuda.Event()
                     done.record()
                     logits = host
-            return logits, done, names_b, objs
+            return logits, fin_args, done, names_b, objs
+
+        def grid_of(local_grid, rows, inputs, b):
+            """Object b's float32 grid after its band overflowed: from this
+            rank's logits, or, for another rank's object, encoded and
+            decoded again alone by the rank that runs the host work."""
+            if rows.replicated or rows.start <= b < rows.stop:
+                return local_grid(b - (0 if rows.replicated else rows.start))
+            with torch.inference_mode(), matmul_precision(gen.matmul_precision):
+                x = inputs[b - rows.host_start][None]
+                c1 = model.encode_inputs(torch.as_tensor(x, device=dev))
+                return gen.eval_points_dense(model, nx, c1, dtype=dtype,
+                                             transfer_dtype=torch.float32).reshape(nx, nx, nx)
 
         def mc_one(v):
-            verts, faces = marching_cubes(v.reshape(nx, nx, nx), gradient="ascent")
-            return (verts - nx / 2) * box / nx, faces
+            return marching_cubes(v.reshape(nx, nx, nx), gradient="ascent")
 
         def consume(flight):
-            logits, done, names_b, objs = flight
+            logits, fin_args, done, names_b, objs = flight
             if done is not None:
                 done.synchronize()
-            meshes = host_map(mc_one, list(logits.float().numpy()))
+            if use_band:
+                meshes, _ = gen.finish_batched_band(model, logits, fin_args, mesh=True)
+            else:
+                meshes = host_map(mc_one, list(logits.float().numpy()))
+            meshes = [((verts - nx / 2) * box / nx, faces) for verts, faces in meshes]
             samples, empty = [], []
             for (verts, faces), name in zip(meshes, names_b):
                 if out_dir:

@@ -35,6 +35,13 @@ distances. It has no tactile and no contact head (F8 (b), ROADMAP.md §3).
 
 Only LocalDecoder reaches the fast routes and K1-K4: the trunk mixin
 keeps the others out of its class tree.
+
+With ``c_dim`` 0 a decoder has no ``fc_c`` and samples no features: the
+trunk sees the coordinates alone (and the tactile rows through
+``fc_p_img``), as in the JAX package. There the fast routes then fail
+(they read ``fc_c``), and the attention decoder's fusion of a
+0-channel field fails: the port raises at both (F9 (a), (b), ROADMAP.md
+§3).
 """
 
 from __future__ import annotations
@@ -62,10 +69,20 @@ class _Trunk:
         return F.leaky_relu(x, 0.2) if self.leaky else F.relu(x)
 
     def _trunk(self, net, c):
-        """(the trunk's last hidden state, its logit)."""
+        """(the trunk's last hidden state, its logit); ``c`` is not read
+        without ``fc_c`` (c_dim 0)."""
         for i in range(self.n_blocks):
-            net = self.blocks[i](net + self.fc_c[i](c))
+            if self.fc_c is not None:
+                net = net + self.fc_c[i](c)
+            net = self.blocks[i](net)
         return net, self.fc_out(self._act(net)).squeeze(-1)
+
+
+def _fc_c(c_dim, hidden_size, n_blocks):
+    """The trunk's feature projections, or None for c_dim 0."""
+    if c_dim == 0:
+        return None
+    return nn.ModuleList(nn.Linear(c_dim, hidden_size) for _ in range(n_blocks))
 
 
 class LocalDecoder(_Trunk, nn.Module):
@@ -73,16 +90,12 @@ class LocalDecoder(_Trunk, nn.Module):
                  leaky=False, sample_mode="bilinear", padding=0.1,
                  with_contact=False, **_ignored):
         super().__init__()
-        if c_dim == 0:
-            raise NotImplementedError("LocalDecoder with c_dim 0 is not ported "
-                                      "(ROADMAP.md, item 11)")
         self.c_dim = c_dim
         self.n_blocks = n_blocks
         self.leaky = leaky
         self.sample_mode = sample_mode
         self.padding = padding
-        self.fc_c = nn.ModuleList(nn.Linear(c_dim, hidden_size)
-                                  for _ in range(n_blocks))
+        self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
         self.fc_p = nn.Linear(dim, hidden_size)
         self.fc_p_img = nn.Linear(dim + c_dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size)
@@ -92,7 +105,9 @@ class LocalDecoder(_Trunk, nn.Module):
 
     def sample_features(self, p, c_plane):
         """The sum of every field's features sampled at p (B, N, 3) →
-        (B, N, C)."""
+        (B, N, C); None with c_dim 0."""
+        if self.c_dim == 0:
+            return None
         if not isinstance(c_plane, dict):
             raise NotImplementedError(
                 "a field decoder on a feature vector (encoder: idx): the JAX "
@@ -132,16 +147,14 @@ class PatchLocalDecoder(_Trunk, nn.Module):
                  sample_mode="bilinear", local_coord=False, pos_encoding="linear",
                  unit_size=0.1, padding=0.1, **_ignored):
         super().__init__()
-        if c_dim == 0:
-            raise NotImplementedError("PatchLocalDecoder with c_dim 0 is not ported "
-                                      "(ROADMAP.md, item 11)")
+        self.c_dim = c_dim
         self.n_blocks = n_blocks
         self.leaky = leaky
         self.sample_mode = sample_mode
         self.local_coord = local_coord
         self.pos_encoding = pos_encoding
         self.unit_size = unit_size
-        self.fc_c = nn.ModuleList(nn.Linear(c_dim, hidden_size) for _ in range(n_blocks))
+        self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
         width = dim * 20 if local_coord and pos_encoding == "sin_cos" else dim
         self.fc_p = nn.Linear(width, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size) for _ in range(n_blocks))
@@ -150,11 +163,12 @@ class PatchLocalDecoder(_Trunk, nn.Module):
     def forward(self, p, c_plane):
         p_n, pts = p["p_n"], p["p"]
         c = 0
-        if "grid" in c_plane:
-            c = c + interp_grid(c_plane["grid"], p_n["grid"], mode=self.sample_mode)
-        for key in PLANES:
-            if key in c_plane:
-                c = c + interp_plane(c_plane[key], p_n[key], mode=self.sample_mode)
+        if self.c_dim != 0:
+            if "grid" in c_plane:
+                c = c + interp_grid(c_plane["grid"], p_n["grid"], mode=self.sample_mode)
+            for key in PLANES:
+                if key in c_plane:
+                    c = c + interp_plane(c_plane[key], p_n[key], mode=self.sample_mode)
         if self.local_coord:
             pts = map2local(pts, self.unit_size, self.pos_encoding)
         return self._trunk(self.fc_p(pts), c)[1]
@@ -164,28 +178,30 @@ class AttentionDecoder(_Trunk, nn.Module):
     def __init__(self, dim=3, c_dim=128, hidden_size=256, n_blocks=5, leaky=False,
                  sample_mode="bilinear", padding=0.1, with_contact=False):
         super().__init__()
-        if c_dim == 0:
-            raise NotImplementedError("AttentionDecoder with c_dim 0 is not ported "
-                                      "(ROADMAP.md, item 11)")
+        self.c_dim = c_dim
         self.n_blocks = n_blocks
         self.leaky = leaky
         self.sample_mode = sample_mode
         self.padding = padding
-        self.fc_c = nn.ModuleList(nn.Linear(c_dim, hidden_size)
-                                  for _ in range(n_blocks))
+        self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
         self.fc_p = nn.Linear(dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size)
                                     for _ in range(n_blocks))
         self.fc_out = nn.Linear(hidden_size, 1)
         self.fc_out_contact = nn.Linear(hidden_size, 1) if with_contact else None
-        self.fuser = TransformerFusion(d_model=c_dim, num_layers=1, key_feature_dim=64,
-                                       with_pos_embed=False)
+        self.fuser = None if c_dim == 0 else TransformerFusion(
+            d_model=c_dim, num_layers=1, key_feature_dim=64, with_pos_embed=False)
 
     sample_features = LocalDecoder.sample_features
     forward = LocalDecoder.forward
     forward_contact = LocalDecoder.forward_contact
 
     def forward_img(self, p, c_plane, c_img):
+        if self.fuser is None:
+            raise NotImplementedError(
+                "attention_local with c_dim 0 and tactile features: the JAX package's "
+                "TransformerFusion on a 0-channel field fails with a ZeroDivisionError "
+                "(vtaco_tpu/models/decoder.py:170, F9 (b), ROADMAP.md §3)")
         c = self.fuser(c_img, None, self.sample_features(p, c_plane), None)
         return self._trunk(self.fc_p(p), c)[1]
 
@@ -194,14 +210,12 @@ class LocalPointDecoder(_Trunk, nn.Module):
     def __init__(self, dim=3, c_dim=128, hidden_size=256, n_blocks=5, leaky=False,
                  sample_mode="gaussian", gaussian_val=0.1):
         super().__init__()
-        if c_dim == 0:
-            raise NotImplementedError("LocalPointDecoder with c_dim 0 is not ported "
-                                      "(ROADMAP.md, item 11)")
+        self.c_dim = c_dim
         self.n_blocks = n_blocks
         self.leaky = leaky
         self.sample_mode = sample_mode
         self.gaussian_val = gaussian_val
-        self.fc_c = nn.ModuleList(nn.Linear(c_dim, hidden_size) for _ in range(n_blocks))
+        self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
         self.fc_p = nn.Linear(dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size) for _ in range(n_blocks))
         self.fc_out = nn.Linear(hidden_size, 1)
@@ -221,8 +235,10 @@ class LocalPointDecoder(_Trunk, nn.Module):
         return weight @ fea
 
     def forward(self, p, c):
-        pp, fea = c
-        return self._trunk(self.fc_p(p), self.sample_point_feature(p, pp, fea))[1]
+        if self.c_dim != 0:
+            pp, fea = c
+            c = self.sample_point_feature(p, pp, fea)
+        return self._trunk(self.fc_p(p), c)[1]
 
     def forward_img(self, *args):
         raise NotImplementedError(

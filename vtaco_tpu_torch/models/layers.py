@@ -273,8 +273,8 @@ class TactileUpConv(UpConv):
     """Transpose-conv upsample, skip merge, two 3x3 convs with one shared
     BatchNorm."""
 
-    def __init__(self, in_ch, out_ch, merge_mode="concat"):
-        super().__init__(in_ch, out_ch, merge_mode)
+    def __init__(self, in_ch, out_ch, merge_mode="concat", up_mode="transpose"):
+        super().__init__(in_ch, out_ch, merge_mode, up_mode)
         self.bn = BatchNorm2d(out_ch)
 
     def forward(self, from_down, from_up):
@@ -290,7 +290,7 @@ class TactileUNet(nn.Module):
     def __init__(self, num_classes=1, in_channels=3, depth=4, start_filts=32,
                  up_mode="transpose", merge_mode="concat", **_ignored):
         super().__init__()
-        check_unet_modes(up_mode, merge_mode)
+        check_unet_modes(merge_mode)
         self.down_convs = nn.ModuleList()
         outs = in_channels
         for i in range(depth):
@@ -299,7 +299,7 @@ class TactileUNet(nn.Module):
         self.up_convs = nn.ModuleList()
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
-            self.up_convs.append(TactileUpConv(ins, outs, merge_mode))
+            self.up_convs.append(TactileUpConv(ins, outs, merge_mode, up_mode))
         self.conv_final = nn.Conv2d(outs, num_classes, 1)
 
     def forward(self, x):

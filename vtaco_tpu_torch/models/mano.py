@@ -1,11 +1,14 @@
 """Differentiable MANO hand layer (port of vtaco_tpu/models/mano.py:39-191
 and the asset loading of models/mano_assets.py:77).
 
-Pose coefficients → per-joint rotations (axis-angle through quaternions)
-→ shape and pose blendshapes → forward kinematics over the 16-joint
+Pose coefficients → per-joint rotations (axis-angle through quaternions;
+the root's from the 6D representation with ``root_rot_mode`` 'rotmat', as
+the JAX package reads it) → shape and pose blendshapes → forward kinematics over the 16-joint
 kintree → linear blend skinning: 778 vertices and 21 joints (16 MANO
 joints and 5 fingertip vertices, reordered wrist/thumb/index/middle/
-ring/pinky). The layer has no parameters: its constants are buffers that
+ring/pinky); with ``return_transf`` also each joint's (B, 16, 4, 4)
+world transform, recentred or moved by ``trans`` as the vertices are. The
+layer has no parameters: its constants are buffers that
 are not saved with the state_dict, read from the converted asset
 ``vtaco_tpu/assets/mano_right.npz`` as a data file.
 """
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from vtaco_tpu_torch.ops.geometry import batch_rodrigues, const
+from vtaco_tpu_torch.ops.geometry import batch_rodrigues, const, rot6d_to_rotmat
 
 DEFAULT_NPZ = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -45,12 +48,14 @@ class ManoLayer(nn.Module):
                  robust_rot=False, return_transf=False, return_full_pose=False,
                  assets_npz=None):
         super().__init__()
-        if root_rot_mode != "axisang" or joint_rot_mode != "axisang":
-            raise NotImplementedError("ManoLayer: only axis-angle rotations are "
-                                      "ported (ROADMAP.md)")
-        if return_transf:
-            raise NotImplementedError("ManoLayer(return_transf=True) is not "
-                                      "ported (ROADMAP.md)")
+        if use_pca and joint_rot_mode != "axisang":
+            raise TypeError("use_pca requires joint_rot_mode='axisang'")
+        # the joints' rotations are axis-angle whatever joint_rot_mode says,
+        # as in the JAX package; the root's are 6D under 'rotmat'
+        if root_rot_mode not in ("axisang", "rotmat"):
+            raise KeyError(f"root_rot_mode {root_rot_mode}")
+        self.rot = 3 if root_rot_mode == "axisang" else 6
+        self.return_transf = return_transf
         self.center_idx = center_idx
         self.use_pca = use_pca
         self.ncomps = ncomps if use_pca else 45
@@ -70,18 +75,24 @@ class ManoLayer(nn.Module):
         self.kintree_parents = [int(p) for p in a["kintree_parents"]]
 
     def forward(self, pose_coeffs, betas=None, trans=None):
-        """(B, 3 + ncomps) → (verts (B, 778, 3), joints (B, 21, 3)[, full
-        pose (B, 48)]). The layer computes in its constants' dtype: a
+        """(B, rot + ncomps) → (verts (B, 778, 3), joints (B, 21, 3)[,
+        transforms (B, 16, 4, 4)][, full pose (B, rot + 45)]), rot 3 for an
+        axis-angle root and 6 for a 6D one. The layer computes in its constants' dtype: a
         bfloat16 input (the hand encoder's coefficients under mixed
         precision) is cast to float32 here, where the JAX package promotes
         it at the layer's first product."""
         pose_coeffs = pose_coeffs.to(self.shapedirs.dtype)
         B = pose_coeffs.shape[0]
-        hand_pose = pose_coeffs[:, 3:3 + self.ncomps]
+        hand_pose = pose_coeffs[:, self.rot:self.rot + self.ncomps]
         if self.use_pca:
             hand_pose = hand_pose @ self.selected_comps
-        full_pose = torch.cat([pose_coeffs[:, :3], self.hands_mean + hand_pose], dim=1)
-        rots = batch_rodrigues(full_pose.reshape(B * 16, 3)).reshape(B, 16, 3, 3)
+        full_pose = torch.cat([pose_coeffs[:, :self.rot], self.hands_mean + hand_pose],
+                              dim=1)
+        if self.rot == 3:
+            rots = batch_rodrigues(full_pose.reshape(B * 16, 3)).reshape(B, 16, 3, 3)
+        else:
+            joints = batch_rodrigues(full_pose[:, 6:].reshape(B * 15, 3)).reshape(B, 15, 3, 3)
+            rots = torch.cat([rot6d_to_rotmat(full_pose[:, :6])[:, None], joints], dim=1)
         eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
         pose_map = (rots[:, 1:] - eye).reshape(B, 15 * 9)
 
@@ -126,6 +137,7 @@ class ManoLayer(nn.Module):
         jtr = torch.cat([G[:, :, :3, 3], tips], dim=1).index_select(
             1, const(tuple(JOINT_REORDER), torch.int64, dev))
 
+        center = None
         if trans is None:
             if self.center_idx is not None:
                 center = jtr[:, self.center_idx:self.center_idx + 1]
@@ -134,6 +146,15 @@ class ManoLayer(nn.Module):
         else:
             jtr = jtr + trans[:, None]
             verts = verts + trans[:, None]
+        out = [verts, jtr]
+        if self.return_transf:
+            g_t = G[:, :, :3, 3:]
+            if center is not None:
+                g_t = g_t - center[:, :, :, None]
+            if trans is not None:
+                g_t = g_t + trans[:, None, :, None]
+            out.append(torch.cat([torch.cat([G[:, :, :3, :3], g_t], dim=3),
+                                  G[:, :, 3:]], dim=2))
         if self.return_full_pose:
-            return verts, jtr, full_pose
-        return verts, jtr
+            out.append(full_pose)
+        return tuple(out)

@@ -1,7 +1,14 @@
 """Plain 2D U-Net that smooths the hand encoder's plane features (port of
 vtaco_tpu/models/unet2d.py:18-102): two ReLU 3x3 convs per level, 2x2
-max-pool down, 2x2 transpose-conv up with a concat (or add) merge, a 1x1
-final conv, no normalization and no output activation. Layout NCHW.
+max-pool down, 2x2 transpose-conv up (``up_mode`` 'transpose') or, with
+any other ``up_mode``, bilinear x2 upsampling and a 1x1 conv
+(``upconv_1x1``), a concat (or add) merge, a 1x1 final conv, no
+normalization and no output activation. Layout NCHW.
+
+The bilinear x2 is ``F.interpolate(align_corners=False)``, which clamps
+the source index at the border, where ``jax.image.resize`` renormalizes
+its triangle kernel over the taps inside: at x2 both give the edge row
+itself (tests/test_torch_options.py shows it).
 """
 
 from __future__ import annotations
@@ -24,16 +31,23 @@ class DownConv(nn.Module):
 
 
 class UpConv(nn.Module):
-    def __init__(self, in_ch, out_ch, merge_mode="concat"):
+    def __init__(self, in_ch, out_ch, merge_mode="concat", up_mode="transpose"):
         super().__init__()
         self.merge_mode = merge_mode
-        self.upconv = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+        if up_mode == "transpose":
+            self.upconv = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+        else:
+            self.upconv_1x1 = nn.Conv2d(in_ch, out_ch, 1)
         self.conv1 = nn.Conv2d(2 * out_ch if merge_mode == "concat" else out_ch,
                                out_ch, 3, padding=1)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
 
     def merge(self, from_down, from_up):
-        from_up = self.upconv(from_up)
+        if hasattr(self, "upconv"):
+            from_up = self.upconv(from_up)
+        else:
+            from_up = self.upconv_1x1(F.interpolate(from_up, scale_factor=2,
+                                                    mode="bilinear", align_corners=False))
         if self.merge_mode == "concat":
             return torch.cat([from_up, from_down], dim=1)
         return from_up + from_down
@@ -43,10 +57,7 @@ class UpConv(nn.Module):
         return F.relu(self.conv2(F.relu(self.conv1(x))))
 
 
-def check_unet_modes(up_mode, merge_mode):
-    if up_mode != "transpose":
-        raise NotImplementedError(f"U-Net up_mode {up_mode!r}: only 'transpose' "
-                                  "is ported (ROADMAP.md)")
+def check_unet_modes(merge_mode):
     if merge_mode not in ("concat", "add"):
         raise ValueError(f"U-Net merge_mode {merge_mode!r}")
 
@@ -57,7 +68,7 @@ class UNet2D(nn.Module):
     def __init__(self, num_classes, in_channels=3, depth=4, start_filts=32,
                  up_mode="transpose", merge_mode="concat"):
         super().__init__()
-        check_unet_modes(up_mode, merge_mode)
+        check_unet_modes(merge_mode)
         self.down_convs = nn.ModuleList()
         outs = in_channels
         for i in range(depth):
@@ -66,7 +77,7 @@ class UNet2D(nn.Module):
         self.up_convs = nn.ModuleList()
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
-            self.up_convs.append(UpConv(ins, outs, merge_mode))
+            self.up_convs.append(UpConv(ins, outs, merge_mode, up_mode))
         self.conv_final = nn.Conv2d(outs, num_classes, 1)
 
     def forward(self, x):

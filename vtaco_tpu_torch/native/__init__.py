@@ -3,7 +3,9 @@ vtaco_tpu/native/__init__.py: the g++ build :40-71 and the facades ``_MC``
 :74-220, ``_Geom`` :227-370 and ``_Mise`` :372-422).
 
   mc   (mc.cpp)   marching cubes over packed occupancy bits, with x-slab
-                  threads whose boundary-plane vertices are welded;
+                  threads whose boundary-plane vertices are welded, and
+                  the iso-band transfer's scanner and grid reconstruction
+                  (generate/band.py);
   geom (geom.cpp) KD-tree nearest neighbours, exact winding numbers, the
                   OFF/OBJ reader and the lattice encode of eval_points;
   mise (mise.cpp) the MISE bookkeeping engine.
@@ -23,9 +25,7 @@ package), so a change to any of them builds anew and a stale library is
 never loaded. A failed build or load raises: there is no numpy fallback
 on the serving paths.
 
-Left unbound: mc.cpp's band entry points (``vtaco_mc_run_band``,
-``vtaco_band_reconstruct``), which wait for the iso-band transfer
-(ROADMAP.md, item 10), and geom.cpp's window sort
+Left unbound: geom.cpp's window sort
 (``vtaco_window_keys_sort``, ``vtaco_window_permute``): the port sorts its
 window route's points on the card (generate/generator.py, _window_plan).
 
@@ -57,6 +57,7 @@ _BUILD_LOCK = threading.Lock()
 
 _f32p = ctypes.POINTER(ctypes.c_float)
 _i32p = ctypes.POINTER(ctypes.c_int32)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 
 def _write_tables_header(path):
@@ -149,6 +150,12 @@ class _MC(_Lib):
         lib = build_and_load("mc")
         lib.vtaco_mc_run_t.restype = vp
         lib.vtaco_mc_run_t.argtypes = [_f32p, c_int, c_int, c_int, c_float, c_int]
+        lib.vtaco_mc_run_band.restype = vp
+        lib.vtaco_mc_run_band.argtypes = [_u8p, _f32p, i64, c_int, c_int, c_int, c_float,
+                                          c_int]
+        lib.vtaco_band_reconstruct.restype = i64
+        lib.vtaco_band_reconstruct.argtypes = [_u8p, _f32p, i64, c_int, c_int, c_int,
+                                               c_float, _f32p]
         lib.vtaco_mc_num_verts.restype = i64
         lib.vtaco_mc_num_verts.argtypes = [vp]
         lib.vtaco_mc_num_faces.restype = i64
@@ -175,6 +182,46 @@ class _MC(_Lib):
                 threads = max(1, min(os.cpu_count() or 1, 8))
         handle = lib.vtaco_mc_run_t(_ptr(vol), nx, ny, nz, ctypes.c_float(level),
                                     int(threads))
+        return self._copy_result(handle)
+
+    @staticmethod
+    def _band_args(nx, count, packed, vals):
+        packed = np.ascontiguousarray(packed, np.uint8)
+        vals = np.ascontiguousarray(vals, np.float32)
+        if packed.size * 8 < nx ** 3 or not 0 <= int(count) <= vals.size:
+            raise ValueError(f"band payload ({packed.size} bytes of bits, {vals.size} "
+                             f"values) cannot hold {count} values of a {nx}^3 grid")
+        return packed, vals
+
+    def marching_cubes_band(self, nx, level, count, packed, vals, threads=1):
+        """Marching cubes on a band payload (generate/band.py) with no
+        grid: the mesh of band_reconstruct plus marching_cubes. Raises
+        ValueError when the mask's active count is not ``count``."""
+        lib = self._ensure()
+        packed, vals = self._band_args(nx, count, packed, vals)
+        handle = lib.vtaco_mc_run_band(_ptr(packed, _u8p), _ptr(vals), int(count), nx, nx,
+                                       nx, ctypes.c_float(level), int(threads))
+        if not handle:
+            raise ValueError(f"band payload inconsistent: the mask's active count is "
+                             f"not {count}")
+        return self._copy_result(handle)
+
+    def band_reconstruct(self, nx, level, count, packed, vals):
+        """The (nx, nx, nx) float32 grid of a band payload: the values at
+        the active vertices, level ± 1 elsewhere. Raises ValueError when
+        the mask's active count is not ``count``."""
+        lib = self._ensure()
+        packed, vals = self._band_args(nx, count, packed, vals)
+        out = np.empty((nx, nx, nx), np.float32)
+        k = lib.vtaco_band_reconstruct(_ptr(packed, _u8p), _ptr(vals), int(count), nx, nx,
+                                       nx, ctypes.c_float(level), _ptr(out))
+        if k != count:
+            raise ValueError(f"band payload inconsistent: mask implies {k} active "
+                             f"vertices, device counted {count}")
+        return out
+
+    def _copy_result(self, handle):
+        lib = self._lib
         try:
             verts = np.empty((lib.vtaco_mc_num_verts(handle), 3), np.float32)
             faces = np.empty((lib.vtaco_mc_num_faces(handle), 3), np.int32)

@@ -20,9 +20,6 @@
 //     x == slab start) are welded to the previous slab's so the merged
 //     mesh has no duplicates. threads=1 reproduces the serial output
 //     bit-for-bit.
-//
-// The band entry points (vtaco_mc_run_band, vtaco_band_reconstruct) are
-// kept with the copy but not bound: the port has no iso-band transfer yet.
 
 #include <cstdint>
 #include <cstdlib>

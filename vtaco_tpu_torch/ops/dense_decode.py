@@ -20,6 +20,8 @@ the coordinate math divides by a ``device_scalar``.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -49,6 +51,17 @@ def _axis_interp_matrix(nx: int, R: int, box_size: float, padding: float,
     return W
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_matrix_on(nx, R, box_size, padding, three_d, dtype, device):
+    """_axis_interp_matrix as a tensor on ``device``, made once per shape:
+    copying it from the host on every decode would make the host wait for
+    the card. A normal tensor even when first asked for under
+    torch.inference_mode, so that autograd may use it later."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_axis_interp_matrix(nx, R, box_size, padding, three_d),
+                               dtype=dtype, device=device)
+
+
 def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
                             padding: float, dtype=torch.float32, z=slice(None)):
     """(C, nx³) features of every field at the dense query grid, summed, N
@@ -64,8 +77,7 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
         if g.ndim == 5:
             g = g[0]
         g = g.to(dtype)
-        W = torch.as_tensor(_axis_interp_matrix(nx, g.shape[0], box_size, padding, True),
-                            dtype=dtype, device=g.device)
+        W = _interp_matrix_on(nx, g.shape[0], box_size, padding, True, dtype, g.device)
         g = g.permute(3, 0, 1, 2)                           # (C, Z, Y, X)
         g = torch.einsum("iz,czyx->ciyx", W[z], g)
         g = torch.einsum("jy,ciyx->cijx", W, g)
@@ -78,8 +90,7 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
         if p.ndim == 4:
             p = p[0]
         p = p.to(dtype)                                     # (b, a, C)
-        W = torch.as_tensor(_axis_interp_matrix(nx, p.shape[0], box_size, padding, False),
-                            dtype=dtype, device=p.device)
+        W = _interp_matrix_on(nx, p.shape[0], box_size, padding, False, dtype, p.device)
         p = p.permute(2, 0, 1)                              # (C, b, a)
         p = torch.einsum("ia,cba->cbi", W, p)
         p = torch.einsum("jb,cbi->cji", W, p)               # (C, b, a) at the grid

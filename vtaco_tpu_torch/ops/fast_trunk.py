@@ -22,6 +22,12 @@ def extract_trunk_params(decoder, with_img: bool):
     def lin(m):
         return (m.weight.detach(), m.bias.detach())
 
+    if decoder.fc_c is None:
+        raise NotImplementedError(
+            "the fast routes on a LocalDecoder with c_dim 0: the JAX package's "
+            "extract_trunk_params reads fc_c0, which such a decoder lacks, and fails "
+            "with a KeyError at vtaco_tpu/ops/fast_trunk.py:33 (F9 (a), ROADMAP.md §3); "
+            "use eval_points(fast=False)")
     out = {
         "fc_out": lin(decoder.fc_out),
         "fc_c": [lin(m) for m in decoder.fc_c],

@@ -2,8 +2,8 @@
 
 Same contracts as the JAX functions, on torch tensors: the outlier-only
 remap of the normalizations, the ``x + R*(y + R*z)`` flat cell index, the
-reference's bespoke camera extrinsics, and the axis-angle rotations of the
-MANO layer. The crop helpers at the end (``normalize_coord``,
+reference's bespoke camera extrinsics, and the axis-angle and 6D rotations
+of the MANO layer. The crop helpers at the end (``normalize_coord``,
 ``coord2index``, ``update_reso``, ``decide_total_volume_range``) are host
 numpy, as the JAX package's are: the crop data fields and the crop
 volumes call them before anything reaches the device.
@@ -153,6 +153,18 @@ def batch_rodrigues(axisang):
     axis = axisang / angle
     half = angle * 0.5
     return quat2mat(torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1))
+
+
+def rot6d_to_rotmat(x):
+    """The 6D rotation representation (..., 6) → rotation matrices (..., 3,
+    3) (Zhou et al., CVPR 2019): the two columns Gram-Schmidt
+    orthonormalized and their cross product (manopth's rot6d.py)."""
+    a1, a2 = x[..., :3], x[..., 3:]
+    b1 = a1 / torch.linalg.norm(a1, dim=-1, keepdim=True)
+    b2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2).transpose(-1, -2)
 
 
 def axisang_to_euler_xyz(rotvec):

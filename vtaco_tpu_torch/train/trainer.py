@@ -105,7 +105,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vtaco_tpu_torch.core.precision import TF32, matmul_precision
-from vtaco_tpu_torch.models.decoder import LocalPointDecoder
+from vtaco_tpu_torch.models.decoder import AttentionDecoder, LocalPointDecoder
 from vtaco_tpu_torch.models.layers import batch_stats_group, frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.geometry import make_3d_grid
@@ -131,8 +131,15 @@ def check_trainer_init(model):
     which its train and generate CLIs do first: the initialization traces
     ``decode_img`` for every decoder (vtaco_tpu/train/trainer.py:261), and
     the point decoder of ``simple_local_point`` has no tactile head (F8
-    (d), ROADMAP.md §3). The Trainer's steps and the Generator stay open
+    (d), ROADMAP.md §3), and the attention decoder with c_dim 0 cannot fuse
+    (F9 (b)). The Trainer's steps and the Generator stay open
     to such a model, as the JAX package's do on weights from ``init``."""
+    if isinstance(model.decoder, AttentionDecoder) and model.decoder.fuser is None:
+        raise NotImplementedError(
+            "training or serving attention_local with c_dim 0 from the CLIs: the JAX "
+            "package's Trainer initializes through decode_img, whose fusion of a "
+            "0-channel field fails with a ZeroDivisionError at "
+            "vtaco_tpu/train/trainer.py:261 (F9 (b), ROADMAP.md §3)")
     if isinstance(model.decoder, LocalPointDecoder):
         raise NotImplementedError(
             "training or serving simple_local_point from the CLIs: the JAX "
