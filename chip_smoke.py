@@ -147,7 +147,7 @@ ends:
      the step against the CPU (float32, with the same fingertip draws).
      (d) generate: python -m vtaco_tpu_torch.cli.generate (its main) on
      VTacO_YCB's test split from (b)'s checkpoint and on VTacOH_YCB's from
-     (c)'s at nx = 128: the last JSON line (n >= 1, finite means), an
+     (c)'s at nx = 128, --max-samples 1: the last JSON line (n >= 1, finite means), an
      object and a hand mesh per object, K1 (VTacO) or K2 on fingertip rows
      (VTacOH) launched once per object and nothing else (every counter
      zeroed just before, read just after: these launches join the
@@ -161,7 +161,8 @@ ends:
      Inferencer.run_batched, each flight's decode between CUDA events, and
      whether flight k + 1's decode is still running on the card when
      flight k's host work starts (flight k + 1 must be launched first). (f) LoopGenerator.visualize
-     called directly on each checkpoint's model: its files must exist.
+     called directly on each checkpoint's model (VTacO's and VTacOH's
+     validation split cut to one object): its files must exist.
      (g) fast: the three *_fast configs (bfloat16 with a float32 decoder,
      the split on the card, K = 8 steps per block) on the same set, VTacO
      grafted from (a). First torch's and the port's GroupNorm on a
@@ -239,6 +240,44 @@ ends:
      the calls without one. Counters are zeroed just before the mesh
      decodes and read just after (the path "parallel"). One H100 cannot
      measure scaling over several cards.
+  widths (after 8 (a)): the generic kernel (csrc/trunk_any.cu), which
+     takes every decoder width the tile chain (hidden = C = 32) does not,
+     at (hidden, C, n_blocks) of WIDTH_CASES on random weights: K1 (contact
+     gated), K2 (coords; c_img rows of C + WIDTH_CI_EXTRA inputs; bf16
+     storage once; over WIDTH_B objects sharing the coords), K3 and K4 on
+     points sorted by super-cell of an R_GRID^3 grid, at WIDTHS_N points
+     (WIDEST_N at the widest, whose smallest tile has to fit shared
+     memory), each against its plain version (max abs error <= 1e-4,
+     points within 1e-6 of r^2 left out of the gated ones) with its route
+     asserted by the counters (the generic one launched, the tile chain
+     not), then timed beside its bound (the operations at the f32
+     CUDA-core rate, or the bytes at the memory rate) and the plain
+     version's time. Then (after options) the main path at a decoder
+     width the tile chain does not take: VTacO_YCB at hidden = C =
+     WIDE_MODEL (c_dim, the UNet3D's and ResNet-18's outputs, the decoder),
+     random weights from seed 0, the batch of phase 5:
+     generate_obj_mesh_wnf at nx = 128 contact-gated (generic K1) and
+     ungated (generic K2), eval_points on 2^21 uniform points in both
+     modes (the window route: generic K3, K4), and decode_dense_batched on
+     WIDTH_B objects (generic K2 batched); counters zeroed just before and
+     read just after, where only the generic modes may launch; every
+     launch of the path recorded with its inputs and held against its
+     plain version on them (the window modes' n_overflow against the
+     plan's), then each timed there beside its bound: these are the
+     numbers of the trunk_any rows of the kernels line, whose launches
+     this path counts, with the widths cases under "by_width".
+  jax_ckpt (after widths' main path): tests/golden/vtaco_jax.ckpt, a
+     model.ckpt that the JAX package's CheckpointIO wrote after two train
+     steps of the narrow VTacO_YCB of tests/golden/vtaco_jax.yaml (decoder
+     hidden = C = 32), loaded through the port's CheckpointIO (no JAX and
+     no msgpack here) into the model and the Trainer's Adam; eval_points on
+     JAX's 2,048 seeded points (the window route, K3) and
+     eval_points_dense on its 32^3 lattice (K2) from JAX's seeded input
+     cloud, counters zeroed just before, each within 1e-4 of
+     the JAX package's logits (tests/golden/vtaco_jax_logits.npz); then
+     one train step resumed from the file on a synthetic set made here,
+     which must finish with finite losses and Adam's step at 3 (at 2 for
+     parameters without a gradient, which torch's Adam does not step).
 Then one JSON line describing the kernels (K2's and K3's launches by
 mode, and their c_img mode's reading; K2 batched's row with the time of
 4 single-object launches beside it), and last the line
@@ -281,6 +320,7 @@ from vtaco_tpu_torch.train import loop
 from vtaco_tpu_torch.train.trainer import Trainer
 from vtaco_tpu_torch.utils import meshio
 from vtaco_tpu_torch.cli import generate as generate_cli
+from vtaco_tpu_torch.generate import generator as GEN
 from vtaco_tpu_torch.generate.generator import make_loop_generator
 from vtaco_tpu_torch.ops.dense_decode import (
     dense_feature_volume_cn,
@@ -383,6 +423,14 @@ PLANES_RESO, PLANES_EVAL_N = 64, 100_000
 # steps timed after them, the voxel grid's side and the attention
 # decoder's chunk (points_subsample and generation.batch_size; also its
 # input_size, which neither package reads)
+# widths phase: the generic kernel's (hidden, C, n_blocks) cases, its
+# points (the widest at fewer: its tile of 32 points holds 131 KB), objects
+# of K2 batched, c_img inputs beyond C, and the width of the main path's
+# VTacO_YCB there
+WIDTH_CASES = ((16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5))
+WIDTHS_N, WIDEST_N, WIDTH_B, WIDTH_CI_EXTRA, WIDE_MODEL = 1 << 21, 1 << 18, 4, 8, 64
+GENERIC_MODES = ("K1", "K2", "K2:c_img", "K2_batched", "K3", "K4")   # timed apart
+JAX_CKPT = os.path.join("tests", "golden", "vtaco_jax.ckpt")
 FAMILIES = ("r50", "r34", "pn2", "vox", "att")
 FAMILY_ITERS, FAMILY_TIMED, VOX_RES, FAMILY_ATT_CHUNK = 2, 3, 32, 2048
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -399,7 +447,14 @@ COUNTERS = {"fused_trunk_cn": (K.fused_trunk_cn, "launches"),
             "fused_trunk_cn_batched": (K.fused_trunk_cn_batched, "launches"),
             "fused_trunk_gated_cn": (K.fused_trunk_gated_cn, "launches"),
             "fused_trunk_window_cn": (K.fused_trunk_window_cn, "launches"),
-            "fused_trunk_window_cn:gated": (K.fused_trunk_window_cn, "launches_gated")}
+            "fused_trunk_window_cn:gated": (K.fused_trunk_window_cn, "launches_gated"),
+            # the generic kernel (csrc/trunk_any.cu) by mode; K2's count
+            # includes its c_img launches (launches_generic_cimg)
+            "trunk_any:K1": (K.fused_trunk_gated_cn, "launches_generic"),
+            "trunk_any:K2": (K.fused_trunk_cn, "launches_generic"),
+            "trunk_any:K2_batched": (K.fused_trunk_cn_batched, "launches_generic"),
+            "trunk_any:K3": (K.fused_trunk_window_cn, "launches_generic"),
+            "trunk_any:K4": (K.fused_trunk_window_cn, "launches_generic_gated")}
 
 
 def log(phase, **kw):
@@ -848,6 +903,402 @@ def window_kernel_phase(dev, peak):
             distance_tests=tests, distance_tests_unculled=unculled, gated_points=gated,
             wrapper_host_ms_2e19=wrapper_ms)
     return rows
+
+
+def random_tp(dev, H, C, NB, Ci=None, seed=0):
+    """extract_trunk_params' dict at any widths, every weight random and
+    fan-in scaled: fc_p, fc_p_img over 3 + Ci inputs (Ci = C by default),
+    NB blocks."""
+    g = torch.Generator().manual_seed(seed)
+
+    def lin(o, i):
+        return ((torch.randn((o, i), generator=g) / i ** 0.5).to(dev),
+                (0.1 * torch.randn(o, generator=g)).to(dev))
+
+    return {"fc_p": lin(H, 3), "fc_p_img": lin(H, 3 + (C if Ci is None else Ci)),
+            "fc_c": [lin(H, C) for _ in range(NB)],
+            "blocks": [lin(H, H) + lin(H, H) for _ in range(NB)],
+            "fc_out": lin(1, H)}
+
+
+def any_work(N, H, C, NB, Ci=0, store_bytes=4, tests=0, gated=0, window=False):
+    """[operations, bytes] the trunk needs at these widths on these inputs:
+    two operations per multiply-add of every layer (the c_img rows' Ci H
+    too), 8 per distance test the data needs and one add of h per gated
+    point, and with ``window`` interp_work's coordinates and lerps at C
+    channels. Bytes: coords, features (or none with ``window``: the
+    caller adds the grid) and c_img rows read once, logits written."""
+    ops = 2 * N * (NB * (C * H + 2 * H * H) + 4 * H + Ci * H) + 8 * tests + H * gated
+    if window:
+        ops += N * (3 * 9 + 3 + 7 * 3 * C)
+    rows = 3 + (0 if window else C) + Ci
+    return [ops, N * rows * store_bytes + 4 * N]
+
+
+def any_row(err, ms, plain_ms, work, peak):
+    """A generic kernel's JSON numbers: bound_ms the larger of its
+    operations at the f32 CUDA-core rate (IEEE FMA, as the kernel computes)
+    and its bytes at the memory rate; bound_3xtf32_ms the same with the
+    operations at the tile chain's 3xTF32 tensor-core rate."""
+    ops, nbytes = work
+    t_ops, t_bytes = ops / peak[0], nbytes / peak[2]
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops > t_bytes else "bytes",
+                bound_3xtf32_ms=max(ops / (peak[1] / 3), t_bytes) * 1e3)
+
+
+def generic_launched(phase, mode, before):
+    """Raises unless exactly one launch of generic ``mode`` and none of the
+    tile chain happened since the counters read ``before``."""
+    now = read_counters()
+    diff = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    if diff != {f"trunk_any:{mode}": 1}:
+        raise AssertionError(f"{phase}: {mode} launched {diff}")
+
+
+def widths_phase(dev, peak):
+    """Every mode of the generic kernel at each of WIDTH_CASES against its
+    plain version, its route asserted and timed. Returns {mode: {case:
+    row}}."""
+    out = {m: {} for m in GENERIC_MODES}
+    for H, C, NB in WIDTH_CASES:
+        case = f"{H}x{C}x{NB}"
+        N = WIDEST_N if H * C > 10_000 else WIDTHS_N
+        reps = 3 if N == WIDEST_N else 10
+        Ci = C + WIDTH_CI_EXTRA
+        g = torch.Generator(device=dev).manual_seed(20)
+        tp = random_tp(dev, H, C, NB)
+        tpc = random_tp(dev, H, C, NB, Ci=Ci, seed=1)
+        sets = [((torch.rand((3, N), generator=g, device=dev) * 1.1 - 0.55),
+                 torch.randn((C, N), generator=g, device=dev)) for _ in range(2)]
+        p, f = sets[0]
+        ci = torch.randn((Ci, N), generator=g, device=dev)
+        q, feat, valid = contact_sets(dev, seed=21)["invalid_rows"]
+        feat = torch.randn((5, C), generator=g, device=dev)
+        grid = torch.randn((R_GRID,) * 3 + (C,), generator=g, device=dev)
+        ps = sorted_points(dev, g, N, 1)
+        kw = dict(reso=R_GRID, padding=PADDING, L=1, S=128, tile=1024)
+        fb = torch.stack([f.roll(b, dims=1) for b in range(WIDTH_B)])
+        calls = {   # mode: (kernel call, plain call, work, keep mask or None)
+            "K2": (lambda: K.fused_trunk_cn(tp, p, f), lambda: FT.trunk_cn(tp, p, f),
+                   any_work(N, H, C, NB), None),
+            "K2:c_img": (lambda: K.fused_trunk_cn(tpc, p, f, ci),
+                         lambda: FT.trunk_cn(tpc, p, f, ci),
+                         any_work(N, H, C, NB, Ci=Ci), None),
+            "K2_batched": (lambda: K.fused_trunk_cn_batched(tp, p, fb),
+                           lambda: torch.stack([FT.trunk_cn(tp, p, x) for x in fb]),
+                           [WIDTH_B * any_work(N, H, C, NB)[0],
+                            WIDTH_B * any_work(N, H, C, NB)[1] - (WIDTH_B - 1) * 12 * N],
+                           None),
+            "K3": (lambda: K.fused_trunk_window_cn(tp, grid, ps, **kw)[0],
+                   lambda: FT.trunk_cn(tp, ps, scattered_grid_features_cn(grid, ps, PADDING)),
+                   any_work(N, H, C, NB, window=True), None),
+        }
+        tp_g = random_tp(dev, H, C, NB, seed=2)
+        tests, gated, keep = gate_stats(p, q, valid, RADIUS)
+        calls["K1"] = (lambda: K.fused_trunk_gated_cn(tp_g, p, f, q, feat, valid,
+                                                      radius=RADIUS),
+                       lambda: plain_gated(tp_g, p, f, q, feat, valid, RADIUS),
+                       any_work(N, H, C, NB, tests=tests, gated=gated), keep)
+        tests_s, gated_s, keep_s = gate_stats(ps, q, valid, RADIUS)
+        gk = dict(kw, gate_pts=q, gate_feat=feat, gate_valid=valid, radius=RADIUS)
+        calls["K4"] = (lambda: K.fused_trunk_window_cn(tp_g, grid, ps, **gk)[0],
+                       lambda: plain_gated(tp_g, ps, scattered_grid_features_cn(
+                           grid, ps, PADDING), q, feat, valid, RADIUS),
+                       any_work(N, H, C, NB, tests=tests_s, gated=gated_s, window=True),
+                       keep_s)
+        for work in (calls["K3"][2], calls["K4"][2]):
+            work[1] += grid.numel() * 4
+        with torch.no_grad():
+            for mode, (kern, plain, work, keep_) in calls.items():
+                before = read_counters()
+                got = kern()
+                torch.cuda.synchronize()
+                generic_launched("widths", mode, before)
+                want = plain()
+                if keep_ is not None and int((~keep_).sum()) * 100 > N:
+                    raise AssertionError(f"widths {case} {mode}: too many points near r")
+                err = max_err(got, want, keep_)
+                ms = cuda_ms(kern, [()], reps)
+                plain_ms = cuda_ms(plain, [()], 2)
+                out[mode][case] = r = any_row(err, ms, plain_ms, work, peak)
+                log("widths", case=case, mode=mode, N=N, max_abs_err=err, ms=ms,
+                    plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    bound_3xtf32_ms=r["bound_3xtf32_ms"],
+                    gflop=work[0] / 1e9, mb=work[1] / 1e6,
+                    tile=K.any_tile(H, C, Ci if mode.endswith("c_img") else 0),
+                    near=0 if keep_ is None else int((~keep_).sum()))
+            if case == "64x32x3":      # bf16 storage once
+                before = read_counters()
+                got = K.fused_trunk_cn(tp, p, f, store_dtype=torch.bfloat16)
+                torch.cuda.synchronize()
+                generic_launched("widths", "K2", before)
+                err = max_err(got, FT.trunk_cn(tp, K._stored(p, torch.bfloat16),
+                                               K._stored(f, torch.bfloat16)))
+                ms = cuda_ms(lambda: K.fused_trunk_cn(tp, p, f, store_dtype=torch.bfloat16),
+                             [()], reps)
+                log("widths", case=case, mode="K2", store="bfloat16", max_abs_err=err,
+                    ms=ms)
+        del sets, grid, ps, fb, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_wide_model():
+    """VTacO_YCB with every feature width WIDE_MODEL (c_dim, the UNet3D's
+    output channels, ResNet-18's per-finger features, the decoder's hidden
+    size), random weights from seed 0, the batch of phase 5 and a
+    generator per mode."""
+    cfg = load_config(os.path.join(REPO, "configs/VTacO/VTacO_YCB.yaml"),
+                      os.path.join(REPO, "configs/default.yaml"))
+    m = cfg["model"]
+    m["c_dim"] = WIDE_MODEL
+    m["encoder_kwargs"]["unet3d_kwargs"]["out_channels"] = WIDE_MODEL
+    m["encoder_img_kwargs"]["num_classes"] = WIDE_MODEL
+    m["decoder_kwargs"]["hidden_size"] = WIDE_MODEL
+    model = get_model(cfg)
+    randomize(model, seed=0)
+    batch = make_batch(np.random.default_rng(0), cfg)
+    gens = {"contact": get_generator(model, cfg)}
+    cfg_none = json.loads(json.dumps(cfg))
+    cfg_none["model"]["with_img"] = False
+    gens["none"] = get_generator(model, cfg_none)
+    return cfg, model, batch, gens
+
+
+KERNEL_WRAPPERS = ("fused_trunk_cn", "fused_trunk_cn_batched", "fused_trunk_gated_cn",
+                   "fused_trunk_window_cn")
+
+
+def _cloned(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    return tuple(map(_cloned, x)) if isinstance(x, tuple) else x
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls():
+    """The generator's kernel wrappers, each call appended to the list
+    yielded as (wrapper name, args, kwargs, result), its tensors copied so
+    that later work cannot overwrite them."""
+    calls, saved = [], {n: getattr(GEN, n) for n in KERNEL_WRAPPERS}
+
+    def recording(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, _cloned(a), {k: _cloned(v) for k, v in kw.items()},
+                          _cloned(out)))
+            return out
+        return call
+
+    for n, fn in saved.items():
+        setattr(GEN, n, recording(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(GEN, n, fn)
+
+
+def generic_plain(name, a, kw):
+    """(mode, plain call, keep mask or None, [operations, bytes], C) of a
+    recorded wrapper call: the plain version of the function the wrapper
+    computed, on the same inputs (the window modes' n_overflow apart), and
+    its feature width."""
+    tp = a[0]
+    H, NB = tp["fc_out"][0].shape[1], len(tp["blocks"])
+    store = kw.get("store_dtype")
+    sb = 2 if store == torch.bfloat16 else 4
+    if name == "fused_trunk_cn_batched":
+        p, fb = a[1:3]
+        B, C, N = fb.shape
+        ops, nbytes = any_work(N, H, C, NB, store_bytes=sb)
+        shared = p.dim() == 2
+        return ("K2_batched", lambda: torch.stack([
+            FT.trunk_cn(tp, K._stored(p if shared else p[b], store), K._stored(fb[b], store))
+            for b in range(B)]), None, [B * ops, B * nbytes - shared * (B - 1) * 3 * N * sb],
+            C)
+    if name == "fused_trunk_window_cn":
+        grid, p = a[1:3]
+        C, N = grid.shape[-1], p.shape[1]
+        ci, gp = kw.get("c_img_cn"), kw.get("gate_pts")
+        radius = kw.get("radius", RADIUS)
+
+        def feats():
+            return scattered_grid_features_cn(grid, p, kw["padding"])
+
+        if gp is not None:
+            tests, gated, keep = gate_stats(p, gp, kw["gate_valid"], radius)
+            work = any_work(N, H, C, NB, tests=tests, gated=gated, window=True)
+            work[1] += grid.numel() * 4
+            return ("K4", lambda: plain_gated(tp, p, feats(), gp, kw["gate_feat"],
+                                              kw["gate_valid"], radius), keep, work, C)
+        Ci = 0 if ci is None else ci.shape[0]
+        work = any_work(N, H, C, NB, Ci=Ci, window=True)
+        work[1] += grid.numel() * 4
+        return ("K3" if ci is None else "K3:c_img",
+                lambda: FT.trunk_cn(tp, p, feats(), ci), None, work, C)
+    p, f = a[1:3]
+    C, N = f.shape
+    if name == "fused_trunk_gated_cn":
+        gp, gf, gv = a[3:6]
+        radius = kw.get("radius", RADIUS)
+        tests, gated, keep = gate_stats(K._stored(p, store), gp, gv, radius)
+        return ("K1", lambda: plain_gated(tp, p, f, gp, gf, gv, radius, store), keep,
+                any_work(N, H, C, NB, store_bytes=sb, tests=tests, gated=gated), C)
+    ci = a[3] if len(a) > 3 else kw.get("c_img_cn")
+    Ci = 0 if ci is None else ci.shape[0]
+    return ("K2" if ci is None else "K2:c_img",
+            lambda: FT.trunk_cn(tp, K._stored(p, store), K._stored(f, store),
+                                None if ci is None else K._stored(ci, store)),
+            None, any_work(N, H, C, NB, Ci=Ci, store_bytes=sb), C)
+
+
+def wide_path_phase(dev, peak):
+    """The main path at hidden = C = WIDE_MODEL: meshes (K1, K2),
+    eval_points (K3, K4) and decode_dense_batched (K2 batched) through the
+    generic kernel only; each of those launches against its plain version
+    on the inputs the path gave it, then both timed there. Returns (the
+    counters of the path, {mode: row})."""
+    cfg, model, batch, gens = build_wide_model()
+    get = batch_tensors(batch, dev)
+    nx = gens["contact"].resolution0 * 4
+    g = torch.Generator().manual_seed(30)
+    pts = (torch.rand((1 << 21, 3), generator=g) * 1.08 - 0.54).numpy()
+    for gen in gens.values():      # first runs: cuDNN plans
+        gen.generate_obj_mesh_wnf(model, batch)
+    torch.cuda.synchronize()
+    zero_counters()
+    t = {}
+    with recorded_kernel_calls() as calls:
+        for mode, gen in gens.items():
+            np.random.seed(0)
+            t0 = time.perf_counter()
+            (verts, faces), emd, cd = gen.generate_obj_mesh_wnf(model, batch)
+            torch.cuda.synchronize()
+            t[f"mesh_{mode}_s"] = time.perf_counter() - t0
+            check_mesh(f"wide {mode}", verts, faces, emd, cd, nx)
+            log("wide", mode=mode, verts=len(verts), faces=len(faces), chamfer=cd, emd=emd)
+        with torch.no_grad():
+            c = model.encode_inputs(get("inputs"))
+            for mode, gen in gens.items():
+                gates = gen._build_gates(
+                    model, get("inputs.img"), get("inputs.depth"),
+                    get("inputs.touch_success") > 0.5, get("inputs.pc_ply"),
+                    get("points.cam_pos"), get("points.cam_rot"))
+                t0 = time.perf_counter()
+                vals = gen.eval_points(model, pts, c, *gates, transfer_dtype=torch.float32)
+                t[f"eval_points_{mode}_s"] = time.perf_counter() - t0
+                if not np.isfinite(vals).all():
+                    raise AssertionError(f"wide eval_points {mode}: non-finite logits")
+            cb = {k: torch.cat([v] * 2) for k, v in c.items()}
+            t0 = time.perf_counter()
+            grids = gens["none"].decode_dense_batched(model, nx, cb)
+            t["decode_dense_batched_s"] = time.perf_counter() - t0
+        launches = read_counters()
+    want = {"trunk_any:K1": 1, "trunk_any:K2": 1, "trunk_any:K3": 1, "trunk_any:K4": 1,
+            "trunk_any:K2_batched": 1}
+    launched_only("wide", launches, want)
+    if not np.array_equal(grids[0], grids[1]):
+        raise AssertionError("wide decode_dense_batched: two equal objects differ")
+    del model, gens, c, cb
+    rows = {}
+    with torch.no_grad():
+        for name, a, kw, out in calls:
+            mode, plain, keep, work, C = generic_plain(name, a, kw)
+            got = out[0] if isinstance(out, tuple) else out
+            err = max_err(got, plain(), keep)
+            if isinstance(out, tuple):       # the window modes' overflow count
+                keys = supercell_keys(a[2], kw["reso"], kw["padding"], kw["L"])
+                want_over = window_overflow(keys, kw["tile"], kw["S"],
+                                            window_blocks(kw["reso"], kw["L"], kw["S"]))
+                if int(out[1]) != int(want_over):
+                    raise AssertionError(f"wide {mode}: n_overflow {int(out[1])}, the "
+                                         f"plan's {int(want_over)}")
+            fn = getattr(K, name)
+            ms = cuda_ms(lambda: fn(*a, **kw), [()], 3)
+            plain_ms = cuda_ms(plain, [()], 2)
+            rows[mode] = r = any_row(err, ms, plain_ms, work, peak)
+            r["widths"] = "%dx%dx%d" % (a[0]["fc_out"][0].shape[1], C, len(a[0]["blocks"]))
+            log("wide", mode=mode, widths=r["widths"], shape=list(a[2].shape),
+                max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                bound_3xtf32_ms=r["bound_3xtf32_ms"],
+                gflop=work[0] / 1e9, mb=work[1] / 1e6,
+                near=0 if keep is None else int((~keep).sum()))
+    if sorted(rows) != sorted(k.split(":", 1)[1] for k in want):
+        raise AssertionError(f"wide: compared {sorted(rows)}")
+    log("wide", width=WIDE_MODEL, nx=nx, **t,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    del calls
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def jax_ckpt_phase(dev):
+    """A JAX model.ckpt through the port's CheckpointIO on the card: JAX's
+    logits within 1e-4 through K2, then one resumed train step."""
+    cfg = yaml.safe_load(open(os.path.join(REPO, "tests", "golden", "vtaco_jax.yaml")))
+    ref = np.load(os.path.join(REPO, "tests", "golden", "vtaco_jax_logits.npz"))
+    root = os.path.join(REPO, "out", "chip_smoke_jax_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    data, mesh_root = synthetic.generate(os.path.join(root, "synth"), n_models=4,
+                                         n_query=500, n_surface=1000, img_h=32,
+                                         img_w=24, seed=7)
+    cfg["data"].update(path=data, mesh_dir=os.path.join(mesh_root, "mesh_obj"),
+                       depth_origin=os.path.join(mesh_root, "depth_origin.txt"))
+    cfg["training"]["out_dir"] = root
+    torch.manual_seed(0)
+    model = get_model(cfg)
+    trainer = Trainer.from_config(model, cfg, mesh_bank=loop.build_mesh_bank(cfg, dev))
+    t0 = time.perf_counter()
+    scalars = CheckpointIO(root, model=model, optimizer=trainer.optimizer).load(
+        os.path.join(REPO, JAX_CKPT))
+    load_s = time.perf_counter() - t0
+    if scalars.get("it") != 2:
+        raise AssertionError(f"jax_ckpt: scalars {scalars}")
+    model.eval()
+    gen = get_generator(model, cfg)
+    zero_counters()
+    with torch.no_grad():
+        c = model.encode_inputs(torch.as_tensor(ref["inputs"], device=dev))
+        got_p = gen.eval_points(model, ref["points"], c, transfer_dtype=torch.float32)
+        got_l = gen.eval_points_dense(model, round(len(ref["logits_lattice"]) ** (1 / 3)),
+                                      c, transfer_dtype=torch.float32)
+    launches = read_counters()
+    # the lattice through K2, the points through the window route (K3)
+    launched_only("jax_ckpt", launches, {"fused_trunk_cn": 1, "fused_trunk_window_cn": 1})
+    errs = {}
+    for name, got, want in (("points", got_p, ref["logits_points"]),
+                            ("lattice", got_l, ref["logits_lattice"])):
+        errs[name] = float(np.abs(got - want).max())
+        if not (errs[name] <= ATOL and got.shape == want.shape):
+            raise AssertionError(f"jax_ckpt {name}: {errs[name]} from JAX's logits")
+    model.train()
+    trainer.step = int(scalars["it"])
+    np.random.seed(0)
+    batch = next(iter(BatchLoader(get_dataset("train", cfg), 2, shuffle=True,
+                                  num_workers=1, seed=0)))
+    t0 = time.perf_counter()
+    step = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    # torch's Adam steps the parameters that got a gradient; the others (no
+    # gradient in either package: optax's moments of them stay zero) keep
+    # the file's count
+    adam_step = {(p.grad is not None, float(trainer.optimizer.state[p]["step"]))
+                 for p in model.parameters()}
+    if not (all(np.isfinite(v) for v in step.values()) and (True, 3.0) in adam_step
+            and adam_step <= {(True, 3.0), (False, 2.0)}):
+        raise AssertionError(f"jax_ckpt: resumed step {step}, Adam steps {adam_step}")
+    log("jax_ckpt", file=JAX_CKPT, bytes=os.path.getsize(os.path.join(REPO, JAX_CKPT)),
+        load_s=load_s, scalars=json.dumps(scalars).replace(" ", ""),
+        err_points=errs["points"], err_lattice=errs["lattice"],
+        logit_range=[float(ref["logits_lattice"].min()), float(ref["logits_lattice"].max())],
+        resumed_loss=step["loss"], resumed_step_s=step_s,
+        **{f"launches_{k}": v for k, v in launches.items() if v})
+    shutil.rmtree(root)
+    return launches
 
 
 def make_batch(rng, cfg):
@@ -1335,6 +1786,10 @@ def read_counters():
                   ("fused_trunk_window_cn", K.fused_trunk_window_cn)):
         out[f"{k}:c_img"] = fn.launches_cimg
         out[k] -= fn.launches_cimg
+    out["trunk_any:K2:c_img"] = K.fused_trunk_cn.launches_generic_cimg
+    out["trunk_any:K2"] -= K.fused_trunk_cn.launches_generic_cimg
+    out["trunk_any:K3:c_img"] = K.fused_trunk_window_cn.launches_generic_cimg
+    out["trunk_any:K3"] -= K.fused_trunk_window_cn.launches_generic_cimg
     return out
 
 
@@ -1632,6 +2087,8 @@ def zero_counters():
     for fn, attr in COUNTERS.values():
         setattr(fn, attr, 0)
     K.fused_trunk_cn.launches_cimg = K.fused_trunk_window_cn.launches_cimg = 0
+    K.fused_trunk_cn.launches_generic_cimg = 0
+    K.fused_trunk_window_cn.launches_generic_cimg = 0
 
 
 def launched_only(phase, launches, want):
@@ -2736,15 +3193,17 @@ def generate_meshes(root, cfg_ckpt, config, run, kernel, *extra):
 
 
 def generate_stage(root, vt, tac, vh):
-    """(d) cli.generate on VTacO_YCB's test split from (b)'s checkpoint (K1
-    once per object) and on VTacOH_YCB's from (c)'s (K2 on fingertip rows
-    once per object); (e) on the tactile config from (a)'s checkpoint: one
-    cloud of 5 H W points per sample. Returns the launches of both mesh
-    paths."""
+    """(d) cli.generate on the first object of VTacO_YCB's test split from
+    (b)'s checkpoint (K1 once per object) and of VTacOH_YCB's from (c)'s
+    (K2 on fingertip rows once per object): one object each, since a mesh
+    costs about 7 s of the host's EMD; (e) on the tactile config from
+    (a)'s checkpoint: one cloud of 5 H W points per sample. Returns the
+    launches of both mesh paths."""
     launches = generate_meshes(root, vt, "configs/VTacO/VTacO_YCB.yaml", "generate_vtaco",
-                               "fused_trunk_gated_cn")
+                               "fused_trunk_gated_cn", "--max-samples", "1")
     vh_launches = generate_meshes(root, vh, "configs/VTacOH/VTacOH_YCB.yaml",
-                                  "generate_vtacoh", "fused_trunk_cn:c_img")
+                                  "generate_vtacoh", "fused_trunk_cn:c_img",
+                                  "--max-samples", "1")
     tac_cfg, tac_ckpt = tac
     line, files, seconds = cli_generate(root, tac_cfg, tac_ckpt, "generate_tactile")
     n_pts = [len(read_ply_points(os.path.join(root, "generate_tactile", f))) for f in files]
@@ -2759,7 +3218,8 @@ def visualize_stage(root, vt, tac, vh):
     """(f) LoopGenerator.visualize called directly (not through the loop,
     whose guard would catch its failure) on each checkpoint's model in
     train mode, as the loop hands it over: the validation split's meshes
-    (VTacO, VTacOH: every sample) or clouds (tactile: every
+    (VTacO, VTacOH: every sample of the split cut to its first, a mesh
+    costing about 7 s of the host's EMD) or clouds (tactile: every
     vis_split-th)."""
     for phase, (cfg, ckpt), want in (("vtaco", vt, ("_obj.off", "_hand.off")),
                                      ("vtacoh", vh, ("_obj.off", "_hand.off")),
@@ -2768,6 +3228,8 @@ def visualize_stage(root, vt, tac, vh):
         CheckpointIO(cfg["training"]["out_dir"], model=model).load(ckpt)
         model.train()
         ds = get_dataset("val", cfg, return_idx=True)
+        if phase != "tactile":
+            ds.models = ds.models[:1]
         out_dir = os.path.join(root, f"visualize_{phase}")
         t0 = time.perf_counter()
         _, out = printed(make_loop_generator(model, cfg).visualize, model,
@@ -3840,6 +4302,7 @@ def main():
     rows = kernel_phase(dev, peak)
     rows.update(window_kernel_phase(dev, peak))
     rows["fused_trunk_cn_batched"] = batched_kernel_phase(dev, peak)
+    generic_rows = widths_phase(dev, peak)
     cfg, model, batch, gens = build_model()
     f7_phase(cfg, model, batch)
     launches = main_path_phase(dev, cfg, model, batch, gens)
@@ -3848,6 +4311,8 @@ def main():
     batched_paths.update(band_phase(dev, cfg, model, batch))
     options_phase(dev, cfg)
     del model, gens
+    wide_launches, wide_rows = wide_path_phase(dev, peak)
+    jax_launches = jax_ckpt_phase(dev)
     h_cfg, h_model, h_batch, h_gen = build_vtacoh()
     h_mesh, cimg_rows = vtacoh_mesh_phase(dev, peak, h_cfg, h_model, h_batch, h_gen)
     batched_paths["vtacoh_band_mesh"] = band_tips(dev, h_cfg, h_model, h_batch)
@@ -3875,7 +4340,8 @@ def main():
              "vtacoh_eval_points": h_eval, "planes_mesh": planes_mesh,
              "planes_eval_points": planes_eval, "cli_generate": cli_launches,
              "vtacoh_cli_generate": h_cli, **batched_paths,
-             "cli_generate_batched": cli_batched, **fast_launches}
+             "cli_generate_batched": cli_batched, **fast_launches,
+             "wide_path": wide_launches, "jax_ckpt": jax_launches}
     kernels = []
     for kname, (source, replaces) in replaced.items():
         r = rows[kname]
@@ -3904,6 +4370,35 @@ def main():
             entry["c_img"] = {k: c[k] for k in ("err", "ms", "plain_ms", "bound_ms",
                                                   "bound_by", "gate_tips_ms")}
         kernels.append(entry)
+    # the generic kernel's modes: the numbers of the hidden = C = WIDE_MODEL
+    # path, whose launches they count, each on the inputs the path gave it;
+    # every widths case beside them
+    for mode in ("K1", "K2", "K2_batched", "K3", "K4"):
+        kname = f"trunk_any:{mode}"
+        fused = {"K1": "fused_trunk_gated_cn", "K2": "fused_trunk_cn",
+                 "K2_batched": "fused_trunk_cn_batched", "K3": "fused_trunk_window_cn",
+                 "K4": "fused_trunk_window_cn:gated"}[mode]
+        by_path = {path: counts.get(kname, 0) + counts.get(f"{kname}:c_img", 0)
+                   for path, counts in paths.items()}
+        r = wide_rows[mode]
+        extra = {}
+        if mode == "K2":      # its c_img mode, timed apart in the widths phase
+            extra["c_img"] = {case: {k: x[k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                                        "bound_by")}
+                              for case, x in generic_rows["K2:c_img"].items()}
+        kernels.append({
+            "name": kname, "route": "cuda", "source": "vtaco_tpu_torch/csrc/trunk_any.cu",
+            "replaces": replaced[fused][1], "widths": r["widths"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": {k: v for k, v in by_path.items() if v},
+            "max_abs_err": max([r["err"]] + [x["err"] for m in (mode, f"{mode}:c_img")
+                                             for x in generic_rows.get(m, {}).values()]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "bound_3xtf32_ms": r["bound_3xtf32_ms"],
+            "library_ms": None,
+            "by_width": {case: {k: x[k] for k in ("err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "bound_3xtf32_ms")}
+                         for case, x in generic_rows[mode].items()}, **extra})
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

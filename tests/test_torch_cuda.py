@@ -239,10 +239,127 @@ def test_fused_trunk_cases(cuda, case, gated):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_other_widths(cuda):
-    dec = random_decoder(cuda, width=16)
+    """A width the tile chain does not take goes to the generic kernel,
+    never to the tile chain; one whose smallest tile exceeds shared memory
+    raises, naming the widths and the bytes."""
+    tp = random_tp(cuda, 16, 16, 3)
     p, f = _inputs(cuda, 1000, width=16)
-    with pytest.raises(NotImplementedError):
-        K.fused_trunk_cn(FT.extract_trunk_params(dec, with_img=False), p, f)
+    before = (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic)
+    with torch.no_grad():
+        K.fused_trunk_cn(tp, p, f)
+    assert (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic) == (
+        before[0], before[1] + 1)
+    wide = random_tp(cuda, 1024, 2048, 1)
+    with pytest.raises(ValueError, match="hidden=1024, C=2048.*B of shared memory"):
+        K.fused_trunk_cn(wide, p[:, :10], torch.zeros((2048, 10), device=cuda))
+
+
+# (hidden, C, n_blocks) of the generic kernel's cases: chip_smoke.py's
+# widths phase
+WIDTH_CASES = [(16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5)]
+
+
+def random_tp(device, H, C, NB, Ci=None, seed=0):
+    """extract_trunk_params' dict at any widths, every weight random:
+    fc_p, fc_p_img over 3 + Ci inputs (Ci = C by default), NB blocks."""
+    g = torch.Generator().manual_seed(seed)
+
+    def lin(o, i):
+        return ((torch.randn((o, i), generator=g) / i ** 0.5).to(device),
+                (0.1 * torch.randn(o, generator=g)).to(device))
+
+    return {"fc_p": lin(H, 3), "fc_p_img": lin(H, 3 + (C if Ci is None else Ci)),
+            "fc_c": [lin(H, C) for _ in range(NB)],
+            "blocks": [lin(H, H) + lin(H, H) for _ in range(NB)],
+            "fc_out": lin(1, H)}
+
+
+def _generic_count(name):
+    fn, attr = name.split(":") if ":" in name else (name, "launches_generic")
+    return getattr(getattr(K, fn), attr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WIDTH_CASES)
+@pytest.mark.parametrize("variant", ["coords", "c_img", "bf16", "gated", "batched"])
+def test_generic_trunk(cuda, widths, variant):
+    """K1, K2 (coords, c_img rows of Ci = C + 5 inputs, bf16 storage) and
+    K2 over 3 objects at widths the tile chain does not take, against
+    their plain versions; each launch goes to csrc/trunk_any.cu."""
+    H, C, NB = widths
+    N = 20_003 if H * C > 10_000 else 100_003
+    Ci = C + 5
+    tp = random_tp(cuda, H, C, NB, Ci=C if variant == "gated" else Ci)
+    p, f = _inputs(cuda, N, width=C)
+    store = torch.bfloat16 if variant == "bf16" else None
+    near = torch.zeros(N, dtype=torch.bool, device=cuda)
+    with torch.no_grad():
+        if variant == "batched":
+            counter = "fused_trunk_cn_batched"
+            f = torch.stack([f, f.flip(1), 2 * f])
+            run = lambda: K.fused_trunk_cn_batched(tp, p, f)
+            want = _batched_plain(tp, p, f, None)
+        elif variant == "gated":
+            counter = "fused_trunk_gated_cn"
+            q, _, valid = _contacts(cuda, "invalid_rows")
+            feat = torch.randn((5, C), device=cuda)
+            run = lambda: K.fused_trunk_gated_cn(tp, p, f, q, feat, valid, radius=0.05)
+            want = FT.trunk_cn(tp, p, f, FT.gate_contact_cn(p, q, feat, valid, 0.05))
+            near = torch.any(torch.abs(FT.contact_sq_dist(p, q, valid) - 0.0025) < 1e-6, 0)
+        else:
+            counter = "fused_trunk_cn" + (":launches_generic_cimg" if variant == "c_img"
+                                          else "")
+            ci = torch.randn((Ci, N), device=cuda) if variant == "c_img" else None
+            run = lambda: K.fused_trunk_cn(tp, p, f, ci, store_dtype=store)
+            want = FT.trunk_cn(tp, K._stored(p, store), K._stored(f, store),
+                               None if ci is None else K._stored(ci, store))
+        before = _generic_count(counter)
+        got = run()
+        torch.cuda.synchronize()
+        assert _generic_count(counter) == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert int(near.sum()) * 100 <= N
+    assert float(torch.max(torch.abs(got - want)[..., ~near])) < ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", WIDTH_CASES)
+@pytest.mark.parametrize("variant", ["coords", "c_img", "gated"])
+def test_generic_window(cuda, widths, variant):
+    """K3 (coords, c_img rows) and K4 at widths the tile chain does not
+    take: logits against window_trunk_plain, the overflow count and the
+    kernel's keys against the torch keys."""
+    H, C, NB = widths
+    R, L, S, radius = 32, 1, 128, 0.05
+    N = 20_003 if H * C > 10_000 else 100_003
+    g = torch.Generator().manual_seed(5)
+    grid = torch.randn((R, R, R, C), generator=g).to(cuda)
+    p = (torch.rand((3, N), generator=g) * 1.24 - 0.62).to(cuda)
+    p = p[:, torch.sort(supercell_keys(p, R, 0.1, L), stable=True)[1]].contiguous()
+    tp = random_tp(cuda, H, C, NB, Ci=C + 3 if variant == "c_img" else C)
+    kw = dict(reso=R, padding=0.1, L=L, S=S, tile=256)
+    keep = torch.ones(N, dtype=torch.bool, device=cuda)
+    if variant == "c_img":
+        kw["c_img_cn"] = torch.randn((C + 3, N), generator=g).to(cuda)
+    if variant == "gated":
+        q, _, valid = _contacts(cuda, "invalid_rows")
+        kw.update(gate_pts=q, gate_feat=torch.randn((5, C), device=cuda),
+                  gate_valid=valid, radius=radius)
+        keep = ~torch.any(torch.abs(FT.contact_sq_dist(p, q, valid) - radius ** 2) < 1e-6, 0)
+    counter = {"coords": "fused_trunk_window_cn",
+               "c_img": "fused_trunk_window_cn:launches_generic_cimg",
+               "gated": "fused_trunk_window_cn:launches_generic_gated"}[variant]
+    keys = torch.empty(N, dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        before = _generic_count(counter)
+        got, n_over = K.fused_trunk_window_cn(tp, grid, p, keys_out=keys, **kw)
+        torch.cuda.synchronize()
+        assert _generic_count(counter) == before + 1
+        want, want_over = K.window_trunk_plain(tp, grid, p, **kw)
+    assert torch.equal(keys, supercell_keys(p, R, 0.1, L))
+    assert int(n_over) == int(want_over)
+    assert int((~keep).sum()) * 100 <= N
+    assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
 
 
 def _window_inputs(device, N, L, R=64, seed=3):

@@ -122,7 +122,9 @@ def test_import_guard():
     """Every module of the port (the generation CLI, the Inferencer, the
     device-resident dataset and the parallel modules among them),
     chip_smoke.py and the parallel tests' worker module, which spawned
-    ranks import, import without jax and without vtaco_tpu."""
+    ranks import, import without jax and without vtaco_tpu; and reading
+    the committed JAX checkpoint (tests/golden/vtaco_jax.ckpt) imports
+    neither those, flax nor msgpack."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import vtaco_tpu_torch\n"
@@ -131,12 +133,16 @@ def test_import_guard():
         "import chip_smoke\n"
         "sys.path.insert(0, 'tests')\n"
         "import parallel_workers\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vtaco_tpu')]\n"
+        "from vtaco_tpu_torch.core.checkpoint import CheckpointIO\n"
+        "payload, scalars = CheckpointIO('tests/golden').load_raw('vtaco_jax.ckpt')\n"
+        "assert scalars['it'] == 2 and len(payload['model']) > 100, scalars\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'flax', 'msgpack', 'vtaco_tpu')]\n"
         "assert not bad, bad\n"
         "assert {'vtaco_tpu_torch.cli.generate', 'vtaco_tpu_torch.generate.inferencer',\n"
         "        'vtaco_tpu_torch.data.device_data', 'vtaco_tpu_torch.parallel.mesh',\n"
         "        'vtaco_tpu_torch.parallel.tp', 'vtaco_tpu_torch.parallel.multihost',\n"
-        "        'parallel_workers'} <= set(sys.modules)\n"
+        "        'vtaco_tpu_torch.core.flax_msgpack', 'parallel_workers'} <= set(sys.modules)\n"
         "print(len([m for m in sys.modules if m.startswith('vtaco_tpu_torch')]))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

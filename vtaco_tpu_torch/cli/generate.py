@@ -5,7 +5,9 @@
         [--data-root D] [--mesh-root M] [--cpu] [--batched B]
 
 Loads the checkpoint (``--checkpoint``, else ``test.model_file``; a
-relative name resolves against ``training.out_dir``) and reconstructs the
+relative name resolves against ``training.out_dir``; the port's own or a
+``model.ckpt`` that the JAX package wrote, read without JAX; an http(s)
+URL is fetched once into ``training.out_dir``) and reconstructs the
 object and hand meshes of every sample of the split into ``--out-dir``
 (default ``<training.out_dir>/generation``), or, for a tactile depth
 stack, its predicted sensor point clouds. The last line of its output is
@@ -50,7 +52,8 @@ def main(argv=None):
     ap.add_argument("--mesh-root", type=str, default=None,
                     help="Override data.mesh_dir/depth_origin root.")
     ap.add_argument("--checkpoint", type=str, default=None,
-                    help="Override test.model_file.")
+                    help="Override test.model_file: a port or JAX checkpoint, "
+                         "or an http(s) URL.")
     ap.add_argument("--batched", type=int, default=0, metavar="B",
                     help="Pipelined B-object batched reconstruction "
                          "(plain occupancy decode; no tactile gating).")

@@ -29,6 +29,15 @@ where the JAX package's export keeps it (``conv1.conv1``) when the conv
 comes second in the order; BatchNorm ``scale``/``bias`` and
 ``mean``/``var`` become ``weight``/``bias`` and
 ``running_mean``/``running_var``.
+
+``jax_checkpoint_to_torch`` loads a whole JAX checkpoint (the payload of
+a ``model.ckpt`` that the JAX package's ``CheckpointIO`` writes, read by
+core/flax_msgpack.py) into the port's model and optimizer: the
+parameters and statistics as above, and optax's state as the torch
+optimizer's (Adam's ``mu``/``nu``/``count`` as ``exp_avg``/
+``exp_avg_sq``/``step``, SGD's momentum ``trace`` as
+``momentum_buffer``), the moments translated like the parameters they
+belong to.
 """
 
 from __future__ import annotations
@@ -189,3 +198,90 @@ def load_jax_params(model, params, batch_stats):
             sd.setdefault(name, t)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _to_numpy(v):
+    """A leaf of a decoded JAX tree as numpy (bfloat16 leaves come as
+    torch tensors, numpy has no such type: they widen to float32)."""
+    if isinstance(v, torch.Tensor):
+        return v.float().numpy()
+    return np.asarray(v)
+
+
+def jax_state_dict(state):
+    """The torch-named state_dict (CPU tensors) of a JAX checkpoint's
+    ``state``: its ``params`` and ``batch_stats`` through
+    ``export_state_dict``."""
+    sd = export_state_dict(_map_leaves(state.get("params", {})),
+                           _map_leaves(state.get("batch_stats", {})))
+    return {k: torch.as_tensor(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _map_leaves(tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v) for k, v in tree.items()}
+    return _to_numpy(tree)
+
+
+_RNG_DROPPED = []
+
+
+def _moments(model, tree, what):
+    """{parameter: tensor} of an optimizer-state tree laid out as the
+    parameters (optax's mu, nu, trace), translated like them. Raises if a
+    parameter of ``model`` has none."""
+    sd = export_state_dict(_map_leaves(tree), {})
+    out = {}
+    for name, p in model.named_parameters():
+        if name not in sd:
+            raise ValueError(f"the JAX checkpoint's optimizer state has no {what} "
+                             f"for parameter {name}")
+        v = torch.as_tensor(np.ascontiguousarray(sd[name]))
+        if tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"{what} of {name} is {tuple(v.shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+        out[p] = v.to(device=p.device, dtype=p.dtype)
+    return out
+
+
+def jax_checkpoint_to_torch(payload, model, optimizer=None):
+    """Load a JAX checkpoint's payload ({"_scalars", "state": {"params",
+    "batch_stats", "opt_state", "step", "rng"}}, as core/flax_msgpack.py
+    reads it) into ``model`` (``load_jax_params``: strict, BatchNorm
+    counters kept) and, if given, ``optimizer``, the torch optimizer the
+    port's Trainer builds for optax's ``adam`` or ``sgd(momentum=0.9)``.
+    ``state.rng`` has no torch counterpart and is dropped (printed once);
+    the step count travels in the payload's ``_scalars`` (``it``)."""
+    state = payload["state"]
+    load_jax_params(model, _map_leaves(state["params"]),
+                    _map_leaves(state.get("batch_stats", {})))
+    if optimizer is not None:
+        opt = state.get("opt_state", {}).get("0", {})
+        if isinstance(optimizer, torch.optim.Adam) and "mu" in opt:
+            mu = _moments(model, opt["mu"], "mu")
+            nu = _moments(model, opt["nu"], "nu")
+            step = float(_to_numpy(opt["count"]))
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p not in mu:
+                        raise ValueError("the optimizer holds a parameter the "
+                                         "model does not name")
+                    optimizer.state[p] = {
+                        "step": torch.tensor(step, dtype=torch.float32),
+                        "exp_avg": mu[p], "exp_avg_sq": nu[p]}
+        elif isinstance(optimizer, torch.optim.SGD) and "trace" in opt:
+            trace = _moments(model, opt["trace"], "trace")
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    if p not in trace:
+                        raise ValueError("the optimizer holds a parameter the "
+                                         "model does not name")
+                    optimizer.state[p] = {"momentum_buffer": trace[p]}
+        else:
+            raise ValueError(f"the JAX optimizer state {sorted(opt)} does not map onto "
+                             f"{type(optimizer).__name__}")
+    if "rng" in state and not _RNG_DROPPED:
+        _RNG_DROPPED.append(True)
+        print("Note: the JAX checkpoint's PRNG key (state.rng) has no torch "
+              "counterpart and is dropped: a resumed run draws other random "
+              "numbers than the JAX package would")

@@ -4,9 +4,9 @@ them with ctypes.
 Each source under ``vtaco_tpu_torch/csrc/`` becomes one library, compiled
 for ``sm_90a`` by ``nvcc`` at first use into ``vtaco_tpu_torch/_build/``
 (listed in .gitignore). The library name carries a hash of its source and
-of every header under ``csrc/`` (``tile_chain.cuh``, which both include),
-so an edited source or header is rebuilt and a stale library is never
-loaded.
+of every header under ``csrc/`` (``tile_chain.cuh``, which ``trunk.cu``
+and ``window.cu`` include), so an edited source or header is rebuilt and a
+stale library is never loaded.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits.
 """
 
@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-SOURCES = ("trunk", "window")
+SOURCES = ("trunk", "window", "trunk_any")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -5,10 +5,15 @@
 
 K1 and K2 live in ``csrc/trunk.cu``, K3 and K4 (the two branches of
 ``fused_trunk_window_cn``) in ``csrc/window.cu``, all four on the tile
-chain of ``csrc/tile_chain.cuh``; see each source's header for what bounds
-it on the card and how the design answers it. This module packs the
-weights (``pack_window_params``: split into TF32 hi/lo parts for the
-tensor cores), checks the inputs and launches the kernels through ctypes.
+chain of ``csrc/tile_chain.cuh``, which takes hidden = C = 32 (every
+shipped LocalDecoder config); every other (hidden, C, Ci, n_blocks), as
+the Pallas kernels take, goes to the width-generic kernel of
+``csrc/trunk_any.cu`` in the same modes. ``_tile_chain`` picks the route
+from the widths alone. See each source's header for what bounds it on the
+card and how the design answers it. This module packs the weights
+(``pack_window_params``: split into TF32 hi/lo parts for the tensor cores;
+``pack_any_params``: natural order for the generic kernel), checks the
+inputs and launches the kernels through ctypes.
 ``window_gate_candidates`` is the plain version of the kernels' per-tile
 contact culling, and ``window_box_edge_contacts`` a contact set that
 probes its margin.
@@ -22,7 +27,11 @@ in ``<wrapper>.launches``, incremented only where the kernel is launched
 also count, in ``.launches_cimg``, those of their launches that took c_img
 rows (MODE_CIMG, VTacOH's fingertip rows).
 ``fused_trunk_cn_batched``, K2 over an object axis in one launch, counts
-in its own ``.launches``.
+in its own ``.launches``. Those counters count the tile chain's launches;
+the generic kernel's count in ``.launches_generic`` of each wrapper (and
+``fused_trunk_window_cn.launches_generic_gated``,
+``.launches_generic_cimg`` of ``fused_trunk_cn`` and
+``fused_trunk_window_cn``).
 ``store_dtype=torch.bfloat16`` stores the streamed per-point operands as
 bf16 (coords, features, c_img) while all math stays f32; the plain path
 rounds the same operands the same way.
@@ -45,9 +54,14 @@ from vtaco_tpu_torch.ops.dense_decode import (
     window_overflow,
 )
 
-WIDTHS = (32, 32)  # (hidden, C) the kernel is instantiated for
+WIDTHS = (32, 32)  # (hidden, C) of the tile chain (tile_chain.cuh kWidth)
+# blocks whose split weights fit one block's shared memory beside the tile
+# chain's three tiles of scratch: 6240 NB + 164 floats (+ a 2048-float
+# c_img product) of at most 41,024
+TILE_CHAIN_BLOCKS = 6
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 WINDOW_TILE = 128  # points per tile of the tile kernels (kTile)
+ANY_TILES = (128, 64, 32)  # points per tile of csrc/trunk_any.cu, largest first
 
 
 def tf32_rna(x):
@@ -144,25 +158,124 @@ def _window_lib():
     return lib
 
 
-def _check(tp, p_cn, C, *others):
-    """N, after checking the widths, that the coords are (3, N) and each
-    (C, N) operand in ``others`` matches, and that all share one CUDA
+def _check(tp, p_cn, C, *others, c_img=None):
+    """N, after checking that the coords are (3, N), each (C, N) operand in
+    ``others`` matches, the c_img rows are (Ci, N) for the fc_p_img weights
+    (3 + Ci inputs), the weights take C features, and all share one CUDA
     device with the weights."""
     dev = p_cn.device
     if dev.type != "cuda":
         raise ValueError(f"the trunk kernels take CUDA or CPU tensors, got {dev}")
     N = p_cn.shape[-1]
-    h = tp["fc_out"][0].shape[1]
-    if (h, C) != WIDTHS:
-        raise NotImplementedError(
-            f"the CUDA trunk is instantiated for hidden = C = 32 (every "
-            f"LocalDecoder config in configs/); got hidden={h}, C={C}")
     if p_cn.shape != (3, N) or any(t.shape != (C, N) for t in others):
         raise ValueError(f"coords must be (3, N) and features ({C}, N), got "
                          f"{[tuple(t.shape) for t in (p_cn, *others)]}")
+    if tp["fc_c"] and tp["fc_c"][0][0].shape[1] != C:
+        raise ValueError(f"the decoder takes {tp['fc_c'][0][0].shape[1]} feature "
+                         f"channels, got {C}")
+    if c_img is not None:
+        n_in = tp["fc_p_img"][0].shape[1]
+        if c_img.dim() != 2 or c_img.shape != (n_in - 3, N):
+            raise ValueError(f"c_img rows must be ({n_in - 3}, {N}) for fc_p_img's "
+                             f"{n_in} inputs, got {tuple(c_img.shape)}")
+        others = (*others, c_img)
     if any(t.device != dev for t in (tp["fc_out"][0], *others)):
         raise ValueError("coords, features and weights must share one device")
     return N
+
+
+def _tile_chain(tp, C, c_img=None):
+    """Whether the tile chain (trunk.cu, window.cu) takes these widths:
+    hidden = C = 32, 32 c_img rows if any, and at most TILE_CHAIN_BLOCKS
+    blocks. Every other width takes csrc/trunk_any.cu. The widths alone
+    decide: a launch that fails raises, it never reroutes."""
+    h = tp["fc_out"][0].shape[1]
+    return ((h, C) == WIDTHS and len(tp["blocks"]) <= TILE_CHAIN_BLOCKS
+            and (c_img is None or c_img.shape[0] == WIDTHS[1]))
+
+
+def any_smem_bytes(H, C, Ci, T):
+    """Shared memory of csrc/trunk_any.cu's tile of T points (its
+    smem_floats): net and h (H x T), the features or c_img rows
+    (max(C, Ci) x T) and 8 T words of coordinates, gates and corners."""
+    return 4 * T * (2 * H + max(C, Ci) + 8)
+
+
+def any_tile(H, C, Ci=0):
+    """Points per tile of the generic kernel at these widths: the largest
+    of ANY_TILES whose tile fits a block's shared memory. Raises ValueError,
+    naming the widths and the bytes, when even the smallest does not."""
+    for T in ANY_TILES:
+        if any_smem_bytes(H, C, Ci, T) <= SMEM_LIMIT:
+            return T
+    T = ANY_TILES[-1]
+    raise ValueError(
+        f"the generic trunk kernel cannot hold hidden={H}, C={C}, Ci={Ci}: its "
+        f"smallest tile of {T} points needs {any_smem_bytes(H, C, Ci, T)} B of "
+        f"shared memory, a block has {SMEM_LIMIT}")
+
+
+def pack_any_params(tp, mode, gate_feat=None):
+    """extract_trunk_params output → csrc/trunk_any.cu's flat f32 blob, in
+    natural order: the coord columns of fc_p (mode 0) or fc_p_img (modes 1,
+    2) and b_in, then per block wc, bc, w0, b0, w1, b1, then w_out, b_out;
+    in mode 1 the c_img columns W_img of fc_p_img after them, in mode 2
+    W_img g_f for each finger's feature g_f (``gate_feat`` (F, Ci))."""
+    w_in, b_in = tp["fc_p_img"] if mode else tp["fc_p"]
+    parts = [w_in[:, :3], b_in]
+    for (wc, bc), blk in zip(tp["fc_c"], tp["blocks"]):
+        parts += [wc, bc, *blk]
+    w_out, b_out = tp["fc_out"]
+    parts += [w_out, b_out.reshape(1)]
+    if mode == 1:
+        parts.append(w_in[:, 3:])
+    elif mode == 2:
+        parts.append(gate_feat.float() @ w_in[:, 3:].float().T)   # (F, h)
+    return torch.cat([t.float().reshape(-1) for t in parts])
+
+
+def _contact_rows(gate_pts, gate_valid):
+    """The (F K, 4) f32 contact rows the gated kernels read: (q, |q|²) in
+    finger order, |q|² replaced by -1 on invalid rows."""
+    q = gate_pts.reshape(-1, 3).float()
+    q2 = torch.where(gate_valid.reshape(-1).bool(), (q * q).sum(dim=1), -1.0)
+    return torch.cat([q, q2[:, None]], dim=1).contiguous()
+
+
+@functools.cache
+def _any_lib():
+    lib = build.library("trunk_any")
+    P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.trunk_any_launch.argtypes = [P, I, I, I, I, I, I, P, I, I, F, P, LL, P, LL,
+                                     P, I, P, LL, I, P]
+    lib.trunk_any_launch.restype = I
+    lib.trunk_any_window_launch.argtypes = [P, I, I, I, I, I, I, P, I, I, F, P, P, I,
+                                            F, F, I, I, P, P, P, LL, P]
+    lib.trunk_any_window_launch.restype = I
+    return lib
+
+
+def _any_operands(tp, C, mode, Ci=0, gate=None, radius=0.015):
+    """What csrc/trunk_any.cu takes besides the streamed operands: ``(lib,
+    head, keep)``, head the launch's first eleven arguments (blob, hidden,
+    C, Ci, n_blocks, mode, T, contacts, F, K, r²) and keep the tensors
+    they point into, to be held until the launch is enqueued."""
+    H = tp["fc_out"][0].shape[1]
+    Ci = Ci if mode == 1 else 0
+    T = any_tile(H, C, Ci)
+    lib = _any_lib()
+    contacts, F, K, r2 = None, 0, 0, 0.0
+    gate_feat = None
+    if mode == 2:
+        gate_pts, gate_feat, gate_valid = gate
+        F, K, _ = gate_pts.shape
+        contacts = _contact_rows(gate_pts, gate_valid)
+        r2 = float(radius) * float(radius)
+    blob = pack_any_params(tp, mode, gate_feat)
+    keep = (blob, contacts)
+    head = (blob.data_ptr(), H, C, Ci, len(tp["blocks"]), mode, T,
+            None if contacts is None else contacts.data_ptr(), F, K, r2)
+    return lib, head, keep
 
 
 def _check_smem(smem_bytes, blob):
@@ -199,23 +312,37 @@ def _trunk_operands(tp, p_cn, feats_cn, c_img_cn=None, gate=None,
 
 def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
     """K2: the ungated fused trunk. p_cn (3, N), feats_cn (C, N), optional
-    c_img_cn (C, N) → (N,) float32 logits, for any N."""
+    c_img_cn (Ci, N) → (N,) float32 logits, for any N and widths."""
     if p_cn.device.type == "cpu":
         c_img = None if c_img_cn is None else _stored(c_img_cn, store_dtype)
         return FT.trunk_cn(tp, _stored(p_cn, store_dtype),
                            _stored(feats_cn, store_dtype), c_img)
-    N = _check(tp, p_cn, feats_cn.shape[0], feats_cn,
-               *([] if c_img_cn is None else [c_img_cn]))
+    C = feats_cn.shape[0]
+    N = _check(tp, p_cn, C, feats_cn, c_img=c_img_cn)
+    bf16 = int(store_dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(p_cn.device).cuda_stream
+    out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
+    if not _tile_chain(tp, C, c_img_cn):
+        mode = 0 if c_img_cn is None else 1
+        lib, head, _keep = _any_operands(tp, C, mode,
+                                         0 if c_img_cn is None else c_img_cn.shape[0])
+        x, f, ci = [None if t is None else _streamed(t, store_dtype)
+                    for t in (p_cn, feats_cn, c_img_cn)]
+        rc = lib.trunk_any_launch(*head, x.data_ptr(), 0, f.data_ptr(), 0,
+                                  None if ci is None else ci.data_ptr(), bf16,
+                                  out.data_ptr(), N, 1, stream)
+        _raise_on(rc, "trunk_any_launch")
+        fused_trunk_cn.launches_generic += 1
+        fused_trunk_cn.launches_generic_cimg += c_img_cn is not None
+        return out
     blob, _, (x, f, ci) = _trunk_operands(tp, p_cn, feats_cn, c_img_cn,
                                           store_dtype=store_dtype)
     lib = _lib()
     _check_smem(lib.trunk_smem_bytes, blob)
-    out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
     rc = lib.trunk_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]),
         x.data_ptr(), f.data_ptr(), None if ci is None else ci.data_ptr(),
-        int(store_dtype == torch.bfloat16), out.data_ptr(), N,
-        torch.cuda.current_stream(p_cn.device).cuda_stream)
+        bf16, out.data_ptr(), N, stream)
     _raise_on(rc, "trunk_cn_launch")
     fused_trunk_cn.launches += 1
     fused_trunk_cn.launches_cimg += c_img_cn is not None
@@ -224,14 +351,16 @@ def fused_trunk_cn(tp, p_cn, feats_cn, c_img_cn=None, *, store_dtype=None):
 
 fused_trunk_cn.launches = 0
 fused_trunk_cn.launches_cimg = 0
+fused_trunk_cn.launches_generic = 0
+fused_trunk_cn.launches_generic_cimg = 0
 
 
 def fused_trunk_cn_batched(tp, p_cn, feats_bcn, *, store_dtype=None):
     """K2 over B objects in one launch: the JAX package's ``fused_trunk_cn``
     under ``vmap`` (an object axis on the features). p_cn (3, N), shared by
     every object (the dense grid), or (B, 3, N); feats_bcn (B, C, N) →
-    (B, N) float32 logits, for any N. The plain version is ``trunk_cn``
-    per object."""
+    (B, N) float32 logits, for any N and widths. The plain version is
+    ``trunk_cn`` per object."""
     if p_cn.device.type == "cpu":
         f, p = _stored(feats_bcn, store_dtype), _stored(p_cn, store_dtype)
         out = torch.empty((f.shape[0], f.shape[-1]), dtype=torch.float32)
@@ -249,20 +378,30 @@ def fused_trunk_cn_batched(tp, p_cn, feats_bcn, *, store_dtype=None):
     out = torch.empty((B, N), dtype=torch.float32, device=p_cn.device)
     if B == 0 or N == 0:
         return out
-    blob, _ = _window_operands(tp, 0)
     x, f = _streamed(p_cn, store_dtype), _streamed(feats_bcn, store_dtype)
+    bf16 = int(store_dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(p_cn.device).cuda_stream
+    if not _tile_chain(tp, C):
+        lib, head, _keep = _any_operands(tp, C, 0)
+        rc = lib.trunk_any_launch(*head, x.data_ptr(), 0 if shared else 3 * N,
+                                  f.data_ptr(), C * N, None, bf16, out.data_ptr(), N,
+                                  B, stream)
+        _raise_on(rc, "trunk_any_launch")
+        fused_trunk_cn_batched.launches_generic += 1
+        return out
+    blob, _ = _window_operands(tp, 0)
     lib = _lib()
     _check_smem(lib.trunk_smem_bytes, blob)
     rc = lib.trunk_cn_batched_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), B, x.data_ptr(),
-        0 if shared else 3 * N, f.data_ptr(), int(store_dtype == torch.bfloat16),
-        out.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
+        0 if shared else 3 * N, f.data_ptr(), bf16, out.data_ptr(), N, stream)
     _raise_on(rc, "trunk_cn_batched_launch")
     fused_trunk_cn_batched.launches += 1
     return out
 
 
 fused_trunk_cn_batched.launches = 0
+fused_trunk_cn_batched.launches_generic = 0
 
 
 def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
@@ -270,7 +409,7 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
     """K1: contact gating + trunk in one kernel; the same function as
     ``gate_contact_cn`` feeding ``trunk_cn`` with the fc_p_img projection.
 
-    gate_pts (F, K, 3) contact points, gate_feat (F, C) finger features,
+    gate_pts (F, K, 3) contact points, gate_feat (F, Ci) finger features,
     gate_valid (F, K) bool, any K >= 1. Returns (N,) float32 logits. Fastest on
     points in lattice or super-cell order, whose tiles of ``WINDOW_TILE``
     consecutive points keep few contacts; right in any order."""
@@ -278,27 +417,39 @@ def fused_trunk_gated_cn(tp, p_cn, feats_cn, gate_pts, gate_feat, gate_valid,
         p = _stored(p_cn, store_dtype)
         c_img = FT.gate_contact_cn(p, gate_pts, gate_feat, gate_valid, radius)
         return FT.trunk_cn(tp, p, _stored(feats_cn, store_dtype), c_img)
-    N = _check(tp, p_cn, feats_cn.shape[0], feats_cn)
+    C = feats_cn.shape[0]
+    N = _check(tp, p_cn, C, feats_cn)
     if any(t.device != p_cn.device for t in (gate_pts, gate_feat, gate_valid)):
         raise ValueError("coords and contacts must share one device")
+    n_fingers, K, _ = gate_pts.shape
+    bf16 = int(store_dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(p_cn.device).cuda_stream
+    out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
+    if not _tile_chain(tp, C):
+        lib, head, _keep = _any_operands(tp, C, 2, gate=(gate_pts, gate_feat, gate_valid),
+                                         radius=radius)
+        x, f = _streamed(p_cn, store_dtype), _streamed(feats_cn, store_dtype)
+        rc = lib.trunk_any_launch(*head, x.data_ptr(), 0, f.data_ptr(), 0, None, bf16,
+                                  out.data_ptr(), N, 1, stream)
+        _raise_on(rc, "trunk_any_launch")
+        fused_trunk_gated_cn.launches_generic += 1
+        return out
     blob, contacts, (x, f, _) = _trunk_operands(
         tp, p_cn, feats_cn, gate=(gate_pts, gate_feat, gate_valid),
         store_dtype=store_dtype)
-    n_fingers, K, _ = gate_pts.shape
     lib = _lib()
     _check_smem(lib.trunk_smem_bytes, blob)
-    out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
     rc = lib.trunk_gated_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
         float(radius) * float(radius), contacts.data_ptr(), x.data_ptr(),
-        f.data_ptr(), int(store_dtype == torch.bfloat16),
-        out.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
+        f.data_ptr(), bf16, out.data_ptr(), N, stream)
     _raise_on(rc, "trunk_gated_cn_launch")
     fused_trunk_gated_cn.launches += 1
     return out
 
 
 fused_trunk_gated_cn.launches = 0
+fused_trunk_gated_cn.launches_generic = 0
 
 
 def _window_operands(tp, mode, gate=None):
@@ -312,10 +463,8 @@ def _window_operands(tp, mode, gate=None):
     if mode != 2:
         return blob, None
     gate_pts, gate_feat, gate_valid = gate
-    q = gate_pts.reshape(-1, 3).float()
-    q2 = torch.where(gate_valid.reshape(-1).bool(), (q * q).sum(dim=1), -1.0)
     gproj = gate_feat.float() @ w_img.T                  # (F, h): W_img g_f
-    return torch.cat([blob, gproj.reshape(-1)]), torch.cat([q, q2[:, None]], dim=1)
+    return torch.cat([blob, gproj.reshape(-1)]), _contact_rows(gate_pts, gate_valid)
 
 
 def window_gate_candidates(p_cn, gate_pts, gate_valid, radius=0.015,
@@ -402,7 +551,7 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
     world coords, any N, in super-cell order (``supercell_keys`` at L) for
     speed: the kernel is right in any order, but sorted tiles of
     ``WINDOW_TILE`` points share grid cells and keep few contacts;
-    c_img_cn (C, N) extra input-projection rows (fc_p_img weights), or the
+    c_img_cn (Ci, N) extra input-projection rows (fc_p_img weights), or the
     gate_* contact gating (fc_p_img, as ``fused_trunk_gated_cn``), not both.
     Returns ``(logits (N,) f32, n_overflow)``: n_overflow, a 0-dim int64
     tensor, counts the points whose super-cell lies outside their tile's
@@ -433,13 +582,9 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
     if p_cn.dtype != torch.float32:
         raise ValueError(f"coords must be float32, got {p_cn.dtype}")
     C = grid.shape[-1]
-    N = _check(tp, p_cn, C, *([] if c_img_cn is None else [c_img_cn]))
+    N = _check(tp, p_cn, C, c_img=c_img_cn)
     if grid.device != p_cn.device or (gated and gate_pts.device != p_cn.device):
         raise ValueError("coords, grid and contacts must share one device")
-    blob, contacts = _window_operands(
-        tp, mode, (gate_pts, gate_feat, gate_valid) if gated else None)
-    lib = _window_lib()
-    _check_smem(lib.window_smem_bytes, blob)
     x = p_cn.contiguous()
     g = grid.contiguous()
     ci = None if c_img_cn is None else _streamed(c_img_cn, None)
@@ -451,14 +596,34 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
                          "the coords' device")
     out = torch.empty(N, dtype=torch.float32, device=p_cn.device)
     n1 = -(-(reso - 1) // L)
+    box_eps = float(np.float32(1 + padding + 10e-4))
+    u_hi = float(np.float32(1 - 10e-4))
+    stream = torch.cuda.current_stream(p_cn.device).cuda_stream
+    gate = (gate_pts, gate_feat, gate_valid) if gated else None
+    if not _tile_chain(tp, C, c_img_cn):
+        lib, head, _keep = _any_operands(
+            tp, C, mode, 0 if ci is None else ci.shape[0], gate=gate, radius=radius)
+        rc = lib.trunk_any_window_launch(
+            *head, x.data_ptr(), g.data_ptr(), reso, box_eps, u_hi, L, n1,
+            None if ci is None else ci.data_ptr(), out.data_ptr(), keys.data_ptr(),
+            N, stream)
+        _raise_on(rc, "trunk_any_window_launch")
+        if gated:
+            fused_trunk_window_cn.launches_generic_gated += 1
+        else:
+            fused_trunk_window_cn.launches_generic += 1
+            fused_trunk_window_cn.launches_generic_cimg += c_img_cn is not None
+        return out, window_overflow(keys, tile, S, window_blocks(reso, L, S))
+    blob, contacts = _window_operands(tp, mode, gate)
+    lib = _window_lib()
+    _check_smem(lib.window_smem_bytes, blob)
     rc = lib.window_cn_launch(
         blob.data_ptr(), blob.numel(), 32, 32, len(tp["blocks"]), n_fingers, K,
         float(radius) * float(radius), mode,
         None if contacts is None else contacts.data_ptr(), x.data_ptr(),
-        g.data_ptr(), reso,
-        float(np.float32(1 + padding + 10e-4)), float(np.float32(1 - 10e-4)),
+        g.data_ptr(), reso, box_eps, u_hi,
         L, n1, None if ci is None else ci.data_ptr(), out.data_ptr(),
-        keys.data_ptr(), N, torch.cuda.current_stream(p_cn.device).cuda_stream)
+        keys.data_ptr(), N, stream)
     _raise_on(rc, "window_cn_launch")
     if gated:
         fused_trunk_window_cn.launches_gated += 1
@@ -471,3 +636,6 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
 fused_trunk_window_cn.launches = 0
 fused_trunk_window_cn.launches_gated = 0
 fused_trunk_window_cn.launches_cimg = 0
+fused_trunk_window_cn.launches_generic = 0
+fused_trunk_window_cn.launches_generic_gated = 0
+fused_trunk_window_cn.launches_generic_cimg = 0

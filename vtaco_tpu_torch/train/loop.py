@@ -12,7 +12,14 @@ TensorBoard event files in ``<out_dir>/logs`` through tensorboardX (where
 it is not installed, a warning and jsonl only). The pretrained
 tactile-to-depth parameters are grafted from
 ``encoder_t2d_kwargs.model_file`` before a resume, so a resumed
-checkpoint's own encoder_t2d wins.
+checkpoint's own encoder_t2d wins. Both files may be the port's or the
+JAX package's (core/checkpoint.py reads either; a JAX resume loads the
+model, the optimizer's moments and the scalars and drops the JAX PRNG
+key), and ``test.model_file`` may be an http(s) URL, fetched once into
+out_dir. The rolling model.ckpt and the numbered backups are written in
+the background (``CheckpointIO.save_async``); model_best.ckpt and the
+exit and final saves are written synchronously after the pending ones,
+as the JAX loop does.
 
 Observability (utils/profiling.py): ``training.profile_dir`` writes a
 torch.profiler trace of iterations 10 to 20 there (fused blocks
@@ -274,10 +281,14 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     t0 = time.time()
     stop = False
 
-    def save(filename):
+    def save(filename, background=False):
+        """Rank 0 saves; ``background`` through ``save_async`` (the rolling
+        model.ckpt and the numbered backups, as the JAX loop), else
+        synchronously."""
         with unsharded(model, trainer.optimizer):
             if main:
-                ckpt.save(filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
+                (ckpt.save_async if background else ckpt.save)(
+                    filename, epoch_it=epoch_it, it=it, loss_val_best=metric_val_best)
 
     def time_up():
         """Whether exit_after has passed, on any rank of the group."""
@@ -323,10 +334,10 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                 save("model_best.ckpt")
         if checkpoint_every > 0 and it % checkpoint_every == 0:
             print("Saving checkpoint at iteration: %d" % it)
-            save("model.ckpt")
+            save("model.ckpt", background=True)
         if backup_every > 0 and it % backup_every == 0:
             print("Backup checkpoint at iteration: %d" % it)
-            save("model_%d.ckpt" % it)
+            save("model_%d.ckpt" % it, background=True)
         if generator is not None and visualize_every > 0 and it % visualize_every == 0:
             with unsharded(model, trainer.optimizer):
                 if main:
@@ -336,6 +347,7 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
                         print("visualize failed:", e)
         if exit_ok and time_up():
             print("Time limit reached. Exiting.")
+            ckpt.wait()
             save("model.ckpt")
             raise SystemExit(3)
         if max_iters is not None and it >= max_iters:
@@ -391,7 +403,9 @@ def train(cfg, exit_after: int = -1, max_iters: Optional[int] = None,
     try:
         with debug_nans(nans):
             run()
+        ckpt.wait()
         save("model.ckpt")
     finally:
+        ckpt.wait()
         logger.close()
     return trainer, it
