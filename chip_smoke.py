@@ -246,13 +246,14 @@ ends:
      gated), K2 (coords; c_img rows of C + WIDTH_CI_EXTRA inputs; bf16
      storage once; over WIDTH_B objects sharing the coords), K3 and K4 on
      points sorted by super-cell of an R_GRID^3 grid, at WIDTHS_N points
-     (WIDEST_N at the widest, whose smallest tile has to fit shared
-     memory), each against its plain version (max abs error <= 1e-4,
-     points within 1e-6 of r^2 left out of the gated ones) with its route
-     asserted by the counters (the generic one launched, the tile chain
-     not), then timed beside its bound (the operations at the f32
-     CUDA-core rate, or the bytes at the memory rate) and the plain
-     version's time. Then (after options) the main path at a decoder
+     (WIDEST_N at the cases above 10,000 weights a layer, hidden 1,024 and
+     C 1,024 among them), each against its plain version (max abs error
+     <= 1e-4, points within 1e-6 of r^2 left out of the gated ones) with
+     its route asserted by the counters (the generic one launched, the
+     tile chain not), then timed beside its two bounds (the operations at
+     the 3xTF32 tensor-core rate, as the kernel computes, and bound_f32_ms
+     at the f32 CUDA-core rate, or the bytes at the memory rate), the
+     plain version's time, whether it beat it (faster) and its tile. Then (after options) the main path at a decoder
      width the tile chain does not take: VTacO_YCB at hidden = C =
      WIDE_MODEL (c_dim, the UNet3D's and ResNet-18's outputs, the decoder),
      random weights from seed 0, the batch of phase 5:
@@ -423,11 +424,13 @@ PLANES_RESO, PLANES_EVAL_N = 64, 100_000
 # steps timed after them, the voxel grid's side and the attention
 # decoder's chunk (points_subsample and generation.batch_size; also its
 # input_size, which neither package reads)
-# widths phase: the generic kernel's (hidden, C, n_blocks) cases, its
-# points (the widest at fewer: its tile of 32 points holds 131 KB), objects
-# of K2 batched, c_img inputs beyond C, and the width of the main path's
-# VTacO_YCB there
-WIDTH_CASES = ((16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5))
+# widths phase: the generic kernel's (hidden, C, n_blocks) cases (the last
+# two the widest, hidden 1,024 and C 1,024), its points (the cases above
+# 10,000 weights a layer at fewer, for the time of their plain versions),
+# objects of K2 batched, c_img inputs beyond C, and the width of the main
+# path's VTacO_YCB there
+WIDTH_CASES = ((16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5), (1024, 32, 5),
+               (512, 1024, 3))
 WIDTHS_N, WIDEST_N, WIDTH_B, WIDTH_CI_EXTRA, WIDE_MODEL = 1 << 21, 1 << 18, 4, 8, 64
 GENERIC_MODES = ("K1", "K2", "K2:c_img", "K2_batched", "K3", "K4")   # timed apart
 JAX_CKPT = os.path.join("tests", "golden", "vtaco_jax.ckpt")
@@ -937,14 +940,15 @@ def any_work(N, H, C, NB, Ci=0, store_bytes=4, tests=0, gated=0, window=False):
 
 def any_row(err, ms, plain_ms, work, peak):
     """A generic kernel's JSON numbers: bound_ms the larger of its
-    operations at the f32 CUDA-core rate (IEEE FMA, as the kernel computes)
-    and its bytes at the memory rate; bound_3xtf32_ms the same with the
-    operations at the tile chain's 3xTF32 tensor-core rate."""
+    operations at the 3xTF32 tensor-core rate (a third of the TF32 rate, as
+    the kernel computes its products) and its bytes at the memory rate;
+    bound_f32_ms the same with the operations at the f32 CUDA-core rate
+    (the plain trunk's IEEE products)."""
     ops, nbytes = work
-    t_ops, t_bytes = ops / peak[0], nbytes / peak[2]
+    t_ops, t_bytes = ops / (peak[1] / 3), nbytes / peak[2]
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops > t_bytes else "bytes",
-                bound_3xtf32_ms=max(ops / (peak[1] / 3), t_bytes) * 1e3)
+                bound_f32_ms=max(ops / peak[0], t_bytes) * 1e3)
 
 
 def generic_launched(phase, mode, before):
@@ -1024,9 +1028,8 @@ def widths_phase(dev, peak):
                 out[mode][case] = r = any_row(err, ms, plain_ms, work, peak)
                 log("widths", case=case, mode=mode, N=N, max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    bound_3xtf32_ms=r["bound_3xtf32_ms"],
-                    gflop=work[0] / 1e9, mb=work[1] / 1e6,
-                    tile=K.any_tile(H, C, Ci if mode.endswith("c_img") else 0),
+                    bound_f32_ms=r["bound_f32_ms"], faster=ms < plain_ms,
+                    gflop=work[0] / 1e9, mb=work[1] / 1e6, tile=K.any_tile(H),
                     near=0 if keep_ is None else int((~keep_).sum()))
             if case == "64x32x3":      # bf16 storage once
                 before = read_counters()
@@ -1041,6 +1044,9 @@ def widths_phase(dev, peak):
                     ms=ms)
         del sets, grid, ps, fb, calls
         torch.cuda.empty_cache()
+    log("widths", slower_than_plain=[f"{case} {mode}" for mode, rows in out.items()
+                                     for case, r in rows.items()
+                                     if r["ms"] >= r["plain_ms"]])
     return out
 
 
@@ -1223,8 +1229,9 @@ def wide_path_phase(dev, peak):
             log("wide", mode=mode, widths=r["widths"], shape=list(a[2].shape),
                 max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                bound_3xtf32_ms=r["bound_3xtf32_ms"],
+                bound_f32_ms=r["bound_f32_ms"], faster=ms < plain_ms,
                 gflop=work[0] / 1e9, mb=work[1] / 1e6,
+                tile=K.any_tile(a[0]["fc_out"][0].shape[1]),
                 near=0 if keep is None else int((~keep).sum()))
     if sorted(rows) != sorted(k.split(":", 1)[1] for k in want):
         raise AssertionError(f"wide: compared {sorted(rows)}")
@@ -4394,10 +4401,10 @@ def main():
             "max_abs_err": max([r["err"]] + [x["err"] for m in (mode, f"{mode}:c_img")
                                              for x in generic_rows.get(m, {}).values()]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "bound_3xtf32_ms": r["bound_3xtf32_ms"],
+            "bound_by": r["bound_by"], "bound_f32_ms": r["bound_f32_ms"],
             "library_ms": None,
             "by_width": {case: {k: x[k] for k in ("err", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "bound_3xtf32_ms")}
+                                                   "bound_by", "bound_f32_ms")}
                          for case, x in generic_rows[mode].items()}, **extra})
     log("done", seconds=round(time.perf_counter() - t_start, 3))
     print(json.dumps({"kernels": kernels}))

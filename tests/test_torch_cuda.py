@@ -240,23 +240,31 @@ def test_fused_trunk_cases(cuda, case, gated):
 @pytest.mark.cuda
 def test_wrapper_rejects_other_widths(cuda):
     """A width the tile chain does not take goes to the generic kernel,
-    never to the tile chain; one whose smallest tile exceeds shared memory
-    raises, naming the widths and the bytes."""
-    tp = random_tp(cuda, 16, 16, 3)
-    p, f = _inputs(cuda, 1000, width=16)
-    before = (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic)
-    with torch.no_grad():
-        K.fused_trunk_cn(tp, p, f)
-    assert (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic) == (
-        before[0], before[1] + 1)
-    wide = random_tp(cuda, 1024, 2048, 1)
-    with pytest.raises(ValueError, match="hidden=1024, C=2048.*B of shared memory"):
-        K.fused_trunk_cn(wide, p[:, :10], torch.zeros((2048, 10), device=cuda))
+    never to the tile chain, up to the widest hidden layer its smallest
+    tile holds: (hidden, C, n_blocks) = (1024, 2048, 1) on 10 points agrees
+    with the plain trunk (the generic counter moves); hidden 1,288 raises,
+    naming that limit (1,280)."""
+    for (H, C, NB), N in (((16, 16, 3), 1000), ((1024, 2048, 1), 10)):
+        tp = random_tp(cuda, H, C, NB)
+        p, f = _inputs(cuda, N, width=C)
+        before = (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic)
+        with torch.no_grad():
+            got = K.fused_trunk_cn(tp, p, f)
+            torch.cuda.synchronize()
+            want = FT.trunk_cn(tp, p, f)
+        assert (K.fused_trunk_cn.launches, K.fused_trunk_cn.launches_generic) == (
+            before[0], before[1] + 1)
+        assert float(torch.max(torch.abs(got - want))) < ATOL
+    wide = random_tp(cuda, 1288, 16, 1)
+    with pytest.raises(ValueError, match="hidden widths up to 1280, got hidden=1288"):
+        K.fused_trunk_cn(wide, p[:, :10], torch.zeros((16, 10), device=cuda))
 
 
 # (hidden, C, n_blocks) of the generic kernel's cases: chip_smoke.py's
-# widths phase
-WIDTH_CASES = [(16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5)]
+# widths phase, an odd width (padded to multiples of 8 in the kernel), and
+# the widest hidden layer with the widest features
+WIDTH_CASES = [(16, 16, 5), (64, 32, 3), (32, 128, 5), (256, 512, 5), (1024, 32, 5),
+               (512, 1024, 3), (20, 12, 2), (1024, 2048, 1)]
 
 
 def random_tp(device, H, C, NB, Ci=None, seed=0):
@@ -360,6 +368,62 @@ def test_generic_window(cuda, widths, variant):
     assert int(n_over) == int(want_over)
     assert int((~keep).sum()) * 100 <= N
     assert float(torch.max(torch.abs(got - want)[keep])) < ATOL
+
+
+def _race_contacts(device, case):
+    """Contact rows for test_generic_gate_threads_share_points, each valid
+    one within the radius of every point: ``one_per_finger``, 40 fingers
+    of one valid row each, so a point's first scanning thread hits finger
+    39 and the next ones fingers 38, 37, ...; ``two_chunks``, 6 fingers of
+    1,000 rows, valid only in finger 0 and at finger 1's row 807 (rows
+    1,808 to 5,999 invalid: at hidden 1,024 the first staged chunk of the
+    rows holds no hit), so one thread hits finger 1 and the others finger
+    0."""
+    g = torch.Generator().manual_seed(4)
+    F, K_ = (40, 1) if case == "one_per_finger" else (6, 1000)
+    q = 0.01 * torch.randn((F, K_, 3), generator=g)
+    valid = torch.ones((F, K_), dtype=torch.bool)
+    if case == "two_chunks":
+        valid[1:] = False
+        valid[1, 807] = True
+    feat = torch.randn((F, 16), generator=g)
+    return q.to(device), feat.to(device), valid.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [256, 1024])
+@pytest.mark.parametrize("case", ["one_per_finger", "two_chunks"])
+@pytest.mark.parametrize("window", [False, True])
+def test_generic_gate_threads_share_points(cuda, H, case, window):
+    """The generic kernel's gate (K1, K4) where several threads in several
+    warps scan each point's rows (tiles of 64 points at hidden 256, 16 at
+    1,024, in blocks of 256 threads), each stopping at its own first hit:
+    the largest row hit must win, whichever thread records its hit first.
+    The contacts put different threads' first hits on different fingers
+    (``_race_contacts``); ten launches, each against the plain gate and
+    trunk."""
+    C, NB, N, R, radius = 16, 1, 1 << 15, 32, 2.0
+    tp = random_tp(cuda, H, C, NB)
+    p, f = _inputs(cuda, N, width=C)
+    q, feat, valid = _race_contacts(cuda, case)
+    with torch.no_grad():
+        if window:
+            grid = torch.randn((R, R, R, C), device=cuda)
+            kw = dict(reso=R, padding=0.1, L=1, S=128, tile=256, gate_pts=q,
+                      gate_feat=feat, gate_valid=valid, radius=radius)
+            counter = "fused_trunk_window_cn:launches_generic_gated"
+            run = lambda: K.fused_trunk_window_cn(tp, grid, p, **kw)[0]
+            want = K.window_trunk_plain(tp, grid, p, **kw)[0]
+        else:
+            counter = "fused_trunk_gated_cn"
+            run = lambda: K.fused_trunk_gated_cn(tp, p, f, q, feat, valid, radius=radius)
+            want = FT.trunk_cn(tp, p, f, FT.gate_contact_cn(p, q, feat, valid, radius))
+        before = _generic_count(counter)
+        for _ in range(10):
+            got = run()
+            torch.cuda.synchronize()
+            assert float(torch.max(torch.abs(got - want))) < ATOL
+        assert _generic_count(counter) == before + 10
 
 
 def _window_inputs(device, N, L, R=64, seed=3):

@@ -5,8 +5,12 @@ the operands: (hidden, C, n_blocks) of chip_smoke.py's widths phase, K2
 with coords, c_img rows of Ci = C + 5 inputs, bf16 storage and an object
 axis, K1, and K3/K4 on points sorted by super-cell; then Generator3D's
 dense decode at width 16 against JAX's. ``any_tile`` picks the generic
-kernel's tile from the widths and raises, naming them and the bytes,
-where even its smallest tile exceeds shared memory.
+kernel's tile from hidden alone and raises past the widest hidden layer
+its smallest tile holds, naming that limit. The generic kernel's
+arithmetic (3xTF32 products from the padded blob, k-slice by k-slice) is
+emulated on the CPU and held against the plain trunk in every mode, at
+the widths phase's cases, the two widest (hidden 1,024 and C 1,024) and
+an odd width.
 
 Tolerances: 1e-5 on logits of order 1, as tests/test_torch_trunk.py,
 widened to 5e-5 at hidden 256, C 512 (sums of 512 terms per layer: the
@@ -15,6 +19,8 @@ there). Gates: points within 1e-6 of r² for some valid contact are left
 out, as in tests/test_torch_trunk.py. The CUDA kernels themselves run on
 the card, in tests/test_torch_cuda.py.
 """
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +41,7 @@ from vtaco_tpu_torch.generate.generator import Generator3D as TGen
 from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork as TNet
 from vtaco_tpu_torch.ops import fast_trunk as FT
 from vtaco_tpu_torch.ops.cuda import decode as K
+from vtaco_tpu_torch.ops.dense_decode import scattered_grid_features_cn
 
 from test_torch_trunk import _decoders
 
@@ -213,22 +220,214 @@ def test_dense_decode_width16_matches_jax(rng, mode):
 
 
 @pytest.mark.parametrize("widths,Ci,tile", [
-    ((32, 32, 5), 0, 128), ((16, 16, 5), 0, 128), ((64, 32, 3), 40, 128),
-    ((32, 128, 5), 136, 128), ((256, 512, 5), 0, 32), ((256, 512, 5), 520, 32)])
+    ((32, 32, 5), 0, 256), ((16, 16, 5), 0, 256), ((64, 32, 3), 40, 256),
+    ((32, 128, 5), 136, 256), ((256, 512, 5), 0, 64), ((256, 512, 5), 520, 64),
+    ((512, 1024, 3), 1029, 32), ((1024, 32, 5), 37, 16), ((1024, 2048, 1), 2053, 16)])
 def test_generic_tile_from_widths(widths, Ci, tile):
-    """The generic kernel's tile: the largest of 128, 64, 32 points whose
-    net, h, features (or c_img rows) and per-point words fit 232,448 B;
-    the route: the tile chain at hidden = C = 32 only."""
+    """The generic kernel's tile from hidden alone (eight warps tile the T
+    x hidden output; net and h stay resident, C and Ci stream through
+    k-slices), so (1024, 2048) and (1024, 32) plan the same tile; the
+    padded blob's size; the route: the tile chain at hidden = C = 32
+    only."""
     H, C, NB = widths
-    assert K.any_tile(H, C, Ci) == tile
-    assert K.any_smem_bytes(H, C, Ci, tile) <= K.SMEM_LIMIT
-    tp = {"fc_out": (torch.zeros(1, H), None), "blocks": [None] * NB}
+    assert K.any_tile(H) == tile
+    T, KS, MT, WO, chunk, smem = K.any_plan(H)
+    assert smem == K.any_smem_bytes(H) <= K.SMEM_LIMIT
+    assert (8 // WO) * MT * 16 == T and KS in (8, 16, 32)
+    Hp, Cp, Cip = (-(-x // 8) * 8 for x in (H, C, Ci))
+    assert chunk >= min(Hp, 1024)
+    tp = {"fc_p": (torch.ones(H, 3), torch.ones(H)), "fc_p_img": (torch.ones(H, 3 + Ci),
+                                                                   torch.ones(H)),
+          "fc_c": [(torch.ones(H, C), torch.ones(H))] * NB,
+          "blocks": [(torch.ones(H, H), torch.ones(H))* 2] * NB,
+          "fc_out": (torch.ones(1, H), torch.ones(1))}
+    base = 4 * Hp + NB * (Hp * Cp + Hp + 2 * (Hp * Hp + Hp)) + Hp + 8
+    assert K.pack_any_params(tp, 0).numel() == base
+    assert K.pack_any_params(tp, 1).numel() == base + Hp * Cip
+    assert K.pack_any_params(tp, 2, torch.ones(5, Ci)).numel() == base + 5 * Hp
     assert K._tile_chain(tp, C) == ((H, C) == (32, 32))
     assert not K._tile_chain({"fc_out": (torch.zeros(1, 32), None),
                               "blocks": [None] * 7}, 32)      # 7 blocks exceed it
 
 
 def test_generic_tile_raises_past_shared_memory():
-    with pytest.raises(ValueError, match=r"hidden=1024, C=2048, Ci=0: .* 525312 B of "
-                                         r"shared memory, a block has 232448"):
-        K.any_tile(1024, 2048)
+    """Every hidden width up to ANY_MAX_HIDDEN (1,280: net and h of 16
+    points beside one weight slice) plans a tile; past it the planner
+    raises, naming the limit."""
+    assert K.ANY_MAX_HIDDEN == 1280
+    assert all(K.any_plan(H) is not None for H in range(1, K.ANY_MAX_HIDDEN + 1))
+    assert K.any_plan(K.ANY_MAX_HIDDEN + 1) is None
+    with pytest.raises(ValueError, match=r"hidden widths up to 1280, got hidden=1288: "
+                                         r".* 232448 B of shared memory"):
+        K.any_tile(1288)
+
+
+# -- the generic kernel's arithmetic, emulated -------------------------------
+
+NEW_WIDTHS = [(1024, 32, 5), (512, 1024, 3)]     # chip_smoke.py's WIDTH_CASES
+EMULATED_CASES = WIDTH_CASES + NEW_WIDTHS + [(20, 12, 2)]
+
+
+def _split(x):
+    hi = K.tf32_rna(x)
+    return hi, K.tf32_rna(x - hi)
+
+
+def _pad8(x):
+    return -(-x // 8) * 8
+
+
+def _any_product(x, W, bias, KS):
+    """bias + x W^T as csrc/trunk_any.cu forms it: each k-slice of KS input
+    channels accumulates from zero the terms lo.hi, hi.lo and hi.hi of the
+    TF32 splits of x (relu'd activations or streamed rows) and of W's
+    staged rows (zeros past the last input channel), small terms first
+    (the two as one sum of 2 KS products), and is added to the product's
+    accumulator, which starts at the bias."""
+    (N, K), H = x.shape, W.shape[0]
+    ns = -(-K // KS)
+    xs = torch.nn.functional.pad(x, (0, ns * KS - K)).reshape(N, ns, KS).transpose(0, 1)
+    ws = torch.nn.functional.pad(W, (0, ns * KS - K)).reshape(H, ns, KS).permute(1, 2, 0)
+    (a_hi, a_lo), (b_hi, b_lo) = _split(xs), _split(ws)
+    a_small = torch.cat([a_lo, a_hi], dim=2).contiguous()     # (ns, N, 2 KS)
+    b_small = torch.cat([b_hi, b_lo], dim=1).contiguous()     # (ns, 2 KS, H)
+    a_hi, b_hi = a_hi.contiguous(), b_hi.contiguous()
+    acc = torch.zeros(N, H) if bias is None else bias.expand(N, -1).clone()
+    for s in range(ns):
+        acc += torch.mm(a_small[s], b_small[s]).add_(torch.mm(a_hi[s], b_hi[s]))
+    return acc
+
+
+def _emulated_any(blob, H, C, NB, p_cn, f_cn, c_img_cn=None, finger=None):
+    """The logits csrc/trunk_any.cu computes from pack_any_params's padded
+    blob, its order of operations included: the input projection as FMAs
+    on the CUDA cores (float64, rounded once), the gated finger's row W_img
+    g_f (``finger`` (N,), -1 for none) or the c_img product, then each
+    block's three products (``_any_product``) added to net, and the head."""
+    Hp, Cp = _pad8(H), _pad8(C)
+    KS = K.any_plan(H)[1]
+    o = 0
+
+    def take(n, *shape):
+        nonlocal o
+        o += n
+        return blob[o - n:o].reshape(*shape) if shape else blob[o - n:o]
+
+    wp, b_in = take(3 * Hp, Hp, 3), take(Hp)
+    blocks = [(take(Hp * Cp, Hp, Cp), take(Hp), take(Hp * Hp, Hp, Hp), take(Hp),
+               take(Hp * Hp, Hp, Hp), take(Hp)) for _ in range(NB)]
+    w_out, b_out = take(Hp), take(8)[0]
+    N = p_cn.shape[1]
+    net = (p_cn.T.double() @ wp.T.double()).float() + b_in
+    if finger is not None:
+        gproj = blob[o:].reshape(-1, Hp)
+        net = net + torch.where(finger[:, None] >= 0, gproj[finger.clamp(min=0)], 0.0)
+    if c_img_cn is not None:
+        Cip = _pad8(c_img_cn.shape[0])
+        ci = torch.zeros(N, Cip)
+        ci[:, :c_img_cn.shape[0]] = c_img_cn.T
+        net = net + _any_product(ci, blob[o:].reshape(Hp, Cip), None, KS)
+    f = torch.zeros(N, Cp)
+    f[:, :C] = f_cn.T
+    for wc, bc, w0, b0, w1, b1 in blocks:
+        net = net + _any_product(f, wc, bc, KS)
+        h = _any_product(torch.relu(net), w0, b0, KS)
+        net = net + _any_product(torch.relu(h), w1, b1, KS)
+    return torch.relu(net) @ w_out + b_out
+
+
+def _last_finger(p, q, valid, radius):
+    """The gated finger of each point (the last finger with a valid contact
+    within radius, by the expanded distance), -1 for none."""
+    d2 = FT.contact_sq_dist(p, q, valid)
+    within = torch.any((d2 < radius * radius).reshape(q.shape[0], q.shape[1], -1), dim=1)
+    last = (q.shape[0] - 1) - torch.argmax(within.flip(0).to(torch.uint8), dim=0)
+    return torch.where(torch.any(within, dim=0), last, -1)
+
+
+@pytest.fixture
+def share_cores():
+    """Under pytest-xdist each worker takes its share of the cores for
+    torch's intra-op threads (as tests/test_torch_fast.py's fixture): the
+    emulation's many small products ran 20-30 times slower when six
+    workers' thread pools oversubscribed the cores."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    old = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.mark.usefixtures("share_cores")
+@pytest.mark.parametrize("widths", EMULATED_CASES)
+@pytest.mark.parametrize("mode", ["K2", "K2:c_img", "K2:bf16", "K1", "K3", "K4"])
+def test_generic_kernel_arithmetic(widths, mode):
+    """The generic kernel's 3xTF32 chain, emulated from the padded blob in
+    the kernel's order, against the IEEE f32 plain trunk in each mode: K2
+    (coords, c_img rows of Ci = C + 5, bf16 storage), K1, and K3/K4 on the
+    trilinear features of a grid; at chip_smoke.py's widths, the two
+    widest and an odd width, on 300 points. Tolerances as the file's (1e-5,
+    5e-5 from 256 wide); gated points within 1e-6 of r² left out."""
+    H, C, NB = widths
+    N, Ci, R = 300, C + 5, 9
+    rng = np.random.default_rng(7)
+    _, tp = _weights(H, C, NB, Ci if mode == "K2:c_img" else C, seed=5)
+    p = T(rng.uniform(-0.55, 0.55, (3, N)).astype(np.float32))
+    f = T(rng.standard_normal((C, N)).astype(np.float32))
+    if mode in ("K3", "K4"):
+        grid = T(rng.standard_normal((R, R, R, C)).astype(np.float32))
+        f = scattered_grid_features_cn(grid, p, PADDING)
+    if mode == "K2:bf16":
+        p, f = K._stored(p, torch.bfloat16), K._stored(f, torch.bfloat16)
+    keep = torch.ones(N, dtype=torch.bool)
+    with torch.no_grad():
+        if mode == "K2:c_img":
+            ci = T(rng.standard_normal((Ci, N)).astype(np.float32))
+            got = _emulated_any(K.pack_any_params(tp, 1), H, C, NB, p, f, c_img_cn=ci)
+            want = FT.trunk_cn(tp, p, f, ci)
+        elif mode in ("K1", "K4"):
+            q, feat, valid = (T(x) for x in _contacts(rng, C))
+            finger = _last_finger(p, q, valid, RADIUS)
+            assert int((finger >= 0).sum()) > N // 100
+            got = _emulated_any(K.pack_any_params(tp, 2, feat), H, C, NB, p, f,
+                                finger=finger)
+            want = FT.trunk_cn(tp, p, f, FT.gate_contact_cn(p, q, feat, valid, RADIUS))
+            keep = T(~_near(p.numpy(), q.numpy(), valid.numpy()))
+        else:
+            got = _emulated_any(K.pack_any_params(tp, 0), H, C, NB, p, f)
+            want = FT.trunk_cn(tp, p, f)
+    assert float(want.abs().max()) > 0.5          # logits of order one
+    np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), atol=_atol(H, C),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("widths", NEW_WIDTHS)
+@pytest.mark.parametrize("variant", ["K2", "K1"])
+def test_new_widths_match_pallas(rng, widths, variant):
+    """K2 (coords) and K1's plain versions at the two widest cases against
+    the Pallas kernels in interpret mode, on 125 points."""
+    H, C, NB = widths
+    N = 125
+    jtp, ttp = _weights(H, C, NB, C, seed=6)
+    p = rng.uniform(-0.55, 0.55, (3, N)).astype(np.float32)
+    f = rng.standard_normal((C, N)).astype(np.float32)
+    keep = np.ones(N, bool)
+    with torch.no_grad():
+        if variant == "K2":
+            want = j_fused_trunk_cn(j_pack(jtp, with_img=False), jnp.asarray(p),
+                                    jnp.asarray(f), tile=128, interpret=True)
+            got = K.fused_trunk_cn(ttp, T(p), T(f))
+        else:
+            q, feat, valid = _contacts(rng, C)
+            q[:, :4] = p.T[None, :4] + 0.01      # some points of the set are gated
+            want = j_fused_trunk_gated_cn(
+                j_pack(jtp, with_img=True), jnp.asarray(p), jnp.asarray(f),
+                jnp.asarray(q), jnp.asarray(feat), jnp.asarray(valid), radius=RADIUS,
+                tile=128, interpret=True)
+            got = K.fused_trunk_gated_cn(ttp, T(p), T(f), T(q), T(feat), T(valid),
+                                         radius=RADIUS)
+            gated = FT.gate_contact_cn(T(p), T(q), T(feat), T(valid), RADIUS)
+            assert int(torch.any(gated != 0, dim=0).sum()) >= 2
+            keep = ~_near(p, q, valid)
+    np.testing.assert_allclose(got.numpy()[keep], np.asarray(want)[keep],
+                               atol=_atol(H, C), rtol=0)

@@ -195,13 +195,19 @@ def _at_precision(fn):
 
 
 class Generator3D:
-    def __init__(self, model, resolution0=16, padding=0.1,
-                 with_img=False, encode_t2d=False, contact_per_finger=128,
-                 depth_origin=None, legacy_gt_depth=True, mc_level="midpoint",
-                 transfer_dtype="auto", band_transfer="auto", coord_quant="auto",
-                 upsampling_steps=0, points_batch_size=100000, input_type=None,
-                 vol_info=None, matmul_precision="highest", use_pallas="auto"):
-        """``transfer_dtype``: the dtype the logits are rounded through on
+    def __init__(self, model, points_batch_size=100000, threshold=0.5, resolution0=16,
+                 upsampling_steps=3, padding=0.1, sample=False, refinement_step=0,
+                 simplify_nfaces=None, input_type=None, vol_info=None, vol_bound=None,
+                 alpha=0.2, with_img=False, encode_t2d=False, contact_per_finger=128,
+                 depth_origin=None, legacy_gt_depth=True, matmul_precision="highest",
+                 mc_level="midpoint", use_pallas="auto", transfer_dtype="auto",
+                 coord_quant="auto", band_transfer="auto"):
+        """The JAX package's constructor: the same arguments in the same
+        order with the same defaults. ``threshold``, ``alpha`` and
+        ``vol_bound`` are stored and read by nothing, as there;
+        ``sample``, ``refinement_step`` and ``simplify_nfaces`` are taken
+        and dropped, as there.
+        ``transfer_dtype``: the dtype the logits are rounded through on
         their way to the host, with the JAX package's contract ('int8' is
         scale-quantized by max|logit|/127). 'auto' resolves to float32.
         ``band_transfer``: true ships the dense decodes' iso-band
@@ -223,7 +229,7 @@ class Generator3D:
         the JAX package does for its host link. 'auto' resolves to off,
         true turns it on.
         ``upsampling_steps``: MISE's refinement levels
-        (``generate_obj_mesh_mise``).
+        (``generate_obj_mesh_mise``'s default; 3 as in the JAX package).
         ``points_batch_size``: the chunk of the legacy decode
         (``eval_points(fast=False)``).
         ``input_type``, ``vol_info``: the crop volumes of a
@@ -254,7 +260,11 @@ class Generator3D:
                              f"false; got {use_pallas!r}")
         self.model = model
         self.matmul_precision = matmul_precision
+        self.use_pallas = use_pallas
         self.use_kernels = use_pallas is not False
+        self.threshold = threshold
+        self.alpha = alpha
+        self.vol_bound = vol_bound
         self.resolution0 = resolution0
         self.padding = padding
         self.with_img = with_img
@@ -297,8 +307,13 @@ class Generator3D:
                                                  recep_field, unit_size, depth)
         return cls(
             model,
+            threshold=cfg["test"]["threshold"],
             resolution0=gen["resolution_0"],
             upsampling_steps=gen["upsampling_steps"],
+            sample=gen["use_sampling"],
+            refinement_step=gen["refinement_step"],
+            simplify_nfaces=gen["simplify_nfaces"],
+            alpha=gen.get("alpha", 0.2),
             padding=cfg["data"]["padding"],
             with_img=cfg["model"]["with_img"],
             encode_t2d=bool(cfg["model"]["encoder_t2d"]),

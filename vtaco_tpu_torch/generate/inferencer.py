@@ -53,19 +53,41 @@ def _finite_mean(xs):
 
 
 class Inferencer:
-    def __init__(self, model, generator: Generator3D, *, train_tactile=False,
+    def __init__(self, model, generator: Generator3D, *, threshold=0.5,
+                 num_sample=2048, with_img=False, with_contact=False,
+                 train_tactile=False, encode_t2d=False, input_type="pointcloud",
                  vis_dir=None):
+        """The JAX package's constructor and attributes: ``threshold``,
+        ``num_sample``, ``with_img``, ``with_contact``, ``encode_t2d`` and
+        ``input_type`` are stored and read by nothing, as there;
+        ``resolution0`` and ``padding`` are the generator's."""
         self.model = model
         self.generator = generator
+        self.threshold = threshold
+        self.num_sample = num_sample
+        self.with_img = with_img
+        self.with_contact = with_contact
         self.train_tactile = train_tactile
+        self.encode_t2d = encode_t2d
+        self.input_type = input_type
         self.vis_dir = vis_dir
+        self.resolution0 = generator.resolution0
+        self.padding = generator.padding
         if vis_dir is not None:
             os.makedirs(vis_dir, exist_ok=True)
 
     @classmethod
     def from_config(cls, model, generator, cfg, **kw):
-        return cls(model, generator, train_tactile=cfg["model"]["train_tactile"],
-                   vis_dir=os.path.join(cfg["training"]["out_dir"], "vis"), **kw)
+        return cls(
+            model, generator,
+            threshold=cfg["test"]["threshold"],
+            num_sample=cfg["data"]["num_sample"],
+            with_img=cfg["model"]["with_img"],
+            with_contact=cfg["model"]["with_contact"],
+            train_tactile=cfg["model"]["train_tactile"],
+            encode_t2d=bool(cfg["model"]["encoder_t2d"]),
+            input_type=cfg["data"]["input_type"],
+            vis_dir=os.path.join(cfg["training"]["out_dir"], "vis"), **kw)
 
     def inference_step(self, model, data_vis_list):
         """Reconstruct staged samples, each ``{'data': <B=1 batch>, 'name':

@@ -12,7 +12,8 @@ the Pallas kernels take, goes to the width-generic kernel of
 from the widths alone. See each source's header for what bounds it on the
 card and how the design answers it. This module packs the weights
 (``pack_window_params``: split into TF32 hi/lo parts for the tensor cores;
-``pack_any_params``: natural order for the generic kernel), checks the
+``pack_any_params``: natural order, padded to multiples of 8, for the
+generic kernel, which splits as it stages), checks the
 inputs and launches the kernels through ctypes.
 ``window_gate_candidates`` is the plain version of the kernels' per-tile
 contact culling, and ``window_box_edge_contacts`` a contact set that
@@ -61,7 +62,6 @@ WIDTHS = (32, 32)  # (hidden, C) of the tile chain (tile_chain.cuh kWidth)
 TILE_CHAIN_BLOCKS = 6
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
 WINDOW_TILE = 128  # points per tile of the tile kernels (kTile)
-ANY_TILES = (128, 64, 32)  # points per tile of csrc/trunk_any.cu, largest first
 
 
 def tf32_rna(x):
@@ -194,44 +194,99 @@ def _tile_chain(tp, C, c_img=None):
             and (c_img is None or c_img.shape[0] == WIDTHS[1]))
 
 
-def any_smem_bytes(H, C, Ci, T):
-    """Shared memory of csrc/trunk_any.cu's tile of T points (its
-    smem_floats): net and h (H x T), the features or c_img rows
-    (max(C, Ci) x T) and 8 T words of coordinates, gates and corners."""
-    return 4 * T * (2 * H + max(C, Ci) + 8)
+def _pad8(x):
+    return -(-x // 8) * 8
 
 
-def any_tile(H, C, Ci=0):
-    """Points per tile of the generic kernel at these widths: the largest
-    of ANY_TILES whose tile fits a block's shared memory. Raises ValueError,
-    naming the widths and the bytes, when even the smallest does not."""
-    for T in ANY_TILES:
-        if any_smem_bytes(H, C, Ci, T) <= SMEM_LIMIT:
-            return T
-    T = ANY_TILES[-1]
-    raise ValueError(
-        f"the generic trunk kernel cannot hold hidden={H}, C={C}, Ci={Ci}: its "
-        f"smallest tile of {T} points needs {any_smem_bytes(H, C, Ci, T)} B of "
-        f"shared memory, a block has {SMEM_LIMIT}")
+def any_plan(H):
+    """csrc/trunk_any.cu's tile at hidden width H, which no other width
+    changes (the launch takes MT, KS and WO from it): ``(T, KS, MT, WO,
+    chunk, smem_bytes)``, T points per tile, k-slices of KS input channels
+    (32, else 16, with MT = 2; 8 with MT = 1), MT m16 tiles per warp, WO of
+    the eight warps along the output channels, ``chunk`` output channels
+    covered at once and the bytes of shared memory: net and h (T x (Hp +
+    4) each), two weight slices (min(Hp, chunk) x KS), two streamed slices
+    (KS x (T + 8)) and 4 T words of coordinates and gates (Hp = H padded
+    to a multiple of 8). None where even the smallest tile does not fit."""
+    Hp = _pad8(H)
+    MT = 2 if Hp <= 512 else 1
+    NT = 16 // MT
+    WO = 1
+    while WO < 8 and WO * NT * 8 < Hp:
+        WO *= 2
+    T = (8 // WO) * MT * 16
+    chunk = WO * NT * 8
+    wch = min(Hp, chunk)
+    for KS in ((32, 16) if MT == 2 else (8,)):
+        smem = 4 * (2 * T * (Hp + 4) + 2 * wch * KS + 2 * KS * (T + 8) + 4 * T)
+        if smem <= SMEM_LIMIT:
+            return T, KS, MT, WO, chunk, smem
+    return None
+
+
+# the widest hidden layer a tile holds: net and h of its 16 points beside
+# one slice of 8 input channels
+ANY_MAX_HIDDEN = max(H for H in range(8, 4096, 8) if any_plan(H) is not None)
+
+
+def any_smem_bytes(H):
+    """Shared memory of csrc/trunk_any.cu's tile at hidden width H; C and
+    Ci stream through k-slices and change nothing."""
+    return _any_plan_or_raise(H)[5]
+
+
+def any_tile(H):
+    """Points per tile of the generic kernel at hidden width H: 256 up to
+    hidden 64, then 128, 64, 32 and 16 (from hidden 520 on), as eight
+    warps tile the T x hidden output. Raises ValueError past
+    ANY_MAX_HIDDEN, where even the tile of 16 points does not fit a
+    block's shared memory."""
+    return _any_plan_or_raise(H)[0]
+
+
+def _any_plan_or_raise(H):
+    plan = any_plan(H)
+    if plan is None:
+        raise ValueError(
+            f"the generic trunk kernel holds hidden widths up to {ANY_MAX_HIDDEN}, "
+            f"got hidden={H}: net and h of its smallest tile of 16 points beside "
+            f"one weight slice exceed the {SMEM_LIMIT} B of shared memory a "
+            f"block has")
+    return plan
 
 
 def pack_any_params(tp, mode, gate_feat=None):
     """extract_trunk_params output → csrc/trunk_any.cu's flat f32 blob, in
-    natural order: the coord columns of fc_p (mode 0) or fc_p_img (modes 1,
-    2) and b_in, then per block wc, bc, w0, b0, w1, b1, then w_out, b_out;
-    in mode 1 the c_img columns W_img of fc_p_img after them, in mode 2
-    W_img g_f for each finger's feature g_f (``gate_feat`` (F, Ci))."""
+    natural order with hidden, C and Ci padded to multiples of 8 by zero
+    weights and biases (exact: a padded hidden channel stays 0 through every
+    ReLU and meets zero columns and a zero w_out): the coord columns of
+    fc_p (mode 0) or fc_p_img (modes 1, 2) and b_in, then per block wc,
+    bc, w0, b0, w1, b1, then w_out and b_out (padded to 8); in mode 1 the
+    c_img columns W_img of fc_p_img after them, in mode 2 W_img g_f for
+    each finger's feature g_f (``gate_feat`` (F, Ci)). The TF32 split
+    happens in the kernel."""
     w_in, b_in = tp["fc_p_img"] if mode else tp["fc_p"]
-    parts = [w_in[:, :3], b_in]
-    for (wc, bc), blk in zip(tp["fc_c"], tp["blocks"]):
-        parts += [wc, bc, *blk]
+    Hp = _pad8(w_in.shape[0])
+
+    def pad(x, rows, cols=None):
+        x = x.float()
+        if cols is None:
+            return torch.nn.functional.pad(x.reshape(-1), (0, rows - x.numel()))
+        return torch.nn.functional.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+
+    parts = [pad(w_in[:, :3], Hp, 3), pad(b_in, Hp)]
+    for (wc, bc), (w0, b0, w1, b1) in zip(tp["fc_c"], tp["blocks"]):
+        parts += [pad(wc, Hp, _pad8(wc.shape[1])), pad(bc, Hp), pad(w0, Hp, Hp),
+                  pad(b0, Hp), pad(w1, Hp, Hp), pad(b1, Hp)]
     w_out, b_out = tp["fc_out"]
-    parts += [w_out, b_out.reshape(1)]
+    parts += [pad(w_out, Hp), pad(b_out, 8)]
     if mode == 1:
-        parts.append(w_in[:, 3:])
+        w_img = w_in[:, 3:]
+        parts.append(pad(w_img, Hp, _pad8(w_img.shape[1])))
     elif mode == 2:
-        parts.append(gate_feat.float() @ w_in[:, 3:].float().T)   # (F, h)
-    return torch.cat([t.float().reshape(-1) for t in parts])
+        gproj = gate_feat.float() @ w_in[:, 3:].float().T             # (F, h)
+        parts.append(pad(gproj, gproj.shape[0], Hp))
+    return torch.cat([t.reshape(-1) for t in parts])
 
 
 def _contact_rows(gate_pts, gate_valid):
@@ -246,23 +301,24 @@ def _contact_rows(gate_pts, gate_valid):
 def _any_lib():
     lib = build.library("trunk_any")
     P, I, F, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.trunk_any_launch.argtypes = [P, I, I, I, I, I, I, P, I, I, F, P, LL, P, LL,
-                                     P, I, P, LL, I, P]
+    lib.trunk_any_launch.argtypes = [P, I, I, I, I, I, P, I, I, F, I, I, I, P, LL, P,
+                                     LL, P, I, P, LL, I, P]
     lib.trunk_any_launch.restype = I
-    lib.trunk_any_window_launch.argtypes = [P, I, I, I, I, I, I, P, I, I, F, P, P, I,
-                                            F, F, I, I, P, P, P, LL, P]
+    lib.trunk_any_window_launch.argtypes = [P, I, I, I, I, I, P, I, I, F, I, I, I, P,
+                                            P, I, F, F, I, I, P, P, P, P, LL, P]
     lib.trunk_any_window_launch.restype = I
     return lib
 
 
 def _any_operands(tp, C, mode, Ci=0, gate=None, radius=0.015):
     """What csrc/trunk_any.cu takes besides the streamed operands: ``(lib,
-    head, keep)``, head the launch's first eleven arguments (blob, hidden,
-    C, Ci, n_blocks, mode, T, contacts, F, K, r²) and keep the tensors
-    they point into, to be held until the launch is enqueued."""
+    head, keep)``, head the launch's first thirteen arguments (blob,
+    hidden, C, Ci, n_blocks, mode, contacts, F, K, r², and any_plan's MT,
+    KS, WO) and keep the tensors they point into, to be held until the
+    launch is enqueued. Raises past ANY_MAX_HIDDEN."""
     H = tp["fc_out"][0].shape[1]
     Ci = Ci if mode == 1 else 0
-    T = any_tile(H, C, Ci)
+    _, KS, MT, WO, _, _ = _any_plan_or_raise(H)
     lib = _any_lib()
     contacts, F, K, r2 = None, 0, 0, 0.0
     gate_feat = None
@@ -273,8 +329,8 @@ def _any_operands(tp, C, mode, Ci=0, gate=None, radius=0.015):
         r2 = float(radius) * float(radius)
     blob = pack_any_params(tp, mode, gate_feat)
     keep = (blob, contacts)
-    head = (blob.data_ptr(), H, C, Ci, len(tp["blocks"]), mode, T,
-            None if contacts is None else contacts.data_ptr(), F, K, r2)
+    head = (blob.data_ptr(), H, C, Ci, len(tp["blocks"]), mode,
+            None if contacts is None else contacts.data_ptr(), F, K, r2, MT, KS, WO)
     return lib, head, keep
 
 
@@ -603,10 +659,11 @@ def fused_trunk_window_cn(tp, grid, p_cn, *, reso, padding, L, S, tile,
     if not _tile_chain(tp, C, c_img_cn):
         lib, head, _keep = _any_operands(
             tp, C, mode, 0 if ci is None else ci.shape[0], gate=gate, radius=radius)
+        scratch = torch.empty((C, N), dtype=torch.float32, device=p_cn.device)
         rc = lib.trunk_any_window_launch(
             *head, x.data_ptr(), g.data_ptr(), reso, box_eps, u_hi, L, n1,
-            None if ci is None else ci.data_ptr(), out.data_ptr(), keys.data_ptr(),
-            N, stream)
+            None if ci is None else ci.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            keys.data_ptr(), N, stream)
         _raise_on(rc, "trunk_any_window_launch")
         if gated:
             fused_trunk_window_cn.launches_generic_gated += 1
