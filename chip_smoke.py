@@ -14,6 +14,17 @@ ends:
      513^3 field on min(cpu_count, 8) x-slabs against one thread (the
      same soup and vertex count: the weld), and the lattice encode of
      the shuffled 128^3 lattice against its numpy form (the same nodes).
+  init (after host_engines): get_model on the card for VTacO_YCB,
+     VTacOH_YCB and tactile_test at their shipped widths, drawn from a
+     CUDA torch.Generator: every floating tensor against its
+     initializer's analytic std (tests/port_checks.py: within 5 standard
+     errors, lecun tensors within their cut), zeros and ones exact; the
+     tensor count, the worst z-score and the seconds.
+  helpers (after init): the JAX package's geometry and metric helpers
+     that the port added (Camera, transform_points, project_to_camera,
+     the quaternion algebra, rotmat_projection, hand_joint_error) on
+     card tensors against the same calls on the CPU: 1e-6 absolute
+     (rotmat_projection 1e-5), hand_joint_error exact.
   3. kernels: K2 and K1 against their plain PyTorch versions at the
      flagship shapes (N = 128^3 query points, C = hidden = 32, 5 blocks,
      K = 128 contacts per finger), max abs error <= 1e-4: c_img rows, bf16
@@ -312,6 +323,7 @@ from vtaco_tpu_torch.data.device_data import DeviceBatchLoader, DeviceDataset
 from vtaco_tpu_torch.generate import band as B
 from vtaco_tpu_torch.generate.marching_cubes import _marching_cubes_numpy, marching_cubes
 from vtaco_tpu_torch.ops import fast_trunk as FT
+from vtaco_tpu_torch.ops import geometry as G
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.geometry import make_3d_grid
 from vtaco_tpu_torch.ops.cuda import build
@@ -339,10 +351,16 @@ from vtaco_tpu_torch.utils.syncs import host_syncs
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from bf16_checks import (CARD_BAR, CARD_OUTPUTS_LOGGED, bf16_batchnorm,  # noqa: E402
                          exact_zero, step_bars, trained_bars)
+from port_checks import check_fresh_model, spread_matrices  # noqa: E402
 from voxel_files import write_voxels  # noqa: E402
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ATOL = 1e-4
+INIT_CONFIGS = (("VTacO_YCB", "configs/VTacO/VTacO_YCB.yaml"),
+                ("VTacOH_YCB", "configs/VTacOH/VTacOH_YCB.yaml"),
+                ("tactile_test", "configs/tactile/tactile_test.yaml"))
+HELPERS_TOL = 1e-6
+ROTMAT_TOL = 1e-5
 RADIUS = 0.015           # contact gating radius (generator default)
 NEAR = 1e-6              # |d2 - r^2| below which a gate decision may round either way
 N_FLAGSHIP = 128 ** 3    # resolution_0 32 -> nx 128
@@ -462,6 +480,15 @@ COUNTERS = {"fused_trunk_cn": (K.fused_trunk_cn, "launches"),
 
 def log(phase, **kw):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kw.items()), flush=True)
+
+
+T_START = [time.perf_counter()]
+
+
+def clock(after):
+    """The script's seconds so far, after the phase ``after``: where a
+    run's time went."""
+    log("clock", after=after, s=round(time.perf_counter() - T_START[0], 3))
 
 
 def peaks(name):
@@ -3898,6 +3925,76 @@ def host_call(fn, *args):
     return out, time.perf_counter() - t0
 
 
+def init_phase(dev):
+    """Fresh models drawn on the card as the JAX package's init draws them
+    (tests/port_checks.py)."""
+    t0 = time.perf_counter()
+    total, worst = 0, (0.0, None)
+    for seed, (name, path) in enumerate(INIT_CONFIGS):
+        t1 = time.perf_counter()
+        cfg = load_config(path, "configs/default.yaml")
+        model = get_model(cfg, device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(100 + seed))
+        r = check_fresh_model(model)
+        torch.cuda.synchronize()
+        log("init", config=name, tensors=r["tensors"], exact=r["exact"], drawn=r["drawn"],
+            worst_z=r["worst_z"], worst=r["worst"], failures=len(r["failures"]),
+            seconds=time.perf_counter() - t1)
+        if r["failures"]:
+            raise AssertionError(f"{name}: drawn off its initializer: {r['failures'][:5]}")
+        total += r["tensors"]
+        worst = max(worst, (r["worst_z"], f"{name}:{r['worst']}"))
+        del model
+    log("init", tensors=total, worst_z=worst[0], worst=worst[1], z_bar=5.0,
+        seconds=time.perf_counter() - t0)
+
+
+def helpers_phase(dev):
+    """The geometry and metric helpers on card tensors against the CPU."""
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(31)
+
+    def both(fn, *args):
+        """fn on the CPU tensors and on their copies on the card."""
+        return fn(*args), fn(*(a.to(dev) for a in args)).cpu()
+
+    cam = G.Camera(width=240, height=320, near_plane=0.019, far_plane=0.022, fov=60)
+    depth = 0.019 + 0.0032 * torch.rand((320, 240), generator=g)
+    pts = torch.rand((2, 4096, 3), generator=g) * 1.1 - 0.55
+    rot = G.quat2mat(torch.randn((2, 4), generator=g))
+    rt = torch.cat([rot, 0.1 * torch.randn((2, 3, 1), generator=g)], dim=2)
+    k = torch.tensor([[1.2, 0.0, 0.1], [0.0, 1.2, 0.1], [0.0, 0.0, 1.0]]).expand(2, 3, 3)
+    front = pts + torch.tensor([0.0, 0.0, 2.0])
+    q = G.quaternion_normalize(torch.randn((4096, 4), generator=g))
+    r = G.quaternion_normalize(torch.randn((4096, 4), generator=g))
+    mats = spread_matrices(g, 1024)
+    errs = {}
+    cloud = both(cam.depth_to_camera_pointcloud, depth)
+    masks = (cam.valid_mask(cloud[0]), cam.valid_mask(cloud[1]))
+    for name, (want, got) in {
+            "camera": cloud, "transform_rt": both(G.transform_points, pts, rt),
+            "transform_k": both(G.transform_points, pts, k),
+            "project": both(G.project_to_camera, front, k),
+            "quaternion_mul": both(G.quaternion_mul, q, r),
+            "quaternion_inv": both(G.quaternion_inv, q),
+            "quaternion_normalize": both(G.quaternion_normalize, 2 * q),
+            "quaternion_to_rotation_matrix": both(G.quaternion_to_rotation_matrix, q),
+            "rotmat_projection": both(G.rotmat_projection, mats)}.items():
+        errs[name] = float((got - want).abs().max())
+    joints = torch.randn((2, 1, 21, 3), generator=g, dtype=torch.float64)
+    joint_err = (metrics.hand_joint_error(*joints),
+                 metrics.hand_joint_error(*(j.to(dev) for j in joints)))
+    log("helpers", **{f"{k}_err": v for k, v in errs.items()},
+        masks_equal=bool(torch.equal(*masks)), valid=int(masks[0].sum()),
+        hand_joint_error=joint_err[0], hand_joint_error_card=joint_err[1],
+        tol=HELPERS_TOL, rotmat_tol=ROTMAT_TOL, seconds=time.perf_counter() - t0)
+    bad = {k: v for k, v in errs.items()
+           if v > (ROTMAT_TOL if k == "rotmat_projection" else HELPERS_TOL)}
+    if bad or not torch.equal(*masks) or joint_err[0] != joint_err[1]:
+        raise AssertionError(f"a helper on the card disagrees with the CPU: {bad}, "
+                             f"masks equal {torch.equal(*masks)}, {joint_err}")
+
+
 def host_engines_phase():
     """The native host engines on the card's host, against their plain
     references: marching cubes at 129^3 against _marching_cubes_numpy
@@ -4265,16 +4362,23 @@ def pipeline_phase():
     log("pipeline", synthetic_s=time.perf_counter() - t0, models=PIPELINE_MODELS,
         n_query=PIPELINE_QUERY, images="5x%dx%d" % PIPELINE_IMG)
     tac = tactile_stage(root, data)
+    clock("tactile")
     vt = vtaco_stage(root, data, tac[1])
+    clock("train")
     vh = vtacoh_stage(root, data)
+    clock("vtacoh_train")
     launches = generate_stage(root, vt, tac, vh)
     batched = batched_cli_stage(root, vt)
     band = band_cli_stage(root, vt)
     par = parallel_phase(root, data, vt)
     visualize_stage(root, vt, tac, vh)
+    clock("generate_parallel_visualize")
     crop_stage(root, data)
+    clock("crop")
     families = families_phase(root, data, tac[1])
+    clock("families")
     fast = fast_phase(root, data, tac[1])
+    clock("fast")
     shutil.rmtree(root)
     return launches, batched, dict(fast, parallel=par, band_cli_generate=band, **families)
 
@@ -4283,7 +4387,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is visible", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    t_start = T_START[0] = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4306,10 +4410,15 @@ def main():
                 print(f"[ptxas {src}] {line.strip()}")
 
     host_engines_phase()
+    init_phase(dev)
+    helpers_phase(dev)
+    clock("helpers")
     rows = kernel_phase(dev, peak)
     rows.update(window_kernel_phase(dev, peak))
     rows["fused_trunk_cn_batched"] = batched_kernel_phase(dev, peak)
+    clock("kernels")
     generic_rows = widths_phase(dev, peak)
+    clock("widths")
     cfg, model, batch, gens = build_model()
     f7_phase(cfg, model, batch)
     launches = main_path_phase(dev, cfg, model, batch, gens)
@@ -4318,17 +4427,21 @@ def main():
     batched_paths.update(band_phase(dev, cfg, model, batch))
     options_phase(dev, cfg)
     del model, gens
+    clock("main_eval_points_batched_band_options")
     wide_launches, wide_rows = wide_path_phase(dev, peak)
     jax_launches = jax_ckpt_phase(dev)
+    clock("wide_jax_ckpt")
     h_cfg, h_model, h_batch, h_gen = build_vtacoh()
     h_mesh, cimg_rows = vtacoh_mesh_phase(dev, peak, h_cfg, h_model, h_batch, h_gen)
     batched_paths["vtacoh_band_mesh"] = band_tips(dev, h_cfg, h_model, h_batch)
     h_eval, row = vtacoh_query_phase(dev, peak, h_model, h_batch, h_gen)
     cimg_rows = {"fused_trunk_cn": cimg_rows, "fused_trunk_window_cn": row}
     del h_model, h_gen
+    clock("vtacoh")
     p_cfg, p_model, p_batch, p_gens = build_planes()
     planes_mesh, planes_eval = planes_phase(dev, p_cfg, p_model, p_batch, p_gens)
     del p_model, p_gens
+    clock("planes")
     (cli_launches, h_cli), cli_batched, fast_launches = pipeline_phase()
     replaced = {   # the source of each kernel and the pallas_call it replaces
         "fused_trunk_cn": ("trunk.cu", "vtaco_tpu/ops/pallas/decode.py:522"),

@@ -8,7 +8,9 @@ sync, the iso-band meshes against the float32 transfer's (single, after an
 overflow, batched), a mesh reconstructed through K1 from the checkpoint that
 train.loop.train writes, and the generation CLI on the card
 reconstructing a split through K1 (all at small widths on the port's
-synthetic set).
+synthetic set); and a fresh model drawn on the card (tests/port_checks.py),
+``Camera`` and ``rotmat_projection`` on card tensors against the CPU
+(tests/port_checks.py).
 
 This file imports neither jax nor the JAX package, so it also runs where
 only PyTorch is installed:
@@ -36,13 +38,16 @@ from vtaco_tpu_torch.core.config import get_dataset, get_generator, get_model, l
 from vtaco_tpu_torch.data import synthetic
 from vtaco_tpu_torch.data.core import BatchLoader
 from vtaco_tpu_torch.models.decoder import LocalDecoder
+from vtaco_tpu_torch.models.layers import ResnetBlockFC
 from vtaco_tpu_torch.ops import fast_trunk as FT
+from vtaco_tpu_torch.ops import geometry as G
 from vtaco_tpu_torch.ops.cuda import decode as K
 from vtaco_tpu_torch.ops.dense_decode import dense_query_grid_cn, supercell_keys
 from vtaco_tpu_torch.train import contact as C
 from vtaco_tpu_torch.train import loop
 from vtaco_tpu_torch.train.trainer import Trainer
 
+from port_checks import check_fresh_model, spread_matrices
 from voxel_files import write_voxels
 
 ATOL = 1e-4
@@ -782,15 +787,33 @@ def test_train_then_mesh(cuda, train_cfg):
     assert len(faces) > 0 and np.isfinite(verts).all() and np.isfinite(cd)
 
 
+def torch_default_weights(model, seed):
+    """Every layer of ``model`` drawn by PyTorch's own reset_parameters
+    (kaiming-uniform kernels, uniform biases) from ``seed``, in module
+    order, with each ResnetBlockFC's fc_1 kernel zeroed: the weights the
+    band tests' damping was set for, before the port drew as the JAX
+    package does."""
+    torch.manual_seed(seed)
+    layers = (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Conv3d,
+              torch.nn.ConvTranspose2d)
+    with torch.no_grad():
+        for m in model.modules():
+            base = next((c for c in layers if isinstance(m, c)), None)
+            if base is not None:
+                base.reset_parameters(m)
+            if isinstance(m, ResnetBlockFC):
+                m.fc_1.weight.zero_()
+    return model
+
+
 def _band_setup(train_cfg):
-    """A model of train_cfg with random weights, its decoder's feature
-    conditioning damped (an object-sized surface), a validation batch,
-    its encoded grid and contact gates, and a band generator at the
-    midpoint level."""
+    """A model of train_cfg with PyTorch's default draws from seed 0
+    (torch_default_weights), its decoder's feature conditioning damped
+    (an object-sized surface), a validation batch, its encoded grid and
+    contact gates, and a band generator at the midpoint level."""
     cfg = copy.deepcopy(train_cfg)
     cfg["generation"]["mc_level"] = "midpoint"
-    torch.manual_seed(0)
-    model = get_model(cfg).eval()
+    model = torch_default_weights(get_model(cfg, device="cpu"), 0).to("cuda").eval()
     with torch.no_grad():
         for fc in model.decoder.fc_c:
             fc.weight.mul_(0.3)
@@ -1201,3 +1224,50 @@ def test_eval_points_dense_sharded_k2(cuda, nccl_mesh):
         return torch.as_tensor(x).to(torch.bfloat16).view(torch.int16).long()
 
     assert int((steps(got) - steps(want)).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_fresh_model_drawn_on_card(cuda):
+    """VTacOH_YCB at its shipped widths drawn on the card from a CUDA
+    generator: every tensor at its initializer's distribution
+    (tests/port_checks.py: 5 standard errors, lecun tensors within their
+    cut), zeros and ones exact, and the same draws again for the same
+    seed."""
+    cfg = load_config("configs/VTacOH/VTacOH_YCB.yaml", "configs/default.yaml")
+
+    def fresh(seed):
+        return get_model(cfg, device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(seed))
+
+    model = fresh(5)
+    report = check_fresh_model(model)
+    assert report["tensors"] > 200 and not report["failures"], report
+    assert all(torch.equal(a, b)
+               for a, b in zip(model.state_dict().values(), fresh(5).state_dict().values()))
+
+
+@pytest.mark.cuda
+def test_camera_on_card(cuda):
+    """Camera's back-projection and valid mask of a card depth map against
+    the CPU's: 1e-6."""
+    g = torch.Generator().manual_seed(6)
+    cam = G.Camera(width=240, height=320, near_plane=0.019, far_plane=0.022, fov=60)
+    depth = 0.019 + 0.0032 * torch.rand((320, 240), generator=g)
+    want = cam.depth_to_camera_pointcloud(depth)
+    got = cam.depth_to_camera_pointcloud(depth.to(cuda))
+    assert got.device.type == "cuda" and got.shape == (320 * 240, 3)
+    assert float((got.cpu() - want).abs().max()) <= 1e-6
+    mask = cam.valid_mask(got).cpu()
+    assert torch.equal(mask, cam.valid_mask(want)) and 0 < int(mask.sum()) < len(mask)
+
+
+@pytest.mark.cuda
+def test_rotmat_projection_on_card(cuda):
+    """rotmat_projection of card matrices (reflections among them,
+    spread_matrices) against the CPU's: 1e-5, determinants 1."""
+    mats = spread_matrices(torch.Generator().manual_seed(7), 512)
+    assert int((torch.linalg.det(mats) < 0).sum()) == 256
+    want = G.rotmat_projection(mats)
+    got = G.rotmat_projection(mats.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5
+    assert float((torch.linalg.det(got) - 1).abs().max()) <= 1e-5

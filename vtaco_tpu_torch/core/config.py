@@ -2,8 +2,9 @@
 
 Port of vtaco_tpu/core/config.py:25-98, so the repo's configs load
 unchanged. The factory surface (get_model / get_generator) lives in
-core/factory.py and is re-exported here, with get_dataset, as in the JAX
-package; the trainer is built with train.trainer.Trainer.from_config.
+core/factory.py (get_model, get_trainer, get_generator, get_inferencer)
+and is re-exported here, with get_dataset, as in the JAX package.
+``DEFAULT_CONFIG`` is the repo's configs/default.yaml, by path.
 """
 
 from __future__ import annotations
@@ -13,7 +14,12 @@ from typing import Optional
 
 import yaml
 
-from vtaco_tpu_torch.core.factory import get_generator, get_model  # noqa: F401
+from vtaco_tpu_torch.core.factory import (  # noqa: F401
+    get_generator, get_inferencer, get_model, get_trainer)
+
+DEFAULT_CONFIG = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "configs", "default.yaml")
 
 
 def get_dataset(mode, cfg, return_idx=False):

@@ -1,5 +1,6 @@
-"""Model and generator factory (port of vtaco_tpu/core/factory.py:44-183),
-looking module names up in core/registry.py.
+"""Model, trainer, generator and inferencer factory (port of
+vtaco_tpu/core/factory.py:44-189), looking module names up in
+core/registry.py.
 
 Builds every key of the JAX package's registries: the object ``encoder``
 (pointnet_local_pool; pointnet_crop_local_pool, the crop form;
@@ -32,7 +33,9 @@ import copy
 import inspect
 
 from vtaco_tpu_torch.core.registry import decoder_dict, encoder_dict
+from vtaco_tpu_torch.data.core import get_data_fields  # noqa: F401  (the JAX package's place)
 from vtaco_tpu_torch.models.conv_onet import ConvOccupancyNetwork
+from vtaco_tpu_torch.models.init import init_params
 from vtaco_tpu_torch.models.mano import ManoLayer
 from vtaco_tpu_torch.models.pointnet import IndexEncoder
 from vtaco_tpu_torch.ops.geometry import crop_levels, update_reso
@@ -80,15 +83,26 @@ def _crop_resolution(cfg, dataset):
     return dataset.total_reso
 
 
-def get_model(cfg, device="cuda", return_aux=False, dataset=None):
+def get_model(cfg, device="cuda", return_aux=False, dataset=None, generator=None):
     """Build the ConvOccupancyNetwork for cfg on ``device``, in eval mode,
-    with PyTorch's default initialization (seed it with torch.manual_seed,
-    or load weights with core.weights.load_jax_params). With
-    ``return_aux`` it returns (model, aux), aux carrying
-    ``t2d_pretrained_file``: the checkpoint the trainer grafts the
-    pretrained tactile-to-depth weights from, or None. ``dataset``
-    (data.core.Shapes3dDataset) sets a crop model's resolution and the
-    number of ``idx`` latents (one without it)."""
+    its parameters drawn as the JAX package's ``init`` draws them
+    (models/init.py) from ``generator`` (a torch.Generator, on the CPU or
+    on ``device``), or else from PyTorch's default generator for
+    ``device``, which torch.manual_seed seeds; load trained weights with
+    core.weights.load_jax_params or core.checkpoint. With ``return_aux``
+    it returns (model, aux), aux carrying ``t2d_pretrained_file``: the
+    checkpoint the trainer grafts the pretrained tactile-to-depth weights
+    from, or None. ``dataset`` (data.core.Shapes3dDataset) sets a crop
+    model's resolution and the number of ``idx`` latents (one without
+    it)."""
+    model, aux = _build_model(cfg, dataset)
+    draw_on = device if generator is None else generator.device
+    model = init_params(model.to(draw_on), generator).to(device).eval()
+    return (model, aux) if return_aux else model
+
+
+def _build_model(cfg, dataset):
+    """(the ConvOccupancyNetwork for cfg, aux) on the CPU."""
     mcfg = copy.deepcopy(cfg["model"])
     prop = {k: mcfg[k] for k in ("local_coord", "pos_encoding") if k in mcfg}
     if "unit_size" in cfg["data"]:
@@ -149,13 +163,23 @@ def get_model(cfg, device="cuda", return_aux=False, dataset=None):
     model = ConvOccupancyNetwork(
         decoder=decoder, encoder=encoder, encoder_hand=encoder_hand,
         encoder_img=encoder_img, encoder_t2d=encoder_t2d, mano_layer=mano_layer,
-        hand_out_dim=hand_out_dim).to(device).eval()
-    if return_aux:
-        return model, {"t2d_pretrained_file": t2d_pretrained_file}
-    return model
+        hand_out_dim=hand_out_dim)
+    return model, {"t2d_pretrained_file": t2d_pretrained_file}
+
+
+def get_trainer(model, cfg, **kwargs):
+    from vtaco_tpu_torch.train.trainer import Trainer
+
+    return Trainer.from_config(model, cfg, **kwargs)
 
 
 def get_generator(model, cfg, **kwargs):
     from vtaco_tpu_torch.generate.generator import Generator3D
 
     return Generator3D.from_config(model, cfg, **kwargs)
+
+
+def get_inferencer(model, generator, cfg, **kwargs):
+    from vtaco_tpu_torch.generate.inferencer import Inferencer
+
+    return Inferencer.from_config(model, generator, cfg, **kwargs)

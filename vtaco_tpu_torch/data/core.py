@@ -137,6 +137,21 @@ class Shapes3dDataset:
     def __len__(self):
         return len(self.models)
 
+    def get_model_dict(self, idx):
+        """{"category", "model"} of sample ``idx``."""
+        return self.models[idx]
+
+    def test_model_complete(self, category, model):
+        """Whether the model's directory holds every field's file (a
+        warning names the first field that lacks its own)."""
+        model_path = os.path.join(self.dataset_folder, category, model)
+        files = os.listdir(model_path)
+        for field_name, field in self.fields.items():
+            if not field.check_complete(files):
+                logger.warning("Field '%s' is incomplete: %s", field_name, model_path)
+                return False
+        return True
+
     def __getitem__(self, idx):
         category = self.models[idx]["category"]
         model = self.models[idx]["model"]

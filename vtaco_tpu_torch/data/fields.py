@@ -2,6 +2,8 @@
 vtaco_tpu/data/fields.py:25-270: Field, IndexField, PointsField,
 PointCloudField, PartialPointCloudField, the crop fields
 PatchPointsField and PatchPointCloudField, and VoxelsField :280-296).
+``check_complete(files)`` tells whether a model's directory listing holds
+the field's file (always, for the index).
 
 Each field's ``load(model_path, idx, category)`` returns a dict whose
 ``None`` key is the field's main array; the dataset flattens the other
@@ -25,12 +27,20 @@ class Field:
     def load(self, model_path, idx, category):
         raise NotImplementedError
 
+    def check_complete(self, files):
+        """Whether a model's directory listing ``files`` holds the
+        field's file."""
+        return self.file_name in files
+
 
 class IndexField(Field):
     """The dataset index."""
 
     def load(self, model_path, idx, category):
         return idx
+
+    def check_complete(self, files):
+        return True
 
 
 def _load(model_path, file_name, multi_files):

@@ -124,6 +124,7 @@ from vtaco_tpu_torch.ops.geometry import (
     norm_pc_1,
     normalize_coord,
     pc_cam_to_world,
+    update_reso,
 )
 from vtaco_tpu_torch.parallel.mesh import (
     all_gather_cat,
@@ -299,12 +300,20 @@ class Generator3D:
         dpath = cfg["data"].get("depth_origin")
         if dpath and os.path.exists(dpath):
             depth_origin = np.loadtxt(dpath).astype(np.float32)
-        vol_info = None
+        vol_info = vol_bound = None
         if cfg["data"].get("input_type") == "pointcloud_crop":
             unit_size = cfg["data"]["unit_size"]
             recep_field, depth = crop_levels(cfg["model"]["encoder_kwargs"])
             vol_info = decide_total_volume_range(cfg["data"]["padding"] + 1,
                                                  recep_field, unit_size, depth)
+            if gen.get("sliding_window"):
+                # the sliding window's crop sizes, as the JAX package keeps
+                # them (no decode reads them there either)
+                reso = update_reso(cfg["data"]["query_vol_size"] + recep_field - 1, depth)
+                vol_bound = {"query_crop_size": cfg["data"]["query_vol_size"] * unit_size,
+                             "input_crop_size": reso * unit_size,
+                             "fea_type": cfg["model"]["encoder_kwargs"]["plane_type"],
+                             "reso": reso}
         return cls(
             model,
             threshold=cfg["test"]["threshold"],
@@ -321,6 +330,7 @@ class Generator3D:
             points_batch_size=gen.get("batch_size", 100000),
             input_type=cfg["data"]["input_type"],
             vol_info=vol_info,
+            vol_bound=vol_bound,
             **{"matmul_precision": gen.get("matmul_precision", "highest"),
                "use_pallas": gen.get("use_pallas", "auto"),
                "mc_level": gen.get("mc_level", "midpoint"),

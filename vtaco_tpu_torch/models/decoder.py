@@ -51,6 +51,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from vtaco_tpu_torch.models.fusion import TransformerFusion
+from vtaco_tpu_torch.models.init import Linear
 from vtaco_tpu_torch.models.layers import ResnetBlockFC
 from vtaco_tpu_torch.ops.geometry import normalize_3d_coordinate, normalize_coordinate
 from vtaco_tpu_torch.ops.interp import interp_grid, interp_plane
@@ -82,7 +83,7 @@ def _fc_c(c_dim, hidden_size, n_blocks):
     """The trunk's feature projections, or None for c_dim 0."""
     if c_dim == 0:
         return None
-    return nn.ModuleList(nn.Linear(c_dim, hidden_size) for _ in range(n_blocks))
+    return nn.ModuleList(Linear(c_dim, hidden_size) for _ in range(n_blocks))
 
 
 class LocalDecoder(_Trunk, nn.Module):
@@ -96,12 +97,12 @@ class LocalDecoder(_Trunk, nn.Module):
         self.sample_mode = sample_mode
         self.padding = padding
         self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
-        self.fc_p = nn.Linear(dim, hidden_size)
-        self.fc_p_img = nn.Linear(dim + c_dim, hidden_size)
+        self.fc_p = Linear(dim, hidden_size)
+        self.fc_p_img = Linear(dim + c_dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size)
                                     for _ in range(n_blocks))
-        self.fc_out = nn.Linear(hidden_size, 1)
-        self.fc_out_contact = nn.Linear(hidden_size, 1) if with_contact else None
+        self.fc_out = Linear(hidden_size, 1)
+        self.fc_out_contact = Linear(hidden_size, 1) if with_contact else None
 
     def sample_features(self, p, c_plane):
         """The sum of every field's features sampled at p (B, N, 3) →
@@ -156,9 +157,9 @@ class PatchLocalDecoder(_Trunk, nn.Module):
         self.unit_size = unit_size
         self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
         width = dim * 20 if local_coord and pos_encoding == "sin_cos" else dim
-        self.fc_p = nn.Linear(width, hidden_size)
+        self.fc_p = Linear(width, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size) for _ in range(n_blocks))
-        self.fc_out = nn.Linear(hidden_size, 1)
+        self.fc_out = Linear(hidden_size, 1)
 
     def forward(self, p, c_plane):
         p_n, pts = p["p_n"], p["p"]
@@ -184,11 +185,11 @@ class AttentionDecoder(_Trunk, nn.Module):
         self.sample_mode = sample_mode
         self.padding = padding
         self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
-        self.fc_p = nn.Linear(dim, hidden_size)
+        self.fc_p = Linear(dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size)
                                     for _ in range(n_blocks))
-        self.fc_out = nn.Linear(hidden_size, 1)
-        self.fc_out_contact = nn.Linear(hidden_size, 1) if with_contact else None
+        self.fc_out = Linear(hidden_size, 1)
+        self.fc_out_contact = Linear(hidden_size, 1) if with_contact else None
         self.fuser = None if c_dim == 0 else TransformerFusion(
             d_model=c_dim, num_layers=1, key_feature_dim=64, with_pos_embed=False)
 
@@ -216,9 +217,9 @@ class LocalPointDecoder(_Trunk, nn.Module):
         self.sample_mode = sample_mode
         self.gaussian_val = gaussian_val
         self.fc_c = _fc_c(c_dim, hidden_size, n_blocks)
-        self.fc_p = nn.Linear(dim, hidden_size)
+        self.fc_p = Linear(dim, hidden_size)
         self.blocks = nn.ModuleList(ResnetBlockFC(hidden_size) for _ in range(n_blocks))
-        self.fc_out = nn.Linear(hidden_size, 1)
+        self.fc_out = Linear(hidden_size, 1)
 
     def sample_point_feature(self, q, p, fea):
         """Kernel-weighted features (B, M, C) of the input points p (B, M, 3)

@@ -24,12 +24,11 @@ Layout (B, N, C) throughout.
 
 from __future__ import annotations
 
-import math
-
 import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vtaco_tpu_torch.models.init import Conv1d, Linear, relation_normal
 from vtaco_tpu_torch.models.layers import BatchNorm1d
 
 
@@ -54,8 +53,8 @@ class TransNonlinear(nn.Module):
     def __init__(self, d_model, dim_feedforward, dropout=0.1):
         super().__init__()
         self.dropout = dropout
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, deterministic=True):
@@ -69,13 +68,11 @@ class RelationUnit(nn.Module):
 
     def __init__(self, feature_dim=512, key_feature_dim=64):
         super().__init__()
-        self.WK = nn.Linear(feature_dim, key_feature_dim, bias=False)
-        self.WQ = nn.Linear(feature_dim, key_feature_dim, bias=False)
-        self.WV = nn.Linear(feature_dim, feature_dim, bias=False)
-        self.trans_conv = nn.Linear(feature_dim, feature_dim, bias=False)
-        for lin, fan in ((self.WK, key_feature_dim), (self.WQ, key_feature_dim),
-                         (self.WV, feature_dim)):
-            nn.init.normal_(lin.weight, std=math.sqrt(2.0 / fan))
+        init_k, init_v = relation_normal(key_feature_dim), relation_normal(feature_dim)
+        self.WK = Linear(feature_dim, key_feature_dim, bias=False, kernel_init=init_k)
+        self.WQ = Linear(feature_dim, key_feature_dim, bias=False, kernel_init=init_k)
+        self.WV = Linear(feature_dim, feature_dim, bias=False, kernel_init=init_v)
+        self.trans_conv = Linear(feature_dim, feature_dim, bias=False)
 
     def forward(self, query, key, value):
         w_k = self.WK(key)
@@ -117,8 +114,8 @@ class PositionEmbeddingLearned(nn.Module):
     def __init__(self, input_channel=3, num_pos_feats=256):
         super().__init__()
         self.position_embedding_head = nn.Sequential(
-            nn.Conv1d(input_channel, num_pos_feats, 1), BatchNorm1d(num_pos_feats),
-            nn.ReLU(), nn.Conv1d(num_pos_feats, num_pos_feats, 1))
+            Conv1d(input_channel, num_pos_feats, 1), BatchNorm1d(num_pos_feats),
+            nn.ReLU(), Conv1d(num_pos_feats, num_pos_feats, 1))
 
     def forward(self, xyz, train=False):
         conv1, bn, _, conv2 = self.position_embedding_head

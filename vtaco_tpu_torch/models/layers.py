@@ -3,7 +3,12 @@ fully-connected ResNet block, the from-scratch ResNet-18/34/50/101/152
 tactile image encoders (basic and bottleneck blocks) and the tactile
 depth U-Net. Parameter names are the reference's
 torch names, so a JAX tree carried over by core/weights.py loads with
-``strict=True``.
+``strict=True``. Each layer draws its parameters as the JAX package's
+does (models/init.py): the ResNets' convolutions ``kaiming_out``, the
+U-Net's ``xavier_normal`` with zero biases, ResnetBlockFC's ``fc_1`` a
+zero kernel, every other kernel flax's ``lecun_normal`` and every bias
+zero. The initializers are re-exported here under the JAX package's
+names.
 
 BatchNorm is ``BatchNorm2d`` below (``BatchNorm1d`` on (N, C) rows, and
 ``batch_norm_last`` on channel-last features): in train mode it computes the batch
@@ -33,9 +38,16 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vtaco_tpu_torch.models.init import (  # noqa: F401  (re-exported)
+    Conv2d, Linear, kaiming_out_, lecun_normal_, ones_, relation_normal, xavier_normal_,
+    zeros_)
 from vtaco_tpu_torch.models.unet2d import UpConv, check_unet_modes
 from vtaco_tpu_torch.parallel.mesh import all_reduce_sum
 
+
+# the JAX package's names (vtaco_tpu/models/layers.py:25-27)
+kaiming_out = kaiming_out_
+xavier_normal = xavier_normal_
 
 _FROZEN_STATS = [0]   # > 0 while a rematerialized forward is recomputed
 
@@ -134,11 +146,10 @@ class ResnetBlockFC(nn.Module):
         super().__init__()
         size_out = size_in if size_out is None else size_out
         size_h = min(size_in, size_out) if size_h is None else size_h
-        self.fc_0 = nn.Linear(size_in, size_h)
-        self.fc_1 = nn.Linear(size_h, size_out)
-        nn.init.zeros_(self.fc_1.weight)
+        self.fc_0 = Linear(size_in, size_h)
+        self.fc_1 = Linear(size_h, size_out, kernel_init=zeros_)
         self.shortcut = (None if size_in == size_out
-                         else nn.Linear(size_in, size_out, bias=False))
+                         else Linear(size_in, size_out, bias=False))
 
     def forward(self, x):
         dx = self.fc_1(F.relu(self.fc_0(F.relu(x))))
@@ -153,14 +164,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch, channels, stride=1, downsample=False):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, channels, 3, stride, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, channels, 3, stride, 1, bias=False,
+                            kernel_init=kaiming_out_)
         self.bn1 = BatchNorm2d(channels)
-        self.conv2 = nn.Conv2d(channels, channels, 3, 1, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, 1, 1, bias=False,
+                            kernel_init=kaiming_out_)
         self.bn2 = BatchNorm2d(channels)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, channels, 1, stride, bias=False),
+                Conv2d(in_ch, channels, 1, stride, bias=False, kernel_init=kaiming_out_),
                 BatchNorm2d(channels))
 
     def forward(self, x):
@@ -179,16 +192,18 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch, channels, stride=1, downsample=False):
         super().__init__()
         out_ch = channels * self.expansion
-        self.conv1 = nn.Conv2d(in_ch, channels, 1, bias=False)
+        self.conv1 = Conv2d(in_ch, channels, 1, bias=False, kernel_init=kaiming_out_)
         self.bn1 = BatchNorm2d(channels)
-        self.conv2 = nn.Conv2d(channels, channels, 3, stride, 1, bias=False)
+        self.conv2 = Conv2d(channels, channels, 3, stride, 1, bias=False,
+                            kernel_init=kaiming_out_)
         self.bn2 = BatchNorm2d(channels)
-        self.conv3 = nn.Conv2d(channels, out_ch, 1, bias=False)
+        self.conv3 = Conv2d(channels, out_ch, 1, bias=False, kernel_init=kaiming_out_)
         self.bn3 = BatchNorm2d(out_ch)
         self.downsample = None
         if downsample:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), BatchNorm2d(out_ch))
+                Conv2d(in_ch, out_ch, 1, stride, bias=False, kernel_init=kaiming_out_),
+                BatchNorm2d(out_ch))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -207,7 +222,7 @@ class ResNet(nn.Module):
 
     def __init__(self, block, blocks_num, num_classes=2):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, kernel_init=kaiming_out_)
         self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for stage, (ch, n_blocks) in enumerate(zip((64, 128, 256, 512),
@@ -219,8 +234,8 @@ class ResNet(nn.Module):
             blocks += [block(out_ch, ch) for _ in range(1, n_blocks)]
             self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
             in_ch = out_ch
-        self.linear = nn.Linear(512 * block.expansion, 100)
-        self.fc = nn.Linear(100, num_classes)
+        self.linear = Linear(512 * block.expansion, 100)
+        self.fc = Linear(100, num_classes)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -259,8 +274,8 @@ class TactileDownConv(nn.Module):
     def __init__(self, in_ch, out_ch, pooling=True):
         super().__init__()
         self.pooling = pooling
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, kernel_init=xavier_normal_)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, kernel_init=xavier_normal_)
         self.bn = BatchNorm2d(out_ch)
 
     def forward(self, x):
@@ -300,7 +315,7 @@ class TactileUNet(nn.Module):
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
             self.up_convs.append(TactileUpConv(ins, outs, merge_mode, up_mode))
-        self.conv_final = nn.Conv2d(outs, num_classes, 1)
+        self.conv_final = Conv2d(outs, num_classes, 1, kernel_init=xavier_normal_)
 
     def forward(self, x):
         skips = []

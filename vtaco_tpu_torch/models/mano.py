@@ -74,6 +74,11 @@ class ManoLayer(nn.Module):
                              persistent=False)
         self.kintree_parents = [int(p) for p in a["kintree_parents"]]
 
+    @property
+    def th_faces(self):
+        """The reference's name of the ``faces`` buffer."""
+        return self.faces
+
     def forward(self, pose_coeffs, betas=None, trans=None):
         """(B, rot + ncomps) → (verts (B, 778, 3), joints (B, 21, 3)[,
         transforms (B, 16, 4, 4)][, full pose (B, rot + 45)]), rot 3 for an

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from vtaco_tpu_torch.models.init import Embedding, Linear
 from vtaco_tpu_torch.models.layers import ResnetBlockFC
 from vtaco_tpu_torch.models.unet2d import UNet2D
 from vtaco_tpu_torch.models.unet3d import build_unet3d
@@ -42,7 +43,7 @@ from vtaco_tpu_torch.ops.local_coords import map2local
 PLANE_ORDER = ("grid", "xz", "xy", "yz")
 
 
-class IndexEncoder(nn.Embedding):
+class IndexEncoder(Embedding):
     """(B,) sample indices → (B, c_dim) latents."""
 
     def __init__(self, num_embeddings, c_dim=128):
@@ -65,10 +66,10 @@ class LocalPoolPointnet(nn.Module):
         self.plane_resolution = plane_resolution
         self.padding = padding
         self.scatter_type = scatter_type
-        self.fc_pos = nn.Linear(dim, 2 * hidden_dim)
+        self.fc_pos = Linear(dim, 2 * hidden_dim)
         self.blocks = nn.ModuleList(
             ResnetBlockFC(2 * hidden_dim, hidden_dim) for _ in range(n_blocks))
-        self.fc_c = nn.Linear(hidden_dim, c_dim)
+        self.fc_c = Linear(hidden_dim, c_dim)
         self.unet = None
         if unet:
             kw = dict(unet_kwargs or {})
@@ -81,7 +82,7 @@ class LocalPoolPointnet(nn.Module):
             kw = dict(unet3d_kwargs or {})
             kw["in_channels"] = c_dim
             self.unet3d = build_unet3d(kw)
-        self.fc_mano = nn.Linear(len(self.planes) * c_dim, out_dim) if out_mano else None
+        self.fc_mano = Linear(len(self.planes) * c_dim, out_dim) if out_mano else None
 
     # extra pooled cells past the field's own: the crop form's overflow cell
     overflow = 0
@@ -132,14 +133,32 @@ class LocalPoolPointnet(nn.Module):
             fea = self.unet(fea.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         return fea
 
-    def _fields(self, x, index):
-        """The feature fields from the first layer's input x (B, N, dim) and
-        the points' cell indices."""
+    def _point_features(self, x, index):
+        """(B, N, c_dim) point features from the first layer's input x (B,
+        N, dim) and the points' cell indices."""
         net = self.blocks[0](self.fc_pos(x))
         for block in self.blocks[1:]:
             net = block(torch.cat([net, self.pool_local(index, net)], dim=2))
-        c = self.fc_c(net)
+        return self.fc_c(net)
+
+    def _fields(self, x, index):
+        """The feature fields from the first layer's input x (B, N, dim) and
+        the points' cell indices."""
+        c = self._point_features(x, index)
         return {key: self._field(key, c, index[key]) for key in self.planes}
+
+    def generate_plane_features(self, p, c, plane):
+        """Point features c (B, N, C) scatter-meaned by the points p into
+        the (B, R, R, C) ``plane`` (rows: its second coordinate), smoothed
+        by UNet2D."""
+        nor = normalize_coordinate(p, padding=self.padding, plane=plane)
+        return self._field(plane, c, coordinate2index(nor, self.plane_resolution, "2d"))
+
+    def generate_grid_features(self, p, c):
+        """Point features c (B, N, C) scatter-meaned by the points p into
+        the (B, R, R, R, C) grid in (z, y, x) order, smoothed by UNet3D."""
+        nor = normalize_3d_coordinate(p, padding=self.padding)
+        return self._field("grid", c, coordinate2index(nor, self.grid_resolution, "3d"))
 
     def forward(self, p):
         if p.dim() != 3:
@@ -173,7 +192,7 @@ class PatchLocalPoolPointnet(LocalPoolPointnet):
                          padding=padding, n_blocks=n_blocks)
         if local_coord and pos_encoding == "sin_cos":
             # the encoded coordinates are 2L = 20 times as wide
-            self.fc_pos = nn.Linear(dim * 20, 2 * hidden_dim)
+            self.fc_pos = Linear(dim * 20, 2 * hidden_dim)
         self.local_coord = local_coord
         self.pos_encoding = pos_encoding
         self.unit_size = unit_size

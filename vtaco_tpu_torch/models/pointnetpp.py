@@ -25,6 +25,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vtaco_tpu_torch.models.init import Linear
 from vtaco_tpu_torch.models.layers import BatchNorm1d, batch_norm_last
 
 
@@ -78,7 +79,7 @@ class _PointMLP(nn.Module):
         super().__init__()
         self.depth = len(mlp)
         for i, ch in enumerate(mlp):
-            self.add_module(f"mlp{i}", nn.Linear(in_ch, ch))
+            self.add_module(f"mlp{i}", Linear(in_ch, ch))
             self.add_module(f"bn{i}", BatchNorm1d(ch))
             in_ch = ch
 

@@ -17,13 +17,15 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vtaco_tpu_torch.models.init import Conv2d, ConvTranspose2d, xavier_normal_
+
 
 class DownConv(nn.Module):
     def __init__(self, in_ch, out_ch, pooling=True):
         super().__init__()
         self.pooling = pooling
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1, kernel_init=xavier_normal_)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, kernel_init=xavier_normal_)
 
     def forward(self, x):
         x = F.relu(self.conv2(F.relu(self.conv1(x))))
@@ -35,12 +37,13 @@ class UpConv(nn.Module):
         super().__init__()
         self.merge_mode = merge_mode
         if up_mode == "transpose":
-            self.upconv = nn.ConvTranspose2d(in_ch, out_ch, 2, stride=2)
+            self.upconv = ConvTranspose2d(in_ch, out_ch, 2, stride=2,
+                                          kernel_init=xavier_normal_)
         else:
-            self.upconv_1x1 = nn.Conv2d(in_ch, out_ch, 1)
-        self.conv1 = nn.Conv2d(2 * out_ch if merge_mode == "concat" else out_ch,
-                               out_ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+            self.upconv_1x1 = Conv2d(in_ch, out_ch, 1, kernel_init=xavier_normal_)
+        self.conv1 = Conv2d(2 * out_ch if merge_mode == "concat" else out_ch,
+                            out_ch, 3, padding=1, kernel_init=xavier_normal_)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1, kernel_init=xavier_normal_)
 
     def merge(self, from_down, from_up):
         if hasattr(self, "upconv"):
@@ -78,7 +81,7 @@ class UNet2D(nn.Module):
         for _ in range(depth - 1):
             ins, outs = outs, outs // 2
             self.up_convs.append(UpConv(ins, outs, merge_mode, up_mode))
-        self.conv_final = nn.Conv2d(outs, num_classes, 1)
+        self.conv_final = Conv2d(outs, num_classes, 1, kernel_init=xavier_normal_)
 
     def forward(self, x):
         skips = []

@@ -13,7 +13,7 @@ down, nearest up with concat joins, a 1x1x1 final conv. With
 upsample by a stride-2 transposed conv (``up_convs``) and join by a sum;
 that conv returns 2n - 1 voxels where the skip holds 2n, so the JAX
 package fails at the first join, and the port raises there (F9 (c),
-ROADMAP.md §3): only one level runs. Convolutions are plain ``nn.Conv3d``: the JAX package's
+ROADMAP.md §3): only one level runs. Convolutions are plain ``Conv3d``s: the JAX package's
 SmallChannelConv3 is a TPU layout workaround with the same parameters.
 Layout NCDHW.
 
@@ -39,6 +39,7 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from vtaco_tpu_torch.models.init import Conv3d, Drawn
 from vtaco_tpu_torch.models.layers import _flax_batch_norm
 
 
@@ -85,9 +86,9 @@ class SingleConv(nn.Sequential):
                 name, act = _ACTIVATIONS[op]
                 self.add_module(name, act())
             elif op == "c":
-                self.add_module("conv", nn.Conv3d(ch, out_ch, kernel_size,
-                                                  padding=padding,
-                                                  bias=not has_norm))
+                self.add_module("conv", Conv3d(ch, out_ch, kernel_size,
+                                               padding=padding,
+                                               bias=not has_norm))
                 ch = out_ch
             elif op == "b":
                 self.add_module("batchnorm", BatchNorm3d(ch, eps=1e-5, momentum=0.1))
@@ -130,16 +131,17 @@ class ExtResNetBlock(nn.Module):
         return self.act(self.conv3(self.conv2(residual)) + residual)
 
 
-class _UpConv3d(nn.Module):
+class _UpConv3d(Drawn, nn.Module):
     """flax's ConvTranspose(k=3, stride 2, padding 1): the kernel (O, I, 3,
     3, 3), unflipped, correlated with the input dilated by 2 and padded by
-    one voxel; n voxels become 2n - 1."""
+    one voxel; n voxels become 2n - 1. Drawn as flax draws the kernel (*k,
+    I, O): fan_in = 27 I."""
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3, 3))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
-        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+        self.bias = nn.Parameter(torch.empty(out_ch))
+        self.reset_parameters()
 
     def forward(self, x):
         return F.conv_transpose3d(x, self.weight.flip(2, 3, 4).transpose(0, 1), self.bias,
@@ -194,7 +196,7 @@ class Abstract3DUNet(nn.Module):
             for i in range(n_dec))
         if self.residual:
             self.up_convs = nn.ModuleList(_UpConv3d(rev[i], rev[i + 1]) for i in range(n_dec))
-        self.final_conv = nn.Conv3d(f_maps[0], out_channels, 1)
+        self.final_conv = Conv3d(f_maps[0], out_channels, 1)
 
     def forward(self, x):
         feats = []

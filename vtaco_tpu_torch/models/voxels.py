@@ -23,6 +23,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from vtaco_tpu_torch.models.init import Conv3d, Linear
 from vtaco_tpu_torch.models.unet2d import UNet2D
 from vtaco_tpu_torch.models.unet3d import build_unet3d
 from vtaco_tpu_torch.ops import scatter
@@ -53,7 +54,7 @@ class LocalVoxelEncoder(nn.Module):
         # a grid field, or else the planes: the JAX encoder builds one kind
         self.planes = ("grid",) if "grid" in planes else tuple(
             k for k in PLANES if k in planes)
-        self.conv_in = nn.Conv3d(1, c_dim, kernel_size,
+        self.conv_in = Conv3d(1, c_dim, kernel_size,
                                  padding=0 if kernel_size == 1 else 1)
         self.unets = {}
         if self.planes == ("grid",):
@@ -104,14 +105,14 @@ class VoxelEncoder(nn.Module):
 
     def __init__(self, c_dim=128, grid_size=32):
         super().__init__()
-        self.conv_in = nn.Conv3d(1, 32, 3, padding=1)
+        self.conv_in = Conv3d(1, 32, 3, padding=1)
         chans = (32, 64, 128, 256, 512)
         for i in range(4):
-            self.add_module(f"conv_{i}", nn.Conv3d(chans[i], chans[i + 1], 3, 2, 1))
+            self.add_module(f"conv_{i}", Conv3d(chans[i], chans[i + 1], 3, 2, 1))
         side = grid_size
         for _ in range(4):
             side = (side - 1) // 2 + 1
-        self.fc = nn.Linear(512 * side ** 3, c_dim)
+        self.fc = Linear(512 * side ** 3, c_dim)
 
     def forward(self, x):
         net = self.conv_in(x[:, None])

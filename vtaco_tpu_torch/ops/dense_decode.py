@@ -1,5 +1,5 @@
 """Decode inputs: the feature fields at the query points, channels-first
-(port of vtaco_tpu/ops/dense_decode.py:25-143, 146-241 and 284-336).
+(port of vtaco_tpu/ops/dense_decode.py).
 
 The mesh-extraction queries form a regular nx³ grid, so trilinear
 sampling of the (R, R, R, C) feature grid factorizes into three 1D
@@ -10,6 +10,14 @@ plane's normal axis. These are plain large products, left to
 channels-first (C, N) with N flattened z-slowest, the layout the decoder
 trunk streams; the fields are summed in the order grid, xz, xy, yz, as
 the decoder's ``sample_features`` sums them.
+
+The JAX package's XLA dense path works in particle order instead (x
+slowest, z fastest; vtaco_tpu/ops/dense_decode.py:50-88, 338-358):
+``dense_query_grid`` gives the (nx³, 3) points, ``dense_feature_volume``
+their (nx³, C) features, from ``dense_grid_features_simple`` and
+``dense_plane_features`` on (nx, nx, nx, C) volumes indexed (x, y, z).
+``supercell_packed_volume`` lays a grid out as the JAX window kernel reads
+it: each super-cell's node neighbourhood in one column.
 
 Arbitrary query points take the corner gather instead
 (``scattered_feature_volume_cn``), and the sorted window route keys them
@@ -103,6 +111,61 @@ def dense_feature_volume_cn(c_planes: dict, nx: int, box_size: float,
             vol = p[:, z, :, None]
         acc = acc + vol.expand(C, nz, nx, nx).reshape(C, -1)
     return acc
+
+
+def _particle_order(c_planes: dict, nx: int, box_size: float, padding: float):
+    """dense_feature_volume_cn's sum as an (nx, nx, nx, C) view indexed
+    (x, y, z): the particle order of the JAX package's XLA dense path."""
+    dtype = next(iter(c_planes.values())).dtype
+    cn = dense_feature_volume_cn(c_planes, nx, box_size, padding, dtype)
+    return cn.reshape(cn.shape[0], nx, nx, nx).permute(3, 2, 1, 0)
+
+
+def dense_grid_features_simple(c_grid, nx: int, box_size: float, padding: float):
+    """(1, R, R, R, C) grid features → (nx, nx, nx, C) at the dense query
+    grid, indexed (x, y, z)."""
+    return _particle_order({"grid": c_grid}, nx, box_size, padding)
+
+
+def dense_plane_features(c_plane, plane: str, nx: int, box_size: float, padding: float):
+    """(1, R, R, C) plane features (rows: the plane's second coordinate)
+    → (nx, nx, nx, C), indexed (x, y, z), broadcast over the plane's
+    normal axis."""
+    return _particle_order({plane: c_plane}, nx, box_size, padding)
+
+
+def dense_feature_volume(c_planes: dict, nx: int, box_size: float, padding: float):
+    """(nx³, C) features of every field at ``dense_query_grid``'s points,
+    summed in the order grid, xz, xy, yz."""
+    vol = _particle_order(c_planes, nx, box_size, padding)
+    return vol.reshape(nx ** 3, vol.shape[-1])
+
+
+def dense_query_grid(nx: int, box_size: float, device="cuda"):
+    """(nx³, 3) dense query points, x slowest and z fastest."""
+    cn = dense_query_grid_cn(nx, box_size, device)
+    return cn.reshape(3, nx, nx, nx).permute(3, 2, 1, 0).reshape(-1, 3)
+
+
+def supercell_packed_volume(g, S: int, L: int = 1, dtype=torch.float32):
+    """(D, D, D, C) feature grid → ((L+1)³·C, n_pad) packed volume and
+    n1 = ceil((D-1)/L): column s holds the (L+1)³ node neighbourhood of
+    super-cell s (flat id as in supercell_keys), row j·C + c channel c of
+    offset j = (jz·(L+1) + jy)·(L+1) + jx; border nodes past the grid
+    repeat its edge; columns are zero-padded to a multiple of S, at least
+    2S."""
+    D, H, W, C = g.shape
+    if not (D == H == W):
+        raise ValueError("windowed decode expects a cubic grid")
+    P = L + 1
+    n1 = -(-(W - 1) // L)
+    edge = torch.clamp(torch.arange(L * n1 + 1, device=g.device), max=W - 1)
+    gp = g.to(dtype)[edge][:, edge][:, :, edge]
+    vol = torch.stack([gp[jz:jz + L * n1:L, jy:jy + L * n1:L, jx:jx + L * n1:L]
+                       for jz in range(P) for jy in range(P) for jx in range(P)])
+    vol = vol.permute(0, 4, 1, 2, 3).reshape(P ** 3 * C, n1 ** 3)
+    n_pad = max(2 * S, -(-n1 ** 3 // S) * S)
+    return torch.nn.functional.pad(vol, (0, n_pad - n1 ** 3)), n1
 
 
 def dense_query_grid_cn(nx: int, box_size: float, device="cuda"):

@@ -2,8 +2,10 @@
 
 Same contracts as the JAX functions, on torch tensors: the outlier-only
 remap of the normalizations, the ``x + R*(y + R*z)`` flat cell index, the
-reference's bespoke camera extrinsics, and the axis-angle and 6D rotations
-of the MANO layer. The crop helpers at the end (``normalize_coord``,
+reference's bespoke camera extrinsics and its pinhole ``Camera`` (which
+takes numpy arrays, as the JAX one does, or tensors on any device), the
+projections, and the axis-angle, 6D, quaternion and SVD-projected
+rotations of the MANO layer. The crop helpers at the end (``normalize_coord``,
 ``coord2index``, ``update_reso``, ``decide_total_volume_range``) are host
 numpy, as the JAX package's are: the crop data fields and the crop
 volumes call them before anything reaches the device.
@@ -12,6 +14,7 @@ volumes call them before anything reaches the device.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -144,6 +147,92 @@ def quat2mat(quat):
         2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
     ], dim=-1)
     return m.reshape(quat.shape[:-1] + (3, 3))
+
+
+# the reference's name (manopth/quatutils.py)
+quaternion_to_rotation_matrix = quat2mat
+
+
+def quaternion_mul(q, r):
+    """Hamilton product of (..., 4) quaternions in (w, x, y, z) order."""
+    w1, x1, y1, z1 = q.unbind(-1)
+    w2, x2, y2, z2 = r.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quaternion_inv(q):
+    """The conjugate over the squared norm."""
+    conj = torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+    return conj / torch.sum(q * q, dim=-1, keepdim=True)
+
+
+def quaternion_normalize(q):
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def rotmat_projection(mats):
+    """The nearest rotations (det +1) to (..., 3, 3) matrices, through
+    their SVD U S Vᵀ: U Vᵀ, with U's last column negated where det(U Vᵀ)
+    is negative."""
+    U, _, Vh = torch.linalg.svd(mats)
+    det = torch.linalg.det(U @ Vh)
+    one = torch.ones_like(det)
+    flip = torch.stack([one, one, torch.where(det < 0, -one, one)], dim=-1)
+    return (U * flip[..., None, :]) @ Vh
+
+
+class Camera:
+    """The reference's pinhole camera (its RFUniverseCamera's closed-form
+    intrinsics, f = h / (2 tan(fov/2)))."""
+
+    def __init__(self, width, height, near_plane, far_plane, fov=90):
+        self.width, self.height = width, height
+        self.near, self.far = near_plane, far_plane
+        self.fov = fov
+        self.f = height / (2 * math.tan(math.radians(fov / 2)))
+        self.intrinsic_matrix = np.array(
+            [[self.f, 0, width / 2], [0, self.f, height / 2], [0, 0, 1]])
+
+    def depth_to_camera_pointcloud(self, depth):
+        """An (H, W) depth map (an array, or a tensor on any device) →
+        its (H*W, 3) back-projection in the frame (z, -x, -y). The caller
+        drops the points past the far plane (``valid_mask``)."""
+        if isinstance(depth, torch.Tensor):
+            ymap, xmap = torch.meshgrid(torch.arange(self.height, device=depth.device),
+                                        torch.arange(self.width, device=depth.device),
+                                        indexing="ij")
+            stack = torch.stack
+        else:
+            xmap, ymap = np.meshgrid(np.arange(self.width), np.arange(self.height))
+            stack = np.stack
+        pz = depth
+        px = (xmap - self.width / 2) * pz / self.f
+        py = (ymap - self.height / 2) * pz / self.f
+        return stack([pz, -px, -py], -1).reshape(-1, 3)
+
+    def valid_mask(self, cloud):
+        """True where a back-projected point lies before the far plane
+        (the reference drops z > far - 5e-4)."""
+        return cloud[..., 0] <= self.far - 0.0005
+
+
+def transform_points(points, transform):
+    """(B, N, 3) points through (B, 3, 4) [R | t] or a (B, 3, 3) K."""
+    if transform.shape[2] == 4:
+        return (points @ transform[:, :, :3].transpose(1, 2)
+                + transform[:, :, 3:].transpose(1, 2))
+    return points @ transform.transpose(1, 2)
+
+
+def project_to_camera(points, transform):
+    """Perspective projection: (B, N, 2) image coordinates."""
+    p_cam = transform_points(points, transform)
+    return p_cam[..., :2] / p_cam[..., 2:]
 
 
 def batch_rodrigues(axisang):

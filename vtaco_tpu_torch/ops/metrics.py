@@ -1,6 +1,7 @@
 """Metrics (port of vtaco_tpu/ops/metrics.py: compute_iou :17-37,
-chamfer_distance :39-58, the host KD-tree chamfer :61-94 and
-earth_mover_distance :97-104).
+chamfer_distance :39-58, the host KD-tree chamfer :61-94,
+earth_mover_distance :97-108 with its reference name EarthMoverDistance,
+and hand_joint_error :111-116).
 
 The KD-tree chamfer runs on the host in the native KD-tree
 (native/geom.cpp, the JAX package's replacement for the reference's
@@ -83,3 +84,15 @@ def earth_mover_distance(points1, points2):
     d = distance.cdist(np.asarray(points1), np.asarray(points2))
     assignment = linear_sum_assignment(d)
     return d[assignment].sum() / len(d)
+
+
+# the reference's name (src/common.py:45), as in the JAX package
+EarthMoverDistance = earth_mover_distance
+
+
+def hand_joint_error(joints_gt, joints_pred):
+    """The mean per-joint L2 error (a float) of two (1, J, 3) or (J, 3)
+    joint sets, tensors on any device or arrays, on the host in their
+    dtype."""
+    j_gt, j_pred = _host(joints_gt).squeeze(), _host(joints_pred).squeeze()
+    return float(np.mean(np.linalg.norm(j_gt - j_pred, axis=1)))

@@ -106,14 +106,17 @@ from torch.utils.checkpoint import checkpoint
 
 from vtaco_tpu_torch.core.precision import TF32, matmul_precision
 from vtaco_tpu_torch.models.decoder import AttentionDecoder, LocalPointDecoder
+from vtaco_tpu_torch.models.init import init_params
 from vtaco_tpu_torch.models.layers import batch_stats_group, frozen_batch_stats
 from vtaco_tpu_torch.ops import metrics
 from vtaco_tpu_torch.ops.geometry import make_3d_grid
 from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
 from vtaco_tpu_torch.parallel.mesh import batch_rows, broadcast_module, data_group
+from vtaco_tpu_torch.parallel.tp import unsharded
 from vtaco_tpu_torch.train import contact as C
 
 DEPTH_NEAR = 0.019
+DEPTH_FAR = 0.022
 DEPTH_REST = 0.0215
 # predicted-depth denormalization slope (wider than DEPTH_FAR - DEPTH_NEAR,
 # as in the reference)
@@ -304,6 +307,28 @@ class Trainer:
                "keep_f32_modules": tcfg.get("keep_f32_modules", ("decoder",)),
                "remat": tcfg.get("remat", False),
                "matmul_precision": tcfg.get("matmul_precision", "default"), **kw})
+
+    def init_state(self, batch=None, rng=None):
+        """Start training afresh, as the JAX Trainer's init_state
+        (vtaco_tpu/train/trainer.py:267) does: every parameter drawn again
+        as get_model draws it (models/init.py) from ``rng`` (a seed, or a
+        torch.Generator on the trainer's device; default the trainer's
+        seed), BatchNorm's running statistics, the optimizer's moments,
+        the step and the sample generator reset. ``batch`` is accepted and
+        unused: flax traced it for the parameters' shapes. Under a mesh
+        every rank calls it, and the first rank's draws are broadcast.
+        Returns the model."""
+        if not isinstance(rng, torch.Generator):
+            rng = torch.Generator(device=self.device).manual_seed(
+                self.seed if rng is None else int(rng))
+        with unsharded(self.model, self.optimizer):
+            init_params(self.model, rng)
+            if self.mesh is not None:
+                broadcast_module(self.model, self.mesh)
+        self.optimizer.state.clear()
+        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.step = 0
+        return self.model
 
     # ------------------------------------------------------------------
     def prepare_batch(self, batch, shard=True):
