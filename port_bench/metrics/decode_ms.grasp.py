@@ -1,0 +1,7 @@
+"""decode_ms.grasp: the mean over the window's requests of the device
+time (CUDA events, the stream's timeline) of the grasp.decode span."""
+
+
+def read(record):
+    ms = record.get("spans", {}).get("grasp.decode")
+    return sum(ms) / len(ms) if ms else None

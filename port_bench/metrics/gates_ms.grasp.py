@@ -1,0 +1,7 @@
+"""gates_ms.grasp: the mean over the window's requests of the device
+time (CUDA events, the stream's timeline) of the grasp.gates span."""
+
+
+def read(record):
+    ms = record.get("spans", {}).get("grasp.gates")
+    return sum(ms) / len(ms) if ms else None
