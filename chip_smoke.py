@@ -186,7 +186,7 @@ ends:
      steps (host batches, compute_dtype and skip_unused_t2d off): the
      step times with least and most, the peak memory of each, launches
      per step and busy share under torch.profiler, and the host syncs
-     inside a block (utils.syncs.host_syncs around the fused call; its
+     inside a block (utils.profiling.host_syncs around the fused call; its
      scalars are read after it); (c) a bfloat16 step against the float32
      'highest' step from the same weights (built from seed 0), batch and
      draws, within tests/bf16_checks.step_bars (twice the JAX package's
@@ -346,7 +346,7 @@ from vtaco_tpu_torch.ops.dense_decode import (
 )
 from vtaco_tpu_torch.models.layers import BatchNorm2d, frozen_batch_stats
 from vtaco_tpu_torch.core.precision import matmul_precision
-from vtaco_tpu_torch.utils.syncs import host_syncs
+from vtaco_tpu_torch.utils.profiling import host_syncs
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from bf16_checks import (CARD_BAR, CARD_OUTPUTS_LOGGED, bf16_batchnorm,  # noqa: E402
@@ -3477,7 +3477,7 @@ def fast_timing(phase, cfg, trainer, k):
     skip_unused_t2d off as in the non-fast config), FAST_ROUNDS rounds of
     one block and K plain steps, with least and most; the peak memory of
     each; launches per step and busy share under torch.profiler; and the
-    host syncs inside a block (utils.syncs.host_syncs around the fused
+    host syncs inside a block (utils.profiling.host_syncs around the fused
     call, whose scalars stay on the card until the read after it)."""
     bs = cfg["training"]["batch_size"]
     n_points, n_cloud = cfg["data"]["points_subsample"], cfg["data"]["pointcloud_n"]

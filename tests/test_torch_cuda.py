@@ -936,11 +936,11 @@ def test_bf16_step_card_within_bars(cuda, train_cfg):
 def test_fused_block_has_no_host_sync(cuda, train_cfg):
     """K = 4 fused bfloat16 steps on a device-resident split (VTacO_YCB at
     small widths): after a warm-up block, a block runs under
-    utils.syncs.host_syncs and none of its steps may wait for the card
+    utils.profiling.host_syncs and none of its steps may wait for the card
     (the failure lists the file:line of each wait); its scalars stay on
     the card until the one read after it."""
     from vtaco_tpu_torch.data.device_data import DeviceDataset
-    from vtaco_tpu_torch.utils.syncs import host_syncs
+    from vtaco_tpu_torch.utils.profiling import host_syncs
 
     cfg = copy.deepcopy(train_cfg)
     cfg["training"]["compute_dtype"] = "bfloat16"

@@ -277,6 +277,7 @@ NO_PORT = {
     "generate/generator.py": {"Generator3D.lower_dense_fast", "Generator3D.transfer_dtype"},
     "core/checkpoint.py": {"import_torch_bn", "import_torch_conv", "import_torch_convtranspose",
                            "import_torch_linear", "load_partial_params"},
+    "utils/profiling.py": {"annotate"},
 }
 ABSENT = object()
 NO_PORT_FILES = {"core/cache.py", "core/torch_import.py", "models/mano_assets.py",

@@ -80,7 +80,7 @@ def test_profiled_region_writes_a_trace_after_stop_step(tmp_path):
     x = torch.ones(64, 64)
     for step in range(1, 8):
         region.maybe_start(step)
-        with profiling.annotate("marked_step"):
+        with profiling.span("marked_step"):
             x = torch.tanh(x @ x)
         region.maybe_stop(step)
         files = os.listdir(tmp_path)

@@ -44,6 +44,7 @@ from vtaco_tpu_torch.ops.geometry import (
     update_reso,
 )
 from vtaco_tpu_torch.parallel.multihost import process_shard
+from vtaco_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -206,7 +207,12 @@ class BatchLoader:
     """Shuffling batch iterator; a producer thread fills a queue of
     ``prefetch`` batches, loading each batch's samples on ``num_workers``
     threads. drop_last (the default with shuffle) keeps every training
-    batch the same shape; validation uses batch_size 1."""
+    batch the same shape; validation uses batch_size 1.
+
+    Traced (utils/profiling.py), on the consumer's thread: each wait on the
+    queue is a ``loader.wait`` span; ``loader.epochs`` counts producer
+    starts, ``loader.batches`` the batches handed out and ``loader.empty``
+    those the consumer had to wait for (the queue empty when it asked)."""
 
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
                  drop_last=None, seed=None, prefetch=2):
@@ -263,14 +269,22 @@ class BatchLoader:
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()
+        profiling.count("loader.epochs")
         try:
             while True:
-                item = q.get()
+                with profiling.span("loader.wait"):
+                    try:
+                        item, empty = q.get_nowait(), False
+                    except queue.Empty:
+                        item, empty = q.get(), True
                 if item is stop:
                     if error:
                         raise error[0]
                     break
                 if item is not None:
+                    profiling.count("loader.batches")
+                    if empty:
+                        profiling.count("loader.empty")
                     yield item
         finally:
             closed.set()

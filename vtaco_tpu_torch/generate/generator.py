@@ -140,7 +140,7 @@ from vtaco_tpu_torch.train.contact import (
     random_topk_select,
     tips_in_object_frame,
 )
-from vtaco_tpu_torch.utils import meshio
+from vtaco_tpu_torch.utils import meshio, profiling
 
 _TRANSFER = {"auto": torch.float32, "float32": torch.float32,
              "bfloat16": torch.bfloat16, "int8": "int8"}
@@ -152,11 +152,16 @@ def _transfer(td):
 
 
 def _host(out):
-    """Finalized (N,) or (B, N) logits → host float32 numpy."""
-    if isinstance(out, tuple):           # int8: (quantized, scale per row)
-        q, scale = out
-        return q.cpu().numpy().astype(np.float32) * scale.cpu().numpy()[..., None]
-    return out.float().cpu().numpy()
+    """Finalized (N,) or (B, N) logits → host float32 numpy (the span
+    ``decode.copy``; the bytes shipped count in ``decode.bytes``)."""
+    with profiling.span("decode.copy"):
+        if isinstance(out, tuple):           # int8: (quantized, scale per row)
+            q, scale = out[0].cpu(), out[1].cpu()
+            profiling.count("decode.bytes", q.nbytes + scale.nbytes)
+            return q.numpy().astype(np.float32) * scale.numpy()[..., None]
+        out = out.float().cpu()
+        profiling.count("decode.bytes", out.nbytes)
+        return out.numpy()
 
 
 def _gather_objects(out, mesh, rows):
@@ -443,13 +448,14 @@ class Generator3D:
         flattened x-slowest (the marching-cubes order), or z-slowest, the
         decode's own order, with ``out_xmajor=False``."""
         box_size = 1 + self.padding
-        feats = dense_feature_volume_cn(c, nx, box_size, self.padding, dtype)
-        p_cn = dense_query_grid_cn(nx, box_size, device=feats.device)
-        logits = self._trunk_fast(tp, p_cn, feats, gate_pts, gate_feat,
-                                  gate_valid, gating, dtype, leaky)
-        if out_xmajor:
-            logits = logits.reshape(nx, nx, nx).permute(2, 1, 0).reshape(-1)
-        return self._finalize_logits(logits, out_dtype)
+        with profiling.span("decode.trunk"):
+            feats = dense_feature_volume_cn(c, nx, box_size, self.padding, dtype)
+            p_cn = dense_query_grid_cn(nx, box_size, device=feats.device)
+            logits = self._trunk_fast(tp, p_cn, feats, gate_pts, gate_feat,
+                                      gate_valid, gating, dtype, leaky)
+            if out_xmajor:
+                logits = logits.reshape(nx, nx, nx).permute(2, 1, 0).reshape(-1)
+            return self._finalize_logits(logits, out_dtype)
 
     @_at_precision
     def eval_points_dense(self, model, nx, c, gating="none", gate_pts=None,
@@ -1195,27 +1201,34 @@ class Generator3D:
         model's mode); without one (VTacOH), fingertip gates: the hand
         encoder's MANO fingertips moved into the object frame by the
         ground-truth wrist position ``mano_gt[:, :3]`` and Euler angles
-        ``wrist``, with the touch flags as their validity."""
+        ``wrist``, with the touch flags as their validity. The span
+        ``gates`` holds ``gates.img``, then ``gates.hand`` or ``gates.t2d``
+        (when it runs) and ``gates.contact``."""
         if not self.with_img:
             return "none", None, None, None
-        c_img = model.encode_img_inputs(imgs)                     # (1, 5, C)
-        if not self.encode_t2d:
-            c_hand = model.encode_hand_inputs(inputs)
-            tips = tips_in_object_frame(c_hand["mano_joints"], mano_gt[:, :3],
-                                        wrist, pc_ply)[0]
-            return "tips", tips, c_img[0], touch[0]
-        H, W = imgs.shape[2], imgs.shape[3]
-        if self.depth_origin is not None and len(self.depth_origin) == H * W:
-            d_origin = torch.as_tensor(self.depth_origin, device=depths.device)
-        else:
-            d_origin = torch.full((H * W,), DEPTH_REST, device=depths.device)
-        pred_depth = None
-        if not self.legacy_gt_depth:
-            pred_depth = model.encode_t2d(inputs, imgs)[0][0]     # (5, H*W)
-        gate_pts, gate_valid = self._prep_contact_gates(
-            depths[0], pred_depth, d_origin, touch[0], cam_rot[0], cam_pos[0],
-            pc_ply[0], H, W, seed=seed)
-        return "contact", gate_pts, c_img[0], gate_valid
+        with profiling.span("gates"):
+            with profiling.span("gates.img"):
+                c_img = model.encode_img_inputs(imgs)                 # (1, 5, C)
+            if not self.encode_t2d:
+                with profiling.span("gates.hand"):
+                    c_hand = model.encode_hand_inputs(inputs)
+                    tips = tips_in_object_frame(c_hand["mano_joints"], mano_gt[:, :3],
+                                                wrist, pc_ply)[0]
+                return "tips", tips, c_img[0], touch[0]
+            H, W = imgs.shape[2], imgs.shape[3]
+            if self.depth_origin is not None and len(self.depth_origin) == H * W:
+                d_origin = torch.as_tensor(self.depth_origin, device=depths.device)
+            else:
+                d_origin = torch.full((H * W,), DEPTH_REST, device=depths.device)
+            pred_depth = None
+            if not self.legacy_gt_depth:
+                with profiling.span("gates.t2d"):
+                    pred_depth = model.encode_t2d(inputs, imgs)[0][0]  # (5, H*W)
+            with profiling.span("gates.contact"):
+                gate_pts, gate_valid = self._prep_contact_gates(
+                    depths[0], pred_depth, d_origin, touch[0], cam_rot[0], cam_pos[0],
+                    pc_ply[0], H, W, seed=seed)
+            return "contact", gate_pts, c_img[0], gate_valid
 
     @_at_precision
     def _encode_sample(self, model, data, seed, gates=True):

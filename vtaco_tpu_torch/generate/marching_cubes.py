@@ -25,17 +25,21 @@ from vtaco_tpu_torch.generate.mc_tables import (
     EDGE_CORNERS,
     TRI_TABLE,
 )
+from vtaco_tpu_torch.utils import profiling
 
 
 def marching_cubes(volume, level=None, gradient="ascent"):
     """Extract the `level` isosurface of a (nx, ny, nz) scalar field.
 
     ``level`` defaults to (min+max)/2. Returns verts (V, 3) float32 in
-    voxel coordinates and faces (F, 3) int32."""
-    volume = np.ascontiguousarray(volume, np.float32)
-    if level is None:
-        level = (float(volume.min()) + float(volume.max())) / 2.0
-    verts, faces = native.mc.marching_cubes(volume, level)
+    voxel coordinates and faces (F, 3) int32. Spans: ``mc.level`` (the
+    contiguous float32 volume and its level), ``mc.native``."""
+    with profiling.span("mc.level"):
+        volume = np.ascontiguousarray(volume, np.float32)
+        if level is None:
+            level = (float(volume.min()) + float(volume.max())) / 2.0
+    with profiling.span("mc.native"):
+        verts, faces = native.mc.marching_cubes(volume, level)
     if gradient == "ascent":
         faces = faces[:, ::-1]
     return verts, faces

@@ -114,6 +114,7 @@ from vtaco_tpu_torch.ops.winding import MeshBank, winding_number_batch
 from vtaco_tpu_torch.parallel.mesh import batch_rows, broadcast_module, data_group
 from vtaco_tpu_torch.parallel.tp import unsharded
 from vtaco_tpu_torch.train import contact as C
+from vtaco_tpu_torch.utils import profiling
 
 DEPTH_NEAR = 0.019
 DEPTH_FAR = 0.022
@@ -275,6 +276,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.step = 0
         self.stage_events = None
+        self._stage = None    # the open stage's span (_mark)
         self._bound = _Bound(model)
         self._params = None   # the train step's cast parameters by module (mixed precision)
         self.mesh = device_mesh
@@ -337,53 +339,55 @@ class Trainer:
         paths take the dataset's labels). A crop batch adds
         ``inputs_index`` ({field: (B, N) int64}) and ``points_normalized``
         ({field: (B, N, 2|3)}). Under a mesh with ``shard``, this rank's
-        rows, and ``rows`` (parallel.mesh.Rows) says which."""
-        rows = (batch_rows(len(batch["points"]), self.mesh)
-                if self.mesh is not None and shard else None)
+        rows, and ``rows`` (parallel.mesh.Rows) says which. The span
+        ``trainer.upload``."""
+        with profiling.span("trainer.upload"):
+            rows = (batch_rows(len(batch["points"]), self.mesh)
+                    if self.mesh is not None and shard else None)
 
-        def put(key, dtype=torch.float32):
-            v = batch[key]   # a host array, or a tensor (a device-resident batch)
-            v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+            def put(key, dtype=torch.float32):
+                v = batch[key]   # a host array, or a tensor (a device-resident batch)
+                v = v if isinstance(v, torch.Tensor) else np.asarray(v)
+                if rows is not None:
+                    v = rows.take(v)
+                return torch.as_tensor(v, dtype=dtype, device=self.device)
+
+            a = {"points": put("points"), "occ": put("points.occ"),
+                 "inputs": put("inputs")}
+            if "points.mano" in batch:
+                for k in ("mano", "pc_hand", "wrist", "cam_pos", "cam_rot"):
+                    a[k] = put(f"points.{k}")
+            if "points.contact" in batch:
+                a["contact"] = put("points.contact")
+            if "inputs.pc_ply" in batch:
+                a["pc_ply"] = put("inputs.pc_ply")
+            if "inputs.img" in batch:
+                a["imgs"] = put("inputs.img")
+                a["depths"] = put("inputs.depth")
+                a["touch_success"] = put("inputs.touch_success") > 0.5
+            if "points_iou" in batch:
+                a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
+            if "voxels" in batch:
+                a["voxels"] = put("voxels")
+            ind = {k.split(".")[-1]: put(k, torch.int64)[:, 0]
+                   for k in batch if k.startswith("inputs.ind.")}
+            if ind:
+                a["inputs_index"] = ind
+            normalized = {k.split(".")[-1]: put(k)
+                          for k in batch if k.startswith("points.normalized.")}
+            if normalized:
+                a["points_normalized"] = normalized
             if rows is not None:
-                v = rows.take(v)
-            return torch.as_tensor(v, dtype=dtype, device=self.device)
-
-        a = {"points": put("points"), "occ": put("points.occ"),
-             "inputs": put("inputs")}
-        if "points.mano" in batch:
-            for k in ("mano", "pc_hand", "wrist", "cam_pos", "cam_rot"):
-                a[k] = put(f"points.{k}")
-        if "points.contact" in batch:
-            a["contact"] = put("points.contact")
-        if "inputs.pc_ply" in batch:
-            a["pc_ply"] = put("inputs.pc_ply")
-        if "inputs.img" in batch:
-            a["imgs"] = put("inputs.img")
-            a["depths"] = put("inputs.depth")
-            a["touch_success"] = put("inputs.touch_success") > 0.5
-        if "points_iou" in batch:
-            a["points_iou"], a["occ_iou"] = put("points_iou"), put("points_iou.occ")
-        if "voxels" in batch:
-            a["voxels"] = put("voxels")
-        ind = {k.split(".")[-1]: put(k, torch.int64)[:, 0]
-               for k in batch if k.startswith("inputs.ind.")}
-        if ind:
-            a["inputs_index"] = ind
-        normalized = {k.split(".")[-1]: put(k)
-                      for k in batch if k.startswith("points.normalized.")}
-        if normalized:
-            a["points_normalized"] = normalized
-        if rows is not None:
-            a["rows"] = rows
-        if self.train_tactile or not self.encode_t2d:
+                a["rows"] = rows
+            if self.train_tactile or not self.encode_t2d:
+                return a
+            if self.mesh_bank is None:
+                raise ValueError("the t2d loss paths need ground-truth meshes "
+                                 "(data.mesh_dir, a MeshBank)")
+            names = batch["points.name"]
+            a["mesh_verts"], a["mesh_faces"] = self.mesh_bank.gather(
+                self.mesh_bank.ids_for(names if rows is None else rows.take(names)))
             return a
-        if self.mesh_bank is None:
-            raise ValueError("the t2d loss paths need ground-truth meshes "
-                             "(data.mesh_dir, a MeshBank)")
-        names = batch["points.name"]
-        a["mesh_verts"], a["mesh_faces"] = self.mesh_bank.gather(
-            self.mesh_bank.ids_for(names if rows is None else rows.take(names)))
-        return a
 
     def _depth_origin_for(self, hw):
         if self.depth_origin is not None and self.depth_origin.shape[0] == hw:
@@ -451,11 +455,22 @@ class Trainer:
         return torch.func.functional_call(self._bound, params, (method,) + args,
                                           strict=False)
 
-    def _mark(self, name):
-        if self.stage_events is not None:
+    def _mark(self, name=None, then=None):
+        """A stage boundary of a step: the stage ``name`` ends here (its
+        recorded CUDA event joins ``stage_events`` when that is a list) and
+        the stage ``then`` begins. The open stage's span closes, and
+        ``then`` opens the span ``trainer.<then>``; ``_mark()`` closes the
+        open stage alone."""
+        if name is not None and self.stage_events is not None:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self.stage_events.append((name, ev))
+        if self._stage is not None:
+            self._stage.__exit__(None, None, None)
+            self._stage = None
+        if then is not None:
+            self._stage = profiling.span("trainer." + then)
+            self._stage.__enter__()
 
     def _labelled_sample(self, a, depth_for_contact, draws, generator):
         """The contact sample of the batch and its winding-number labels."""
@@ -471,12 +486,12 @@ class Trainer:
         """The tactile depth-stack loss at the model's train/eval mode:
         (loss, {name: scalar})."""
         m = self.model
-        self._mark("start")
+        self._mark("start", then="depth_unet")
         pred_depth = self._call("encode_img_inputs", a["imgs"])
         loss_depth = torch.mean(torch.abs(pred_depth - _minmax_norm(a["depths"],
                                                                     self._group)))
         loss, scalars = loss_depth, {"loss_depth": loss_depth}
-        self._mark("depth_unet")
+        self._mark("depth_unet", then="pose_head")
         if m.encoder_hand is not None:
             B = a["cam_pos"].shape[0]
             c_hand = self._call("encode_hand_inputs", a["inputs"])
@@ -495,25 +510,25 @@ class Trainer:
         "depth_for_contact"}); c_img is None without images."""
         m = self.model
         B = a["points"].shape[0]
-        self._mark("start")
+        self._mark("start", then="t2d")
         t2d_needed = (not self.legacy_gt_depth) or (not self.pretrained_t2d)
         pred_depth = digit_param = None
         if t2d_needed or (m.training and not self.skip_unused_t2d):
             with torch.set_grad_enabled(t2d_needed and torch.is_grad_enabled()):
                 pred_depth, c_hand_d = self._call("encode_t2d", a["inputs"], a["imgs"])
             digit_param = c_hand_d["mano_param"]
-        self._mark("t2d")
+        self._mark("t2d", then="contact_labels")
         if self.legacy_gt_depth:
             depth_for_contact = a["depths"]
         else:
             depth_for_contact = pred_depth.float() * DEPTH_SCALE + DEPTH_NEAR
         sample, occ = self._labelled_sample(a, depth_for_contact, draws,
                                             generator or self.generator)
-        self._mark("contact_labels")
+        self._mark("contact_labels", then="encoders")
         c = self._call("encode_inputs", a["inputs"])
         c_hand = self._call("encode_hand_inputs", a["inputs"])
         c_img = self._call("encode_img_inputs", a["imgs"]) if self.with_img else None
-        self._mark("encoders")
+        self._mark("encoders", then="decode")
         logits = self._decode_sample(sample, c, c_img)
         loss_l1 = torch.mean(torch.abs(logits - occ))
         loss_mano = torch.mean((c_hand["mano_param"] - a["mano"]) ** 2)
@@ -547,7 +562,7 @@ class Trainer:
         model's train/eval mode, crop batches in the crop modules' dict
         forms: (loss, {name: scalar})."""
         m = self.model
-        self._mark("start")
+        self._mark("start", then="encoders")
         enc_in, p_in = a["inputs"], a["points"]
         if "inputs_index" in a:
             enc_in = {"points": a["inputs"], "index": a["inputs_index"]}
@@ -556,7 +571,7 @@ class Trainer:
         c = self._call("encode_inputs", enc_in)
         c_hand = (self._call("encode_hand_inputs", a["inputs"])
                   if m.encoder_hand is not None else None)
-        self._mark("encoders")
+        self._mark("encoders", then="decode")
         scalars = {}
         if self.with_contact:
             logits, pred_contact = self._call("decode_contact", p_in, c)
@@ -580,18 +595,18 @@ class Trainer:
     def _compute_loss_img(self, a, draws=None, generator=None):
         """The img loss (VTacOH) at the model's train/eval mode: (loss,
         {name: scalar}, {"c", "c_img", "tips"})."""
-        self._mark("start")
+        self._mark("start", then="encoders")
         c = self._call("encode_inputs", a["inputs"])
         c_hand = self._call("encode_hand_inputs", a["inputs"])
         c_img = self._call("encode_img_inputs", a["imgs"])
-        self._mark("encoders")
+        self._mark("encoders", then="contact_labels")
         # the tips only choose the sample: no gradient reaches them
         tips = C.tips_in_object_frame(c_hand["mano_joints"].detach(), a["mano"][:, :3],
                                       a["wrist"], a["pc_ply"])
         sample, occ = C.fingertip_gated_sample(
             a["points"], a["occ"], tips, a["touch_success"], self.num_sample,
             self.tips_per_finger, generator or self.generator, draws, self._rows)
-        self._mark("contact_labels")
+        self._mark("contact_labels", then="decode")
         logits = self._call("decode_img", sample.points, c,
                             C.scatter_finger_features(c_img, sample, init="zeros"))
         loss_l1 = torch.mean(torch.abs(logits - occ))
@@ -605,8 +620,10 @@ class Trainer:
 
     @staticmethod
     def _host(scalars):
-        """{name: 0-d tensor} → {name: float}, in one read from the device."""
-        vals = torch.stack([v.detach().float() for v in scalars.values()]).tolist()
+        """{name: 0-d tensor} → {name: float}, in one read from the device
+        (the span ``trainer.read``)."""
+        with profiling.span("trainer.read"):
+            vals = torch.stack([v.detach().float() for v in scalars.values()]).tolist()
         return dict(zip(scalars, vals))
 
     def _train_step(self, a, draws=None):
@@ -640,13 +657,18 @@ class Trainer:
                     loss, scalars = self._compute_loss_plain(a)
             finally:
                 self._params = self._rows = self._group = None
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.float().backward()
-            if group is not None:
-                self._all_reduce_grads(group)
-            self._mark("backward")
-            self.optimizer.step()
-            self._mark("optimizer")
+                self._mark()    # a stage span that an exception left open
+            try:
+                self._mark(then="backward")
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.float().backward()
+                if group is not None:
+                    self._all_reduce_grads(group)
+                self._mark("backward", then="optimizer")
+                self.optimizer.step()
+                self._mark("optimizer")
+            finally:
+                self._mark()
         self.step += 1
         scalars = {k: v.detach().float() for k, v in scalars.items()}
         if group is not None:
